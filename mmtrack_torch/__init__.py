@@ -1,0 +1,20 @@
+"""mmtrack_torch — the PyTorch + CUDA (Hopper) port of mmtrack_tpu.
+
+The JAX package `mmtrack_tpu` stays the reference; each module here keeps
+its counterpart's path and function names. Plain tensor code is PyTorch;
+every Pallas kernel of the JAX package on the ported path is a CUDA C++
+kernel in `csrc/`, built at first use by `kernels/build.py`.
+
+Ported so far (the ViPT batched tracking path):
+  ops/       crop (batched crop kernel), flash_attn, mlp_fuse (half-block
+             kernels), ce, window, box
+  models/    layers, heads (CENTER), vipt, convert (flax -> torch bridge)
+  trackers/  vipt_tracker
+  parallel/  batched_eval (single device)
+
+Kernel wrappers take the plain PyTorch version for a tensor on the CPU and
+launch the kernel (or raise) for a tensor on CUDA. This package never
+imports jax or flax.
+"""
+
+__version__ = "0.1.0"

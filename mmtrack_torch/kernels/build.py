@@ -1,0 +1,131 @@
+"""Build and bind the hand-written Hopper kernels of `mmtrack_torch/csrc`.
+
+The sources are compiled with `nvcc -gencode arch=compute_90a,code=sm_90a
+-O3` into one shared library with a plain C interface and loaded with
+ctypes. The library is built at first use into `mmtrack_torch/kernels/_build/`
+(ignored by git) under a name that hashes the sources and flags, so an
+edited source is rebuilt and a stale library is never loaded. No
+`--use_fast_math`: the crop geometry relies on correctly rounded `sqrtf`,
+division and `ceilf`.
+
+Nothing here runs at import time: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# name -> argtypes; every function returns a cudaError_t as int
+_SIGNATURES = {
+    "mmt_layernorm_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
+    "mmt_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mmt_attention_bf16": (_P, _P, _I, _I, _I, _F, _P),
+    "mmt_attention_max_tokens": (),
+    "mmt_crop_resize_normalize": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+}
+
+
+class KernelCompileError(RuntimeError):
+    pass
+
+
+def _sources() -> list[Path]:
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise KernelCompileError("nvcc not found: the kernels need the CUDA toolkit")
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmmtrack_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the library if it is not built yet.
+
+    Returns (path, seconds spent compiling; 0.0 when it was already built).
+    The nvcc log (with the `-Xptxas -v` register and spill report) is kept
+    beside the library as `<name>.log`.
+    """
+    lib = _library_path()
+    if lib.exists():
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise KernelCompileError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib, seconds
+
+
+class _Kernels:
+    """The loaded library: one ctypes function per kernel launcher."""
+
+    def __init__(self, path: Path, build_seconds: float):
+        self.path = path
+        self.build_seconds = build_seconds
+        self._lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(self._lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        self.attention_max_tokens = self._lib.mmt_attention_max_tokens()
+
+    def launch(self, name: str, *args) -> None:
+        """Call a launcher and raise if CUDA refused the launch."""
+        err = getattr(self._lib, name)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+_LOADED: _Kernels | None = None
+
+
+def load_library() -> _Kernels:
+    """Build (at first use) and load the kernel library; raises on failure."""
+    global _LOADED
+    if _LOADED is None:
+        path, seconds = build()
+        _LOADED = _Kernels(path, seconds)
+    return _LOADED
+
+
+def stream_handle(device) -> int:
+    """PyTorch's current CUDA stream on `device`, as the int ctypes passes."""
+    return torch.cuda.current_stream(device).cuda_stream

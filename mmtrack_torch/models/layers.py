@@ -1,0 +1,180 @@
+"""Transformer building blocks, port of mmtrack_tpu/models/layers.py.
+
+Parameters use the reference torch names (the ones
+mmtrack_tpu/models/convert.py::convert_vipt_checkpoint reads), so the
+flax -> torch bridge (models/convert.py) is a pure relabelling.
+
+Numerics follow flax at the module's compute `dtype`: matmul and conv
+weights are held in `dtype`; biases and LayerNorm parameters stay f32 and
+are cast where flax casts them (a Dense/Conv product is rounded to `dtype`,
+then the bias is added in `dtype`; LayerNorm computes in f32 and rounds its
+output). Inside the two kernel modules (ops/flash_attn.py, ops/mlp_fuse.py)
+the Pallas kernels' rounding points apply instead.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mmtrack_torch.ops.ce import candidate_elimination
+from mmtrack_torch.ops.flash_attn import attn_block_fused, attn_block_fused_plain, mhsa_plain
+from mmtrack_torch.ops.mlp_fuse import (
+    gelu_exact,
+    layer_norm_f32,
+    mlp_block_fused,
+    mlp_block_fused_plain,
+)
+
+
+class Dense(nn.Module):
+    """flax nn.Dense: y = round(x @ W^T) + bias, in the compute dtype.
+
+    weight (out, in) in `dtype`, bias (out,) f32.
+    """
+
+    def __init__(self, in_dim: int, out_dim: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_dim, in_dim, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_dim, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.weight.dtype
+        return F.linear(x.to(dt), self.weight) + self.bias.to(dt)
+
+
+class Conv2d(nn.Module):
+    """flax nn.Conv on NCHW tensors: round(conv(x, W)) + bias in the compute
+    dtype. weight (O, I, kh, kw) in `dtype`, bias (O,) f32."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 padding: int = 0, dtype=torch.float32, device=None):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(
+            torch.empty(out_ch, in_ch, kernel, kernel, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_ch, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.weight.dtype
+        y = F.conv2d(x.to(dt), self.weight, None, self.stride, self.padding)
+        return y + self.bias.to(dt)[:, None, None]
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm(epsilon=1e-6): f32 statistics and affine, output in
+    `dtype`."""
+
+    eps = 1e-6
+
+    def __init__(self, dim: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm_f32(x, self.weight, self.bias, self.eps).to(self.dtype)
+
+
+class PatchEmbed(nn.Module):
+    """Image to patch tokens: conv with kernel = stride = patch, NHWC in,
+    (B, H/p * W/p, C) tokens out."""
+
+    def __init__(self, embed_dim: int = 768, patch_size: int = 16, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.proj = Conv2d(3, embed_dim, patch_size, stride=patch_size, dtype=dtype,
+                           device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.proj(x.permute(0, 3, 1, 2))          # (B, C, H', W')
+        return y.flatten(2).transpose(1, 2)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.fc1 = Dense(dim, hidden_dim, dtype=dtype, device=device)
+        self.fc2 = Dense(hidden_dim, dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.fc1(x)
+        return self.fc2(gelu_exact(h.float()).to(h.dtype))
+
+
+class Attention(nn.Module):
+    """Fused-qkv multi-head self-attention (layers.py:90-151, no rpe).
+
+    The plain path of the blocks that need the probability matrix (the CE
+    blocks, `return_attn=True`) and of f32 models.
+    """
+
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.scale = (dim // num_heads) ** -0.5
+        self.qkv = Dense(dim, 3 * dim, dtype=dtype, device=device)
+        self.proj = Dense(dim, dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, return_attn: bool = False):
+        out, attn = mhsa_plain(self.qkv(x), self.num_heads, self.scale)
+        return self.proj(out), (attn if return_attn else None)
+
+
+class CEBlock(nn.Module):
+    """Transformer block with optional candidate elimination after attention
+    (layers.py:217-300), inference only.
+
+    At bf16 the block runs the fused half-blocks (the gate of
+    layers.py:252-293): `attn_block_fused` when this block does not eliminate
+    and `mlp_block_fused` always. They launch the CUDA kernels for CUDA
+    tensors and their plain versions on the CPU. `use_kernels=False` selects
+    the plain versions on any device, for comparing a whole model with and
+    without the kernels.
+    """
+
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32, device=None,
+                 use_kernels: bool = True):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.use_kernels = use_kernels
+        self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
+        self.attn = Attention(dim, num_heads, dtype=dtype, device=device)
+        self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
+        self.mlp = Mlp(dim, 4 * dim, dtype=dtype, device=device)
+
+    def forward(self, x, global_index_t, global_index_s,
+                box_mask_z: Optional[torch.Tensor] = None, lens_keep: Optional[int] = None):
+        lens_t = global_index_t.shape[1]
+        lens_s = global_index_s.shape[1]
+        needs_ce = lens_keep is not None and lens_keep < lens_s
+        fused = self.dtype == torch.bfloat16
+        attn_fn = attn_block_fused if self.use_kernels else attn_block_fused_plain
+        mlp_fn = mlp_block_fused if self.use_kernels else mlp_block_fused_plain
+
+        attn = None
+        if fused and not needs_ce:
+            n1, a = self.norm1, self.attn
+            x = attn_fn(x, n1.weight, n1.bias, a.qkv.weight, a.qkv.bias, a.proj.weight,
+                        a.proj.bias, num_heads=self.num_heads, scale=a.scale, eps=n1.eps)
+        else:
+            attn_out, attn = self.attn(self.norm1(x), return_attn=needs_ce)
+            x = x + attn_out
+
+        removed_index_s = None
+        if needs_ce:
+            x, global_index_s, removed_index_s = candidate_elimination(
+                attn, x, lens_t, lens_keep, global_index_s, box_mask_z)
+
+        if fused:
+            n2, m = self.norm2, self.mlp
+            x = mlp_fn(x, n2.weight, n2.bias, m.fc1.weight, m.fc1.bias, m.fc2.weight,
+                       m.fc2.bias, eps=n2.eps)
+        else:
+            x = x + self.mlp(self.norm2(x))
+        return x, global_index_t, global_index_s, removed_index_s

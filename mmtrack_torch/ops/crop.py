@@ -1,0 +1,107 @@
+"""Batched target-centred square crop + bilinear resize + normalisation.
+
+Port of mmtrack_tpu/ops/crop.py::crop_resize_normalized (gather semantics,
+crop.py:25-83 and :132-167) batched over sequences, with the hand-written
+kernel `csrc/crop.cu` in place of the TPU's single-image Pallas kernel
+(mmtrack_tpu/ops/pallas_preproc.py::crop_resize_normalize_pallas).
+
+Geometry (sample_target, ViPT processing_utils.py:32-41): crop side
+ceil(sqrt(w h) * factor) (at least 1), origin round(centre - side/2) with
+half-to-even rounding, cv2's half-pixel source coordinates clipped to
+[0, side - 1], four bilinear taps where image row H-1 and column W-1 are
+never sampled (constant padding instead), then (x / 255 - mean) / std.
+
+The plain version below performs every step as one correctly rounded f32
+operation in the kernel's order. Divisions are tensor-by-tensor on purpose:
+PyTorch's CUDA division by a Python scalar multiplies by the reciprocal,
+which would round differently from the kernel's `__fdiv_rn`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mmtrack_torch.kernels.build import load_library, stream_handle
+
+
+def crop_resize_normalized_plain(frames: torch.Tensor, boxes: torch.Tensor,
+                                 search_area_factor: float, out_size: int,
+                                 mean: torch.Tensor, std: torch.Tensor
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of `crop_resize_normalized`, any device."""
+    B, H, W, C = frames.shape
+    dev = frames.device
+    f32 = torch.float32
+    boxes = boxes.to(f32)
+    x, y, w, h = boxes.unbind(1)                                   # (B,)
+    crop_sz = torch.ceil(torch.sqrt(w * h) * search_area_factor)
+    crop_sz = torch.clamp(crop_sz, min=1.0)
+    x1 = torch.round(x + 0.5 * w - crop_sz * 0.5)
+    y1 = torch.round(y + 0.5 * h - crop_sz * 0.5)
+    size = torch.full_like(crop_sz, float(out_size))
+    resize_factor = size / crop_sz
+
+    j = torch.arange(out_size, dtype=f32, device=dev) + 0.5
+    s = j[None, :] * (crop_sz / size)[:, None] - 0.5                # (B, S)
+    s = torch.minimum(torch.clamp(s, min=0.0), (crop_sz - 1.0)[:, None])
+    xs = x1[:, None] + s
+    ys = y1[:, None] + s
+    x0 = torch.floor(xs)
+    y0 = torch.floor(ys)
+    fx = (xs - x0)[:, None, :, None]                                # (B, 1, S, 1)
+    fy = (ys - y0)[:, :, None, None]                                # (B, S, 1, 1)
+    x0 = x0.long()
+    y0 = y0.long()
+    bidx = torch.arange(B, device=dev)[:, None, None]
+
+    def tap(yi, xi):
+        valid = (((yi >= 0) & (yi < H - 1))[:, :, None]
+                 & ((xi >= 0) & (xi < W - 1))[:, None, :])          # (B, S, S)
+        v = frames[bidx, yi.clamp(0, H - 1)[:, :, None], xi.clamp(0, W - 1)[:, None, :]]
+        return torch.where(valid[..., None], v.to(f32), 0.0)
+
+    gy, gx = 1 - fy, 1 - fx
+    out = (gy * gx * tap(y0, x0) + gy * fx * tap(y0, x0 + 1)
+           + fy * gx * tap(y0 + 1, x0) + fy * fx * tap(y0 + 1, x0 + 1))
+    den = torch.full((C,), 255.0, dtype=f32, device=dev)
+    out = (out / den - mean.to(device=dev, dtype=f32)) / std.to(device=dev, dtype=f32)
+    return out, resize_factor
+
+
+def crop_resize_normalized(frames: torch.Tensor, boxes: torch.Tensor,
+                           search_area_factor: float, out_size: int,
+                           mean: torch.Tensor, std: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Crop, resize and normalise one box per frame.
+
+    frames (B, H, W, C) uint8, boxes (B, 4) f32 xywh, mean/std (C,) f32.
+    Returns (crops (B, out, out, C) f32, resize_factor (B,) f32).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the crop
+    kernel or raises.
+    """
+    if frames.device.type == "cpu":
+        return crop_resize_normalized_plain(frames, boxes, search_area_factor, out_size,
+                                            mean, std)
+    B, H, W, C = frames.shape
+    dev = frames.device
+    if frames.dtype != torch.uint8 or not frames.is_contiguous():
+        raise TypeError(f"crop kernel needs contiguous uint8 frames, got {frames.dtype}")
+    if boxes.shape != (B, 4):
+        raise ValueError(f"boxes must be (B, 4), got {tuple(boxes.shape)}")
+    boxes = boxes.to(device=dev, dtype=torch.float32).contiguous()
+    mean = mean.to(device=dev, dtype=torch.float32).contiguous()
+    std = std.to(device=dev, dtype=torch.float32).contiguous()
+    if mean.shape != (C,) or std.shape != (C,):
+        raise ValueError(f"mean/std must be ({C},)")
+    out = torch.empty((B, out_size, out_size, C), dtype=torch.float32, device=dev)
+    rf = torch.empty((B,), dtype=torch.float32, device=dev)
+    load_library().launch(
+        "mmt_crop_resize_normalize", frames.data_ptr(), boxes.data_ptr(), mean.data_ptr(),
+        std.data_ptr(), out.data_ptr(), rf.data_ptr(), B, H, W, C, out_size,
+        float(search_area_factor), stream_handle(dev))
+    crop_resize_normalized.launches += 1
+    return out, rf
+
+
+crop_resize_normalized.launches = 0

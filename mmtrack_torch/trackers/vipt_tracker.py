@@ -1,0 +1,149 @@
+"""ViPT tracker runtime, port of mmtrack_tpu/trackers/vipt_tracker.py.
+
+The step is batched natively: frames (B, H, W, C) uint8 and boxes (B, 4)
+advance B sequences at once (the JAX package vmaps a single-sequence
+step). One step: batched search crop around the previous boxes (the crop
+kernel on CUDA), ViPTrack forward, Hann window on the centre heatmap,
+`cal_bbox` decode, map back to image coordinates and clip with a 10 px
+margin (ViPT lib/test/tracker/vipt.py:64-110).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mmtrack_torch.models.heads import cal_bbox
+from mmtrack_torch.models.vipt import ViPTrack, ce_keep_schedule, generate_ctr_mask
+from mmtrack_torch.ops.box import clip_box
+from mmtrack_torch.ops.crop import crop_resize_normalized
+from mmtrack_torch.ops.window import hann2d
+
+# ImageNet statistics for both modality triplets (PreprocessorMM,
+# ViPT lib/test/tracker/data_utils.py:15-24).
+MEAN_6CH = np.array([0.485, 0.456, 0.406] * 2, np.float32)
+STD_6CH = np.array([0.229, 0.224, 0.225] * 2, np.float32)
+
+
+@dataclass(frozen=True)
+class ViPTRuntime:
+    """Static runtime hyperparameters; the same fields as the JAX package's."""
+    template_factor: float = 2.0
+    template_size: int = 128
+    search_factor: float = 4.0
+    search_size: int = 256
+    stride: int = 16
+    margin: float = 10.0
+    ce_template_range: str = "CTR_POINT"
+    ce_loc: tuple[int, ...] = (3, 6, 9)
+    ce_keep_ratio: tuple[float, ...] = (0.7, 0.7, 0.7)
+
+    @property
+    def feat_sz(self) -> int:
+        return self.search_size // self.stride
+
+    @property
+    def ce_keep_lens(self) -> tuple[int, ...]:
+        n = (self.search_size // self.stride) ** 2
+        return ce_keep_schedule(n, self.ce_loc, self.ce_keep_ratio)
+
+    @classmethod
+    def from_config(cls, cfg) -> "ViPTRuntime":
+        return cls(
+            template_factor=cfg.TEST.TEMPLATE_FACTOR,
+            template_size=cfg.TEST.TEMPLATE_SIZE,
+            search_factor=cfg.TEST.SEARCH_FACTOR,
+            search_size=cfg.TEST.SEARCH_SIZE,
+            stride=cfg.MODEL.BACKBONE.STRIDE,
+            ce_template_range=cfg.MODEL.BACKBONE.CE_TEMPLATE_RANGE,
+            ce_loc=tuple(cfg.MODEL.BACKBONE.CE_LOC),
+            ce_keep_ratio=tuple(cfg.MODEL.BACKBONE.CE_KEEP_RATIO),
+        )
+
+
+def _stats(c: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.from_numpy(MEAN_6CH[:c]).to(device),
+            torch.from_numpy(STD_6CH[:c]).to(device))
+
+
+def vipt_init_state(rt: ViPTRuntime, frames: torch.Tensor, init_boxes: torch.Tensor) -> dict:
+    """Tracker state from the first frames (ViPTTrack.initialize,
+    vipt.py:41-62): {'box' (B, 4) xywh, 'template' (B, T, T, C) f32
+    normalised}. The template stays f32; the patch embed casts it on every
+    step, as in the JAX package."""
+    mean, std = _stats(frames.shape[-1], frames.device)
+    boxes = init_boxes.to(device=frames.device, dtype=torch.float32)
+    template, _ = crop_resize_normalized(frames, boxes, rt.template_factor,
+                                         rt.template_size, mean, std)
+    return {"box": boxes, "template": template}
+
+
+def vipt_step_from_crop(rt: ViPTRuntime, model: ViPTrack, template: torch.Tensor,
+                        prev_box: torch.Tensor, search: torch.Tensor,
+                        resize_factor: torch.Tensor, img_h: float, img_w: float):
+    """Forward + window + decode + map-back + clip from normalised search
+    crops (vipt.py:71-110). Returns (boxes (B, 4), scores (B,))."""
+    dev = search.device
+    box_mask_z = generate_ctr_mask(rt.template_size // rt.stride, rt.ce_template_range,
+                                   device=dev)
+    out = model(template, search, box_mask_z, rt.ce_keep_lens)
+    window = hann2d(rt.feat_sz, rt.feat_sz, device=dev)
+    bbox, score = cal_bbox(window[None] * out["score_map"], out["size_map"],
+                           out["offset_map"])
+
+    rf = resize_factor[:, None]
+    pred = bbox * rt.search_size / rf                                  # (cx, cy, w, h)
+    half_side = torch.full_like(resize_factor, 0.5 * rt.search_size) / resize_factor
+    cx_prev = prev_box[:, 0] + 0.5 * prev_box[:, 2]
+    cy_prev = prev_box[:, 1] + 0.5 * prev_box[:, 3]
+    cx = pred[:, 0] + (cx_prev - half_side)
+    cy = pred[:, 1] + (cy_prev - half_side)
+    new_box = torch.stack([cx - 0.5 * pred[:, 2], cy - 0.5 * pred[:, 3],
+                           pred[:, 2], pred[:, 3]], dim=1)
+    return clip_box(new_box, img_h, img_w, margin=rt.margin), score
+
+
+def vipt_track_step(rt: ViPTRuntime, model: ViPTrack, state: dict, frames: torch.Tensor):
+    """One tracked frame for each of B sequences.
+    Returns (new_state, boxes (B, 4), scores (B,))."""
+    H, W, c = frames.shape[1], frames.shape[2], frames.shape[3]
+    mean, std = _stats(c, frames.device)
+    search, resize_factor = crop_resize_normalized(frames, state["box"], rt.search_factor,
+                                                   rt.search_size, mean, std)
+    boxes, scores = vipt_step_from_crop(rt, model, state["template"], state["box"], search,
+                                        resize_factor, float(H), float(W))
+    return {"box": boxes, "template": state["template"]}, boxes, scores
+
+
+def as_frames(frames, device) -> torch.Tensor:
+    """numpy or torch uint8 frames -> a contiguous tensor on `device`."""
+    if isinstance(frames, np.ndarray):
+        frames = torch.from_numpy(np.ascontiguousarray(frames))
+    return frames.to(device).contiguous()
+
+
+class ViPTTracker:
+    """Single-sequence facade with the reference BaseTracker API
+    (initialize/track). `model` must already hold its weights; it is moved
+    to `device`."""
+
+    def __init__(self, model: ViPTrack, device, runtime: Optional[ViPTRuntime] = None):
+        self.device = torch.device(device)
+        self.model = model.to(self.device).eval()
+        self.rt = runtime or ViPTRuntime()
+        self.state = None
+
+    @torch.inference_mode()
+    def initialize(self, image: np.ndarray, info: dict) -> None:
+        box = torch.tensor(np.asarray(info["init_bbox"], np.float32)[None])
+        self.state = vipt_init_state(self.rt, as_frames(image[None], self.device), box)
+
+    @torch.inference_mode()
+    def track(self, image: np.ndarray, info: dict | None = None) -> dict:
+        self.state, box, score = vipt_track_step(self.rt, self.model, self.state,
+                                                 as_frames(image[None], self.device))
+        return {"target_bbox": box[0].cpu().numpy().tolist(),
+                "best_score": float(score[0])}
