@@ -28,6 +28,25 @@ non-zero:
      elimination the score and size maps within MAP_BAR and the offset map
      within OFFSET_REL_BAR of its largest magnitude; with elimination (the
      main path) the CE agreement, map and box differences are printed.
+  5. training (mmtrack_torch.train): flash_mhsa_qkv against its plain
+     version at B=32, L = 320 / 244 / 190 / 153, bar MHSA_ULPS bf16 ulps of
+     the row's largest |output| (the two sum logits and probabilities in
+     another f32 order, so a probability or an output rounds one ulp the
+     other way); forward + backward of each kernel's autograd Function
+     against plain autograd (gradients equal: the backward is the plain
+     version's, recomputed), times from CUDA events. Then prompt-only
+     training of deep_rgbd at B=32, bf16 compute and f32 parameters: one
+     batch from the port's sampler, processing and loader on synthetic
+     sequences, then device-resident random batches; 2 warm-up + 8 counted
+     steps in each of three modes, with exact launch counts per step
+     (flash_mhsa_qkv / attn_block_fused / mlp_block_fused): drop path with
+     CE keep 0.7, 8/1/1; drop path in the CE warm-up, 11/1/1; no drop path,
+     0/9/12. Every loss finite, every prompt leaf moved, every frozen leaf
+     bit-unchanged; ms/step, samples/s and peak memory.
+  6. one training step's loss and prompt gradients with the kernels and
+     with use_kernels=False (same weights, batch and drop-path generator):
+     without CE within TRAIN_LOSS_REL_BAR and TRAIN_GRAD_REL_BAR (relative
+     L2), with CE printed only.
 
 The line before the last is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Without CUDA the script raises before any
@@ -45,12 +64,24 @@ import numpy as np
 import torch
 
 from mmtrack_torch.config import vipt_experiment_config
+from mmtrack_torch.data.datasets import SyntheticVideoDataset
+from mmtrack_torch.data.loader import BatchLoader
+from mmtrack_torch.data.processing import from_config as processing_from_config
+from mmtrack_torch.data.sampler import TrackingSampler
 from mmtrack_torch.kernels.build import load_library
-from mmtrack_torch.models.vipt import build_viptrack, generate_ctr_mask
+from mmtrack_torch.models.vipt import build_viptrack, ce_keep_schedule, generate_ctr_mask
 from mmtrack_torch.ops.crop import crop_resize_normalized, crop_resize_normalized_plain
-from mmtrack_torch.ops.flash_attn import attn_block_fused, attn_block_fused_plain
+from mmtrack_torch.ops.flash_attn import (
+    attn_block_fused,
+    attn_block_fused_plain,
+    flash_mhsa_qkv,
+    flash_mhsa_qkv_plain,
+)
 from mmtrack_torch.ops.mlp_fuse import mlp_block_fused, mlp_block_fused_plain
 from mmtrack_torch.parallel.batched_eval import BatchedViPTTracker
+from mmtrack_torch.train.actor import vipt_forward_and_loss
+from mmtrack_torch.train.optim import build_optimizer, prompt_only_mask
+from mmtrack_torch.train.train_step import TrainState, drop_path_generator, make_train_step
 from mmtrack_torch.trackers.vipt_tracker import (
     MEAN_6CH,
     STD_6CH,
@@ -66,6 +97,13 @@ FRAME_HW = (240, 320)
 BLOCK_ULPS = 2
 MAP_BAR = 0.05                     # score / size maps, values in (0, 1)
 OFFSET_REL_BAR = 0.05              # offset map, relative to its largest magnitude
+TRAIN_B = 32                       # TRAIN.BATCH_SIZE of deep_rgbd
+TRAIN_WARMUP, TRAIN_STEPS = 2, 8   # per training mode
+MHSA_ULPS = 2                      # flash_mhsa_qkv: bf16 ulps of the row's largest |output|
+# one train step, kernels vs plain, CE off; measured on an H100 (700 W):
+# loss 2.7e-5 relative, prompt gradients 0.0217 relative L2
+TRAIN_LOSS_REL_BAR = 5e-4
+TRAIN_GRAD_REL_BAR = 5e-2
 
 
 def log(phase: str, **kw) -> None:
@@ -279,6 +317,216 @@ def full_forward(cfg, rt, dev, model, tracker, frames):
         raise AssertionError(f"full forward: kernels vs plain beyond bar: {no_ce}")
 
 
+def compare_mhsa(dev, gen) -> list[dict]:
+    """flash_mhsa_qkv against its plain version at the training path's
+    shapes: B=32, L = 320 / 244 / 190 / 153, 12 heads of 64."""
+    rows = []
+    for L in TOKENS:
+        qkv = torch.randn(TRAIN_B, L, 3 * 768, generator=gen).to(dev, torch.bfloat16)
+        got = flash_mhsa_qkv(qkv, 12, 64 ** -0.5)
+        want = flash_mhsa_qkv_plain(qkv, 12, 64 ** -0.5)
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        err = (g - w).abs()
+        scale = torch.maximum(g.abs(), w.abs()).amax(-1, keepdim=True)
+        row = dict(kernel="flash_mhsa_qkv", B=TRAIN_B, L=L, max_abs_err=err.max().item(),
+                   max_row_ulps=(err / bf16_ulp(scale)).max().item(), bar_row_ulps=MHSA_ULPS,
+                   frac_differ=(err > 0).float().mean().item(),
+                   ms=cuda_ms(lambda: flash_mhsa_qkv(qkv, 12, 64 ** -0.5)),
+                   plain_ms=cuda_ms(lambda: flash_mhsa_qkv_plain(qkv, 12, 64 ** -0.5)))
+        log("kernels", **row)
+        if not torch.isfinite(g).all() or row["max_row_ulps"] > MHSA_ULPS:
+            raise AssertionError(f"flash_mhsa_qkv L={L}: {row}")
+        rows.append(row)
+    return rows
+
+
+def time_functions(dev, gen) -> list[dict]:
+    """Forward + backward of each kernel's autograd Function against plain
+    autograd of its plain version, at B=32, L=320, the gradient taken for
+    the activations only (the training path's frozen weights)."""
+    L = TOKENS[0]
+    heads = dict(num_heads=12, scale=64 ** -0.5)
+    cases = [("flash_mhsa_qkv", flash_mhsa_qkv, flash_mhsa_qkv_plain, (3 * 768,), heads)]
+    for name, kernel, plain, n1, k2, extra in (
+            ("attn_block_fused", attn_block_fused, attn_block_fused_plain, 3 * 768, 768, heads),
+            ("mlp_block_fused", mlp_block_fused, mlp_block_fused_plain, 4 * 768, 4 * 768, {})):
+        p = block_params(768, n1, k2, gen, dev)
+        cases.append((name, kernel, plain, (768, p["g"], p["b"], p["w1"], p["b1"], p["w2"],
+                                            p["b2"]), extra))
+    rows = []
+    for name, kernel, plain, args, extra in cases:
+        x = torch.randn(TRAIN_B, L, args[0], generator=gen).to(dev, torch.bfloat16)
+        x.requires_grad_(True)
+        rest = args[1:]
+        g_out = torch.randn(TRAIN_B, L, 768, generator=gen).to(dev, torch.bfloat16)
+
+        def fwd_bwd(fn):
+            return torch.autograd.grad(fn(x, *rest, **extra), x, g_out)[0]
+
+        before = kernel.launches
+        got, want = fwd_bwd(kernel), fwd_bwd(plain)
+        if kernel.launches != before + 1 or not torch.equal(got, want):
+            raise AssertionError(f"{name}: the Function's gradient is not plain autograd's")
+        row = dict(function=name, B=TRAIN_B, L=L, grad_equal=True,
+                   fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(kernel), iters=10),
+                   plain_fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(plain), iters=10))
+        log("functions", **row)
+        rows.append(row)
+    return rows
+
+
+def synthetic_train_batch(cfg, dev) -> dict:
+    """Device-resident random crops and boxes, as tools/bench_train.py:71-77."""
+    rng = np.random.RandomState(0)
+    Tz, Tx = cfg.DATA.TEMPLATE.SIZE, cfg.DATA.SEARCH.SIZE
+    host = {"template": rng.randn(TRAIN_B, Tz, Tz, 6), "search": rng.randn(TRAIN_B, Tx, Tx, 6),
+            "search_anno": rng.uniform(0.2, 0.4, (TRAIN_B, 4))}
+    return {k: torch.from_numpy(v).to(dev, torch.float32) for k, v in host.items()}
+
+
+def state_step(state, step, batch) -> torch.Tensor:
+    """One train step; its loss, left on the device."""
+    _, stats = step(state, batch)
+    return stats["Loss/total"]
+
+
+def train_path(cfg, dev) -> dict:
+    """Prompt-only training of deep_rgbd at B=32, bf16 compute, f32
+    parameters: one batch from the port's data pipeline, then device
+    batches, in the three modes a training run goes through. Returns the
+    counted launches of each kernel."""
+    stride = cfg.MODEL.BACKBONE.STRIDE
+    n_search = (cfg.DATA.SEARCH.SIZE // stride) ** 2
+    ce_lens = ce_keep_schedule(n_search, cfg.MODEL.BACKBONE.CE_LOC,
+                               cfg.MODEL.BACKBONE.CE_KEEP_RATIO)
+    mask = generate_ctr_mask(cfg.DATA.TEMPLATE.SIZE // stride,
+                             cfg.MODEL.BACKBONE.CE_TEMPLATE_RANGE, dev)
+    model = build_viptrack(cfg, dtype=torch.bfloat16, param_dtype=torch.float32, device=dev,
+                           seed=0)
+    opt, sched = build_optimizer(model, lr=cfg.TRAIN.LR, weight_decay=cfg.TRAIN.WEIGHT_DECAY,
+                                 lr_drop_step=cfg.TRAIN.LR_DROP_EPOCH
+                                 * (cfg.DATA.TRAIN.SAMPLE_PER_EPOCH // TRAIN_B),
+                                 decay_rate=cfg.TRAIN.SCHEDULER.DECAY_RATE,
+                                 grad_clip_norm=cfg.TRAIN.GRAD_CLIP_NORM,
+                                 trainable_mask=prompt_only_mask(model))
+    state = TrainState(model, opt, sched)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    weights = (cfg.TRAIN.GIOU_WEIGHT, cfg.TRAIN.L1_WEIGHT, cfg.TRAIN.FOCAL_WEIGHT)
+
+    def step_fn(lens, use_drop_path):
+        return make_train_step(box_mask_z=mask, ce_keep_lens=lens, weights=weights,
+                               search_size=cfg.DATA.SEARCH.SIZE, stride=stride,
+                               use_drop_path=use_drop_path, seed=0)
+
+    # one batch through the port's sampler, processing and loader
+    t0 = time.perf_counter()
+    sampler = TrackingSampler([SyntheticVideoDataset(n_sequences=8, n_frames=60)], None,
+                              samples_per_epoch=TRAIN_B,
+                              max_gap=cfg.DATA.MAX_SAMPLE_INTERVAL,
+                              processing=processing_from_config(cfg), seed=0)
+    loaded = next(iter(BatchLoader(sampler, TRAIN_B)))
+    load_s = time.perf_counter() - t0
+    shapes = {k: list(v.shape) for k, v in loaded.items()}
+    Tz, Tx = cfg.DATA.TEMPLATE.SIZE, cfg.DATA.SEARCH.SIZE
+    if (shapes["search"] != [TRAIN_B, Tx, Tx, 6] or shapes["template"] != [TRAIN_B, Tz, Tz, 6]
+            or not all(np.isfinite(v).all() for v in loaded.values())):
+        raise AssertionError(f"loader batch: {shapes}")
+    losses = [state_step(state, step_fn(ce_lens, True), loaded)]
+
+    batch = synthetic_train_batch(cfg, dev)
+    counters = (flash_mhsa_qkv, attn_block_fused, mlp_block_fused)
+    counted = dict.fromkeys((fn.__name__ for fn in counters), 0)
+    rows = []
+    for mode, lens, use_dp, per_step in (("drop_path+ce", ce_lens, True, (8, 1, 1)),
+                                         ("drop_path, ce warm-up", None, True, (11, 1, 1)),
+                                         ("no drop_path", ce_lens, False, (0, 9, 12))):
+        step = step_fn(lens, use_dp)
+        for _ in range(TRAIN_WARMUP):
+            losses.append(state_step(state, step, batch))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            losses.append(state_step(state, step, batch))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        expected = {fn.__name__: n * TRAIN_STEPS for fn, n in zip(counters, per_step)}
+        row = dict(mode=mode, B=TRAIN_B, steps=TRAIN_STEPS, ms_per_step=elapsed / TRAIN_STEPS * 1e3,
+                   samples_per_s=TRAIN_B * TRAIN_STEPS / elapsed,
+                   max_memory_allocated_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                   launches=launches, expected=expected, card=card_line())
+        log("train", **row)
+        if launches != expected:
+            raise AssertionError(f"train {mode}: launches {launches}, want {expected}")
+        for name, n in launches.items():
+            counted[name] += n
+        rows.append(row)
+
+    losses = [float(v) for v in losses]
+    after = model.state_dict()
+    moved = [k for k in after if "prompt" in k and not torch.equal(after[k], start[k])]
+    n_prompt = sum("prompt" in k for k in after)
+    frozen_changed = [k for k in after if "prompt" not in k and not torch.equal(after[k], start[k])]
+    log("train_check", config="deep_rgbd", dtype="bf16 compute, f32 params", B=TRAIN_B,
+        loader_seconds=load_s, loader_shapes=shapes, steps=len(losses), loss_first=losses[0],
+        loss_last=losses[-1], all_finite=bool(np.isfinite(losses).all()),
+        prompt_leaves_moved=f"{len(moved)}/{n_prompt}", frozen_leaves_changed=frozen_changed)
+    if (not np.isfinite(losses).all() or len(moved) != n_prompt or frozen_changed):
+        raise AssertionError("train: non-finite loss, unmoved prompt leaf or changed frozen leaf")
+    return counted
+
+
+def train_kernels_vs_plain(cfg, dev) -> None:
+    """One step's loss and prompt gradients with the kernels and with
+    their plain versions (use_kernels=False): same weights, batch and
+    drop-path generator. Asserted without candidate elimination, printed
+    with it (tied bf16 CE scores on random weights move tokens). The same
+    step at f32 compute gives the scale of bf16 rounding for comparison."""
+    stride = cfg.MODEL.BACKBONE.STRIDE
+    mask = generate_ctr_mask(cfg.DATA.TEMPLATE.SIZE // stride,
+                             cfg.MODEL.BACKBONE.CE_TEMPLATE_RANGE, dev)
+    ce_lens = ce_keep_schedule((cfg.DATA.SEARCH.SIZE // stride) ** 2,
+                               cfg.MODEL.BACKBONE.CE_LOC, cfg.MODEL.BACKBONE.CE_KEEP_RATIO)
+    batch = synthetic_train_batch(cfg, dev)
+    results = {}
+    for name, dtype, use_kernels, runs in (("kernels", torch.bfloat16, True, (None, ce_lens)),
+                                           ("plain", torch.bfloat16, False, (None, ce_lens)),
+                                           ("f32", torch.float32, False, (None,))):
+        model = build_viptrack(cfg, dtype=dtype, param_dtype=torch.float32, device=dev, seed=0,
+                               use_kernels=use_kernels)
+        trainable = prompt_only_mask(model)
+        for pname, p in model.named_parameters():
+            p.requires_grad_(trainable[pname])
+        for lens in runs:
+            loss, _ = vipt_forward_and_loss(model, batch, box_mask_z=mask, ce_keep_lens=lens,
+                                            search_size=cfg.DATA.SEARCH.SIZE, stride=stride,
+                                            generator=drop_path_generator(0, 0, dev))
+            params = [p for p in model.parameters() if p.requires_grad]
+            grads = torch.autograd.grad(loss, params)
+            results[name, lens is None] = (loss.detach().float(),
+                                           torch.cat([g.flatten() for g in grads]))
+        del model
+
+    def diff(a, b):
+        (la, ga), (lb, gb) = results[a], results[b]
+        return dict(loss_rel_diff=((la - lb).abs() / lb.abs()).item(),
+                    grad_rel_l2=((ga - gb).norm() / gb.norm()).item())
+
+    off = diff(("kernels", True), ("plain", True))
+    log("train_kernels_vs_plain",
+        ce_off=dict(loss_kernels=results["kernels", True][0].item(),
+                    loss_plain=results["plain", True][0].item(), **off),
+        ce_on=diff(("kernels", False), ("plain", False)),
+        bf16_plain_vs_f32_ce_off=diff(("plain", True), ("f32", True)),
+        loss_rel_bar=TRAIN_LOSS_REL_BAR, grad_rel_l2_bar=TRAIN_GRAD_REL_BAR, asserted="ce_off")
+    if off["loss_rel_diff"] > TRAIN_LOSS_REL_BAR or off["grad_rel_l2"] > TRAIN_GRAD_REL_BAR:
+        raise AssertionError(f"train step, kernels vs plain beyond bar: {off}")
+
+
 def main() -> int:
     dev = require_cuda()
     card = card_line()
@@ -310,9 +558,18 @@ def main() -> int:
     frames = torch.from_numpy(frames).to(dev)
     model, tracker, launches = main_path(cfg, rt, dev, frames, box0)
     full_forward(cfg, rt, dev, model, tracker, frames)
+    del model, tracker
+    torch.cuda.empty_cache()
+
+    with torch.inference_mode():
+        mhsa_rows = compare_mhsa(dev, gen)
+    time_functions(dev, gen)
+    for name, n in train_path(cfg, dev).items():
+        launches[name] = launches.get(name, 0) + n
+    train_kernels_vs_plain(cfg, dev)
 
     def entry(name, source, replaces, rows):
-        first = rows[0]      # L=320 for the blocks; S=256 on 320x240 frames for the crop
+        first = rows[0]      # L=320 for the attention; S=256 on 320x240 frames for the crop
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -327,6 +584,8 @@ def main() -> int:
               "mmtrack_tpu/ops/mlp_fuse.py:74", mlp_rows),
         entry("crop_resize_normalized", "mmtrack_torch/csrc/crop.cu",
               "mmtrack_tpu/ops/pallas_preproc.py:21", [search_row] + crop_rows),
+        entry("flash_mhsa_qkv", "mmtrack_torch/csrc/attention.cu",
+              "mmtrack_tpu/ops/flash_attn.py:63", mhsa_rows),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

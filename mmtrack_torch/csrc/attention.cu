@@ -5,8 +5,10 @@
 //   the output projection).
 //
 // Replaces the middle of the TPU kernel
-// mmtrack_tpu/ops/flash_attn.py::_attn_block_kernel (:103-121), with its
-// rounding points: q scaled in bf16 before the dot; logits and the
+// mmtrack_tpu/ops/flash_attn.py::_attn_block_kernel (:103-121), and the
+// whole of mmtrack_tpu/ops/flash_attn.py::flash_mhsa_qkv (:34-85, the same
+// function on its own), with their rounding points: q scaled in bf16 before
+// the dot; logits and the
 // max-subtracted softmax in f32; probabilities rounded to bf16 before PV;
 // PV accumulated in f32 and rounded to bf16 per head.
 //

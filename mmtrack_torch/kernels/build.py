@@ -1,7 +1,8 @@
 """Build and bind the hand-written Hopper kernels of `mmtrack_torch/csrc`.
 
-The sources are compiled with `nvcc -gencode arch=compute_90a,code=sm_90a
--O3` into one shared library with a plain C interface and loaded with
+Each `.cu` source is compiled with `nvcc -gencode arch=compute_90a,code=sm_90a
+-O3 -c`, all of them at once in parallel processes, and the objects are
+linked into one shared library with a plain C interface, loaded with
 ctypes. The library is built at first use into `mmtrack_torch/kernels/_build/`
 (ignored by git) under a name that hashes the sources and flags, so an
 edited source is rebuilt and a stale library is never loaded. No
@@ -26,8 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,7 +62,7 @@ def _nvcc() -> str:
 
 
 def _library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -71,26 +72,43 @@ def _library_path() -> Path:
 def build() -> tuple[Path, float]:
     """Compile the library if it is not built yet.
 
-    Returns (path, seconds spent compiling; 0.0 when it was already built).
-    The nvcc log (with the `-Xptxas -v` register and spill report) is kept
-    beside the library as `<name>.log`.
+    Returns (path, seconds spent compiling and linking; 0.0 when it was
+    already built). The nvcc output of every source (with the `-Xptxas -v`
+    register and spill report) is kept beside the library as `<name>.log`.
     """
     lib = _library_path()
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelCompileError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        t0 = time.perf_counter()
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *COMPILE_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
+            jobs.append((src.name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for name, _, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(f"== {name} (exit {proc.returncode})\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        if not failed:
+            tmp = os.path.join(work, lib.name)
+            link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+                                   *(obj for _, obj, _ in jobs)],
+                                  capture_output=True, text=True)
+            log.append(f"== link (exit {link.returncode})\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append("link")
+        seconds = time.perf_counter() - t0
+        text = "\n".join(log)
+        lib.with_suffix(".log").write_text(text)
+        if failed:
+            raise KernelCompileError(f"nvcc failed for {failed}:\n{text[-4000:]}")
+        os.replace(tmp, lib)
     return lib, seconds
 
 

@@ -41,8 +41,10 @@ class FrozenBatchNorm(nn.Module):
 class ConvBNRelu(nn.Sequential):
     """3x3 conv (SAME) + FrozenBatchNorm + ReLU; children named 0, 1, 2."""
 
-    def __init__(self, in_ch: int, out_ch: int, dtype=torch.float32, device=None):
-        super().__init__(Conv2d(in_ch, out_ch, 3, padding=1, dtype=dtype, device=device),
+    def __init__(self, in_ch: int, out_ch: int, dtype=torch.float32, device=None,
+                 param_dtype=None):
+        super().__init__(Conv2d(in_ch, out_ch, 3, padding=1, dtype=dtype, device=device,
+                                param_dtype=param_dtype),
                          FrozenBatchNorm(out_ch, device=device),
                          nn.ReLU())
 
@@ -57,16 +59,14 @@ class CenterPredictor(nn.Module):
     BRANCHES = {"ctr": 1, "offset": 2, "size": 2}
 
     def __init__(self, inplanes: int = 768, channel: int = 256, dtype=torch.float32,
-                 device=None):
+                 device=None, param_dtype=None):
         super().__init__()
         widths = [inplanes, channel, channel // 2, channel // 4, channel // 8]
+        kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
         for branch, out_ch in self.BRANCHES.items():
             for k in range(1, 5):
-                self.add_module(f"conv{k}_{branch}",
-                                ConvBNRelu(widths[k - 1], widths[k], dtype=dtype,
-                                           device=device))
-            self.add_module(f"conv5_{branch}",
-                            Conv2d(widths[4], out_ch, 1, dtype=dtype, device=device))
+                self.add_module(f"conv{k}_{branch}", ConvBNRelu(widths[k - 1], widths[k], **kw))
+            self.add_module(f"conv5_{branch}", Conv2d(widths[4], out_ch, 1, **kw))
 
     def _conv_tower(self, branch: str, x: torch.Tensor) -> torch.Tensor:
         """conv1..conv4 (BN + ReLU) then the 1x1 projection of one branch."""

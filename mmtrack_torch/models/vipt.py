@@ -43,18 +43,19 @@ class PromptBlock(nn.Module):
 
     hide_channel = 8
 
-    def __init__(self, embed_dim: int, dtype=torch.float32, device=None):
+    def __init__(self, embed_dim: int, dtype=torch.float32, device=None, param_dtype=None):
         super().__init__()
         hide = self.hide_channel
-        self.conv0_0 = Conv2d(embed_dim, hide, 1, dtype=dtype, device=device)
-        self.conv0_1 = Conv2d(embed_dim, hide, 1, dtype=dtype, device=device)
-        self.conv1x1 = Conv2d(hide, embed_dim, 1, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
+        self.conv0_0 = Conv2d(embed_dim, hide, 1, **kw)
+        self.conv0_1 = Conv2d(embed_dim, hide, 1, **kw)
+        self.conv1x1 = Conv2d(hide, embed_dim, 1, **kw)
         self.fovea = Fovea(device=device)
 
     @staticmethod
     def _dense(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
-        dt = conv.weight.dtype
-        return x.to(dt) @ conv.weight[:, :, 0, 0].t() + conv.bias.to(dt)
+        dt = conv.dtype
+        return x.to(dt) @ conv.weight[:, :, 0, 0].to(dt).t() + conv.bias.to(dt)
 
     def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         x0 = self._dense(self.conv0_0, a)
@@ -95,13 +96,17 @@ class ViTCEPrompt(nn.Module):
     """ViT backbone with candidate elimination and modal prompts
     (vit_ce_prompt.py:74-346). forward(z (B,T,T,6), x (B,S,S,6)) ->
     (B, L_t + L_x, C) tokens with pruned search positions recovered as
-    zeros."""
+    zeros.
+
+    Block i has drop-path rate drop_path_rate * i / (depth - 1)
+    (vipt.py:204); drop path acts only when forward gets
+    `deterministic=False`, with its masks drawn from `generator`."""
 
     def __init__(self, embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  patch_size: int = 16, template_size: int = 128,
                  search_size: int = 256, ce_loc: tuple[int, ...] = (3, 6, 9),
                  prompt_type: str = "vipt_deep", dtype=torch.float32, device=None,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, drop_path_rate: float = 0.0, param_dtype=None):
         super().__init__()
         self.depth = depth
         self.ce_loc = tuple(ce_loc)
@@ -110,24 +115,27 @@ class ViTCEPrompt(nn.Module):
         self.lens_z = (template_size // patch_size) ** 2
         self.lens_x = (search_size // patch_size) ** 2
         kw = dict(dtype=dtype, device=device)
-        self.patch_embed = PatchEmbed(embed_dim, patch_size, **kw)
-        self.patch_embed_prompt = PatchEmbed(embed_dim, patch_size, **kw)
+        pkw = dict(kw, param_dtype=param_dtype)
+        self.patch_embed = PatchEmbed(embed_dim, patch_size, **pkw)
+        self.patch_embed_prompt = PatchEmbed(embed_dim, patch_size, **pkw)
         if prompt_type in ("vipt_deep", "vipt_shaw"):
             n_prompt = depth if prompt_type == "vipt_deep" else 1
             self.prompt_blocks = nn.ModuleList(
-                PromptBlock(embed_dim, **kw) for _ in range(n_prompt))
+                PromptBlock(embed_dim, **pkw) for _ in range(n_prompt))
             self.prompt_norms = nn.ModuleList(
                 LayerNorm(embed_dim, **kw) for _ in range(n_prompt))
         self.pos_embed_z = nn.Parameter(torch.zeros(1, self.lens_z, embed_dim, device=device))
         self.pos_embed_x = nn.Parameter(torch.zeros(1, self.lens_x, embed_dim, device=device))
         self.blocks = nn.ModuleList(
-            CEBlock(embed_dim, num_heads, use_kernels=use_kernels, **kw)
-            for _ in range(depth))
+            CEBlock(embed_dim, num_heads, use_kernels=use_kernels,
+                    drop_path_rate=drop_path_rate * i / max(depth - 1, 1), **pkw)
+            for i in range(depth))
         self.norm = LayerNorm(embed_dim, **kw)
 
     def forward(self, z: torch.Tensor, x: torch.Tensor,
                 box_mask_z: Optional[torch.Tensor] = None,
-                ce_keep_lens: Optional[tuple[int, ...]] = None) -> torch.Tensor:
+                ce_keep_lens: Optional[tuple[int, ...]] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B = x.shape[0]
         lens_z, lens_x = self.lens_z, self.lens_x
         dt = self.dtype
@@ -180,7 +188,7 @@ class ViTCEPrompt(nn.Module):
             if ce_keep_lens is not None and i in self.ce_loc:
                 lens_keep = ce_keep_lens[ce_index]
             x_cur, gidx_t, gidx_s, removed = block(x_cur, gidx_t, gidx_s, box_mask_z,
-                                                   lens_keep)
+                                                   lens_keep, deterministic, generator)
             if i in self.ce_loc and ce_keep_lens is not None:
                 ce_index += 1
                 if removed is not None:
@@ -205,7 +213,8 @@ class ViPTrack(nn.Module):
                  template_size: int = 128, search_size: int = 256, patch_size: int = 16,
                  ce_loc: tuple[int, ...] = (3, 6, 9), prompt_type: str = "vipt_deep",
                  head_channel: int = 256, head_type: str = "CENTER", dtype=torch.float32,
-                 device=None, use_kernels: bool = True):
+                 device=None, use_kernels: bool = True, drop_path_rate: float = 0.0,
+                 param_dtype=None):
         super().__init__()
         if head_type != "CENTER":
             raise NotImplementedError(f"head_type={head_type}: only CENTER is ported")
@@ -215,13 +224,17 @@ class ViPTrack(nn.Module):
         self.backbone = ViTCEPrompt(
             embed_dim=embed_dim, depth=depth, num_heads=num_heads, patch_size=patch_size,
             template_size=template_size, search_size=search_size, ce_loc=ce_loc,
-            prompt_type=prompt_type, dtype=dtype, device=device, use_kernels=use_kernels)
-        self.box_head = CenterPredictor(embed_dim, head_channel, dtype=dtype, device=device)
+            prompt_type=prompt_type, dtype=dtype, device=device, use_kernels=use_kernels,
+            drop_path_rate=drop_path_rate, param_dtype=param_dtype)
+        self.box_head = CenterPredictor(embed_dim, head_channel, dtype=dtype, device=device,
+                                        param_dtype=param_dtype)
 
     def forward(self, template: torch.Tensor, search: torch.Tensor,
                 box_mask_z: Optional[torch.Tensor] = None,
-                ce_keep_lens: Optional[tuple[int, ...]] = None) -> dict:
-        tokens = self.backbone(template, search, box_mask_z, ce_keep_lens)
+                ce_keep_lens: Optional[tuple[int, ...]] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> dict:
+        tokens = self.backbone(template, search, box_mask_z, ce_keep_lens, deterministic,
+                               generator)
         S = self.feat_sz
         feat = tokens[:, -S * S:].reshape(tokens.shape[0], S, S, -1)
         score_map, size_map, offset_map = self.box_head(feat)
@@ -259,9 +272,11 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
 
 
 def build_viptrack(cfg, dtype=torch.float32, device=None, seed: Optional[int] = None,
-                   use_kernels: bool = True) -> ViPTrack:
+                   use_kernels: bool = True, param_dtype=None) -> ViPTrack:
     """ViPTrack from a config (build_viptrack, ostrack_prompt.py:94-145);
-    seeded random weights when `seed` is given."""
+    seeded random weights when `seed` is given. Matmul and conv weights are
+    held in `param_dtype` (default `dtype`); training passes f32 with a
+    bf16 `dtype`, as flax keeps its parameters."""
     model = ViPTrack(
         template_size=cfg.DATA.TEMPLATE.SIZE,
         search_size=cfg.DATA.SEARCH.SIZE,
@@ -273,7 +288,8 @@ def build_viptrack(cfg, dtype=torch.float32, device=None, seed: Optional[int] = 
         prompt_type=cfg.TRAIN.PROMPT.TYPE,
         head_channel=cfg.MODEL.HEAD.NUM_CHANNELS,
         head_type=cfg.MODEL.HEAD.TYPE,
-        dtype=dtype, device=device, use_kernels=use_kernels)
+        drop_path_rate=cfg.TRAIN.DROP_PATH_RATE,
+        dtype=dtype, device=device, use_kernels=use_kernels, param_dtype=param_dtype)
     if seed is not None:
         init_weights(model, seed)
     return model.eval()

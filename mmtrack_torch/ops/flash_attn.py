@@ -15,8 +15,17 @@ rounded per head; proj in f32 + bias, rounded, then the residual added in
 the compute dtype.
 
 Weights use the torch nn.Linear layout: wqkv (3C, C), wproj (C, C).
-`flash_mhsa_qkv` (the TPU kernel without the LayerNorm and projections) is
-not on the ported path and is not ported yet.
+
+`flash_mhsa_qkv` ports mmtrack_tpu/ops/flash_attn.py::flash_mhsa_qkv
+(Pallas, :34-85): the attention alone, softmax(q k^T s) v from the fused
+(B, L, 3C) qkv to (B, L, C) token-major. It runs on the same attention
+kernel (`csrc/attention.cu`), which computes exactly that function with
+the same rounding points. Training reaches it in the blocks whose fused
+half-block is off (drop path active) and that do not eliminate candidates.
+
+Under autograd every kernel here runs the forward and the backward is the
+gradient of its plain version, recomputed from the saved inputs
+(ops/plain_grad.py): the Pallas kernels have no backward to port.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from mmtrack_torch.ops.mlp_fuse import (
     layernorm_bf16,
     linear_f32,
 )
+from mmtrack_torch.ops.plain_grad import launch_with_plain_grad
 
 HEAD_DIM = 64  # the attention kernel is specialised to ViT-B's head width
 
@@ -70,6 +80,11 @@ def attn_block_fused_plain(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: tor
     return x + linear_f32(att, wproj, bproj).to(dt)
 
 
+def flash_mhsa_qkv_plain(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """Plain PyTorch version of `flash_mhsa_qkv`: the output of `mhsa_plain`."""
+    return mhsa_plain(qkv, num_heads, scale)[0]
+
+
 def mhsa_bf16(qkv2d: torch.Tensor, B: int, L: int, num_heads: int,
               scale: float) -> torch.Tensor:
     """Launch the attention kernel on a contiguous (B*L, 3C) bf16 qkv."""
@@ -87,6 +102,45 @@ def mhsa_bf16(qkv2d: torch.Tensor, B: int, L: int, num_heads: int,
     return out
 
 
+def _flash_mhsa_launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    check_kernel_input(qkv)
+    B, L, C3 = qkv.shape
+    out = mhsa_bf16(qkv.view(B * L, C3), B, L, num_heads, scale)
+    flash_mhsa_qkv.launches += 1
+    return out.view(B, L, C3 // 3)
+
+
+def flash_mhsa_qkv(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v for a fused qkv (B, L, 3C) -> (B, L, C).
+
+    A CPU tensor takes the plain version. A CUDA tensor launches the
+    attention kernel (contiguous bf16, head dim 64, L at most the kernel's
+    `attention_max_tokens`) or raises.
+    """
+    if qkv.device.type == "cpu":
+        return flash_mhsa_qkv_plain(qkv, num_heads, scale)
+    return launch_with_plain_grad(_flash_mhsa_launch, flash_mhsa_qkv_plain, (qkv,),
+                                  num_heads=num_heads, scale=scale)
+
+
+flash_mhsa_qkv.launches = 0
+
+
+def _attn_block_launch(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                       wqkv: torch.Tensor, bqkv: torch.Tensor, wproj: torch.Tensor,
+                       bproj: torch.Tensor, num_heads: int, scale: float,
+                       eps: float) -> torch.Tensor:
+    check_kernel_input(x)
+    B, L, C = x.shape
+    x2d = x.view(B * L, C)
+    h = layernorm_bf16(x2d, ln_scale, ln_bias, eps)
+    qkv = gemm_bf16(h, wqkv, bqkv, EPI_BIAS)
+    att = mhsa_bf16(qkv, B, L, num_heads, scale)
+    y = gemm_bf16(att, wproj, bproj, EPI_BIAS_RESIDUAL, residual=x2d)
+    attn_block_fused.launches += 1
+    return y.view(B, L, C)
+
+
 def attn_block_fused(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
                      wqkv: torch.Tensor, bqkv: torch.Tensor, wproj: torch.Tensor,
                      bproj: torch.Tensor, num_heads: int, scale: float,
@@ -100,15 +154,9 @@ def attn_block_fused(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Ten
     if x.device.type == "cpu":
         return attn_block_fused_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                                       num_heads, scale, eps)
-    check_kernel_input(x)
-    B, L, C = x.shape
-    x2d = x.view(B * L, C)
-    h = layernorm_bf16(x2d, ln_scale, ln_bias, eps)
-    qkv = gemm_bf16(h, wqkv, bqkv, EPI_BIAS)
-    att = mhsa_bf16(qkv, B, L, num_heads, scale)
-    y = gemm_bf16(att, wproj, bproj, EPI_BIAS_RESIDUAL, residual=x2d)
-    attn_block_fused.launches += 1
-    return y.view(B, L, C)
+    return launch_with_plain_grad(_attn_block_launch, attn_block_fused_plain,
+                                  (x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj),
+                                  num_heads=num_heads, scale=scale, eps=eps)
 
 
 attn_block_fused.launches = 0

@@ -4,7 +4,8 @@ Port of mmtrack_tpu/ops/mlp_fuse.py::mlp_block_fused (Pallas, :55-107).
 On CUDA it runs three hand-written kernels from `csrc/`: the LayerNorm row
 kernel, then the bf16 GEMM twice (fc1 with a bias + exact-GELU epilogue,
 fc2 with a bias + residual epilogue). The (B*L, 4C) hidden goes through
-device memory between the two GEMMs in this first version.
+device memory between the two GEMMs in this first version. Under autograd
+the kernels run the forward and the backward is the plain version's.
 
 Rounding points are the Pallas kernel's: LayerNorm statistics and both
 matmul accumulations in f32; bias added in f32 before one rounding to the
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from mmtrack_torch.kernels.build import load_library, stream_handle
+from mmtrack_torch.ops.plain_grad import launch_with_plain_grad
 
 EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESIDUAL = 0, 1, 2
 
@@ -101,17 +103,9 @@ def check_kernel_input(x: torch.Tensor) -> None:
                         f"{x.dtype} {tuple(x.shape)}")
 
 
-def mlp_block_fused(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
-                    w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-                    eps: float = 1e-6) -> torch.Tensor:
-    """x + fc2(gelu(fc1(LayerNorm(x)))) for x (B, L, C).
-
-    A CPU tensor takes the plain version. A CUDA tensor launches the
-    kernels (bf16 x and weights, f32 LayerNorm parameters and biases) or
-    raises.
-    """
-    if x.device.type == "cpu":
-        return mlp_block_fused_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+def _mlp_block_launch(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                      w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                      eps: float) -> torch.Tensor:
     check_kernel_input(x)
     B, L, C = x.shape
     x2d = x.view(B * L, C)
@@ -120,6 +114,22 @@ def mlp_block_fused(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tens
     y = gemm_bf16(h, w2, b2, EPI_BIAS_RESIDUAL, residual=x2d)
     mlp_block_fused.launches += 1
     return y.view(B, L, C)
+
+
+def mlp_block_fused(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                    w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """x + fc2(gelu(fc1(LayerNorm(x)))) for x (B, L, C).
+
+    A CPU tensor takes the plain version. A CUDA tensor launches the
+    kernels (bf16 x and weights, f32 LayerNorm parameters and biases) or
+    raises; under autograd the gradient is the plain version's
+    (ops/plain_grad.py).
+    """
+    if x.device.type == "cpu":
+        return mlp_block_fused_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+    return launch_with_plain_grad(_mlp_block_launch, mlp_block_fused_plain,
+                                  (x, ln_scale, ln_bias, w1, b1, w2, b2), eps=eps)
 
 
 mlp_block_fused.launches = 0

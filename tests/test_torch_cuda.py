@@ -10,7 +10,15 @@ are not multiples of the GEMM tile, boxes far outside the frame, and the
 argument checks. Bars: the half-blocks within two bf16 ulps of the largest
 |x|, |y - x| or |y| in the element's token row (the two versions sum in
 another f32 order, so y = x + h may differ by one ulp of h plus one of y);
-the crop bit for bit.
+the crop bit for bit; flash_mhsa_qkv within two bf16 ulps of the row's
+largest |output|.
+
+Under autograd (grad mode, an input that needs a gradient) each kernel
+runs inside a torch.autograd.Function whose backward is the gradient of
+the plain version recomputed from the saved inputs, so its gradients must
+equal plain autograd's exactly, for the activations alone (the training
+path's frozen weights) and for the weights too; a CUDA output made under
+grad mode must have a grad_fn.
 """
 
 import pytest
@@ -18,7 +26,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from mmtrack_torch.ops.crop import crop_resize_normalized, crop_resize_normalized_plain  # noqa: E402,E501
-from mmtrack_torch.ops.flash_attn import attn_block_fused, attn_block_fused_plain  # noqa: E402
+from mmtrack_torch.ops.flash_attn import (  # noqa: E402
+    attn_block_fused,
+    attn_block_fused_plain,
+    flash_mhsa_qkv,
+    flash_mhsa_qkv_plain,
+)
 from mmtrack_torch.ops.mlp_fuse import mlp_block_fused, mlp_block_fused_plain  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -111,3 +124,71 @@ def test_kernel_argument_checks(dev):
     with pytest.raises(TypeError):
         crop_resize_normalized(torch.zeros(1, 8, 8, 6, device=dev), torch.zeros(1, 4),
                                2.0, 16, torch.zeros(6), torch.ones(6))
+
+
+@pytest.mark.parametrize("B,L", [(1, 1), (1, 17), (3, 37), (2, 100), (1, 464)])
+def test_flash_mhsa_qkv_kernel_matches_plain(dev, B, L):
+    g = torch.Generator().manual_seed(L)
+    qkv = torch.randn(B, L, 3 * C, generator=g).to(dev, torch.bfloat16)
+    before = flash_mhsa_qkv.launches
+    got = flash_mhsa_qkv(qkv, 12, 64 ** -0.5)
+    assert flash_mhsa_qkv.launches == before + 1
+    want = flash_mhsa_qkv_plain(qkv, 12, 64 ** -0.5)
+    gf, wf = got.float(), want.float()
+    scale = torch.maximum(gf.abs(), wf.abs()).amax(-1, keepdim=True)
+    bar = 2 * torch.exp2(torch.floor(torch.log2(scale.clamp(min=2.0 ** -126))) - 7)
+    assert torch.isfinite(gf).all()
+    assert ((gf - wf).abs() <= bar).all()
+
+
+def _function_case(kind, L, dev):
+    """(kernel, plain, tensors, kwargs) at B=2 and L tokens."""
+    heads = dict(num_heads=12, scale=64 ** -0.5)
+    if kind == "flash_mhsa_qkv":
+        g = torch.Generator().manual_seed(L)
+        qkv = torch.randn(2, L, 3 * C, generator=g).to(dev, torch.bfloat16)
+        return flash_mhsa_qkv, flash_mhsa_qkv_plain, [qkv], heads
+    if kind == "attn_block_fused":
+        return (attn_block_fused, attn_block_fused_plain,
+                [_x(2, L, dev, L), *_params(3 * C, C, dev, seed=L)], heads)
+    return (mlp_block_fused, mlp_block_fused_plain,
+            [_x(2, L, dev, L), *_params(4 * C, 4 * C, dev, seed=L)], {})
+
+
+@pytest.mark.parametrize("L", [1, 17, 37, 100])
+@pytest.mark.parametrize("kind,needs", [("flash_mhsa_qkv", "x"), ("attn_block_fused", "x"),
+                                        ("attn_block_fused", "all"), ("mlp_block_fused", "x"),
+                                        ("mlp_block_fused", "all")])
+def test_function_gradients_equal_plain_autograd(dev, kind, needs, L):
+    kernel, plain, tensors, kw = _function_case(kind, L, dev)
+    wants = [i == 0 or needs == "all" for i in range(len(tensors))]
+    a = [t.clone().requires_grad_(w) for t, w in zip(tensors, wants)]
+    b = [t.clone().requires_grad_(w) for t, w in zip(tensors, wants)]
+    before = kernel.launches
+    out = kernel(*a, **kw)
+    assert kernel.launches == before + 1
+    assert out.grad_fn is not None
+    ref = plain(*b, **kw)
+    g_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(dev, out.dtype)
+    got = torch.autograd.grad(out, [t for t in a if t.requires_grad], g_out)
+    want = torch.autograd.grad(ref, [t for t in b if t.requires_grad], g_out)
+    assert kernel.launches == before + 1        # the backward launches no kernel
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_kernels_record_nothing_without_grad(dev):
+    x = _x(1, 9, dev, 0).requires_grad_(True)
+    p = _params(4 * C, 4 * C, dev, seed=0)
+    with torch.no_grad():
+        assert mlp_block_fused(x, *p).grad_fn is None
+    with torch.inference_mode():
+        assert flash_mhsa_qkv(torch.zeros(1, 9, 3 * C, device=dev, dtype=torch.bfloat16),
+                              12, 0.125).grad_fn is None
+
+
+def test_flash_mhsa_qkv_argument_checks(dev):
+    with pytest.raises(TypeError):
+        flash_mhsa_qkv(torch.zeros(1, 8, 3 * C, device=dev), 12, 0.125)
+    with pytest.raises(ValueError):
+        flash_mhsa_qkv(torch.zeros(1, 465, 3 * C, device=dev, dtype=torch.bfloat16), 12, 0.125)
