@@ -47,6 +47,33 @@ non-zero:
      with use_kernels=False (same weights, batch and drop-path generator):
      without CE within TRAIN_LOSS_REL_BAR and TRAIN_GRAD_REL_BAR (relative
      L2), with CE printed only.
+  7. xcorr: the depthwise-correlation kernel against its plain version,
+     bar bit equality, at Alpha-Refine's shape (N = 1 and 16 search
+     features of 32 x 32 x 64 padded by one in the kernel, per-sample 3 x 3
+     filters) and at the Pallas test's (3, 22, 22, 256) x (6, 6, 256) with
+     a shared filter; kernel, plain and F.conv2d(groups=C) times, from CUDA
+     events over back-to-back calls and from the profiler's device time,
+     and the bound.
+  8. vot: the VOT entry's loop (mmtrack_torch.eval.vot.run_vot_exp) over
+     in-memory TraX sessions on 20 synthetic 640x480 RGB-D frames written
+     as PNG files: vipt_deep_rgbd at full width (f32, seeded weights, from
+     the port's registry) and Alpha-Refine at input size 256, the mask
+     protocol and then the rectangle protocol, after one short warm-up
+     session. Launch counts must be exact: per mask session 2 x 20 crops
+     (ViPT template + 19 searches, Alpha-Refine template + 19 searches) and
+     19 correlations; per rectangle session 20 crops and none. Every state
+     must decode to a frame-sized mask (or a finite rectangle). One refine
+     on the card against the same model on the CPU (plain versions), same
+     frame and box: probabilities within AR_PROB_BAR. Prints ms per frame
+     split into read+compose, tracker step, refine and encode.
+
+Every kernel in the `kernels` line carries bound_ms, the larger of its
+bytes over 3.35 TB/s and its operations over the peak rate of their type
+(989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32 SIMT; NVIDIA's H100 SXM
+data sheet), from the shapes of its row, and library_ms, one PyTorch call
+that computes the same function where there is one
+(F.scaled_dot_product_attention for flash_mhsa_qkv, F.conv2d(groups=C) for
+the depthwise correlation), timed here and used nowhere in the port.
 
 The line before the last is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Without CUDA the script raises before any
@@ -55,19 +82,27 @@ result.
 
 from __future__ import annotations
 
+import io
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
+import cv2
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mmtrack_torch.config import vipt_experiment_config
 from mmtrack_torch.data.datasets import SyntheticVideoDataset
 from mmtrack_torch.data.loader import BatchLoader
 from mmtrack_torch.data.processing import from_config as processing_from_config
 from mmtrack_torch.data.sampler import TrackingSampler
+from mmtrack_torch.eval.vot import Mask, Rectangle, _decode_region, _encode_region, run_vot_exp
+from mmtrack_torch.eval.vot_entry import AR_INPUT_SIZE, refiner_factory
 from mmtrack_torch.kernels.build import load_library
 from mmtrack_torch.models.vipt import build_viptrack, ce_keep_schedule, generate_ctr_mask
 from mmtrack_torch.ops.crop import crop_resize_normalized, crop_resize_normalized_plain
@@ -78,7 +113,9 @@ from mmtrack_torch.ops.flash_attn import (
     flash_mhsa_qkv_plain,
 )
 from mmtrack_torch.ops.mlp_fuse import mlp_block_fused, mlp_block_fused_plain
+from mmtrack_torch.ops.xcorr import depthwise_xcorr, depthwise_xcorr_plain
 from mmtrack_torch.parallel.batched_eval import BatchedViPTTracker
+from mmtrack_torch.registry import build_tracker
 from mmtrack_torch.train.actor import vipt_forward_and_loss
 from mmtrack_torch.train.optim import build_optimizer, prompt_only_mask
 from mmtrack_torch.train.train_step import TrainState, drop_path_generator, make_train_step
@@ -104,6 +141,25 @@ MHSA_ULPS = 2                      # flash_mhsa_qkv: bf16 ulps of the row's larg
 # loss 2.7e-5 relative, prompt gradients 0.0217 relative L2
 TRAIN_LOSS_REL_BAR = 5e-4
 TRAIN_GRAD_REL_BAR = 5e-2
+VOT_FRAMES = 20
+VOT_HW = (480, 640)
+AR_PROB_BAR = 1e-3                 # Alpha-Refine probabilities, card (TF32 off) vs CPU
+# H100 SXM peaks (NVIDIA data sheet; dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+
+def bound(n_bytes: float, flops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def log(phase: str, **kw) -> None:
@@ -130,6 +186,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of fn()'s kernels in ms over `iters` calls, from
+    torch.profiler (the CUDA rows of key_averages): what the kernels take
+    on the card, without the host's issue time between calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / iters / 1e3
+
+
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     v = v.abs().clamp(min=2.0 ** -126)
     return torch.exp2(torch.floor(torch.log2(v)) - 7)
@@ -144,6 +217,13 @@ def block_params(C: int, n1: int, k2: int, gen: torch.Generator, dev) -> dict:
     return dict(g=1 + r(C, scale=0.1), b=r(C, scale=0.1),
                 w1=r(n1, C, scale=C ** -0.5).to(bf), b1=r(n1, scale=0.05),
                 w2=r(C, k2, scale=k2 ** -0.5).to(bf), b2=r(C, scale=0.05))
+
+
+def block_flops(name: str, L: int, C: int, n1: int, k2: int) -> float:
+    """Matrix-product operations of one half-block: the two GEMMs, plus
+    q k^T and p v for the attention."""
+    gemms = 2 * B * L * (C * n1 + k2 * C)
+    return gemms + (4 * B * L * L * C if name == "attn_block_fused" else 0)
 
 
 def compare_blocks(name, kernel, plain, C, n1, k2, extra, dev, gen) -> list[dict]:
@@ -164,7 +244,8 @@ def compare_blocks(name, kernel, plain, C, n1, k2, extra, dev, gen) -> list[dict
                    max_row_ulps=ulps.item(), bar_row_ulps=BLOCK_ULPS,
                    frac_differ=(err > 0).float().mean().item(),
                    ms=cuda_ms(lambda: kernel(x, *args, **extra)),
-                   plain_ms=cuda_ms(lambda: plain(x, *args, **extra)))
+                   plain_ms=cuda_ms(lambda: plain(x, *args, **extra)), library_ms=None,
+                   **bound(nbytes(x, *args, got), block_flops(name, L, C, n1, k2), "bf16"))
         log("kernels", **row)
         if not torch.isfinite(g).all() or row["max_row_ulps"] > BLOCK_ULPS:
             raise AssertionError(f"{name} L={L}: {row}")
@@ -182,6 +263,21 @@ def crop_boxes(H: int, W: int, gen: torch.Generator) -> torch.Tensor:
     boxes[2] = torch.tensor([W * 0.5, H * 0.5, 0.6, 0.4])              # tiny: side 1-2 px
     boxes[3] = torch.tensor([W * 0.25 + 0.5, H * 0.25 + 0.5, 3.0, 5.0])  # half-pixel origin
     return boxes
+
+
+def crop_read_bytes(boxes: torch.Tensor, factor: float, S: int, H: int, W: int,
+                    C: int) -> int:
+    """Frame bytes the crops must read: each box's square crop clipped to
+    the pixels that can be sampled (rows < H - 1, columns < W - 1), and at
+    most 2 S pixels a side (two bilinear taps per output pixel)."""
+    total = 0
+    for x, y, w, h in boxes.tolist():
+        side = max(math.ceil(math.sqrt(w * h) * factor), 1)
+        x1, y1 = round(x + 0.5 * w - side * 0.5), round(y + 0.5 * h - side * 0.5)
+        nx = max(0, min(x1 + side, W - 1) - max(x1, 0))
+        ny = max(0, min(y1 + side, H - 1) - max(y1, 0))
+        total += min(nx, 2 * S) * min(ny, 2 * S) * C
+    return total
 
 
 def compare_crops(dev, gen) -> list[dict]:
@@ -202,7 +298,10 @@ def compare_crops(dev, gen) -> list[dict]:
                        ms=cuda_ms(lambda: crop_resize_normalized(frames, boxes, factor, S,
                                                                  mean, std)),
                        plain_ms=cuda_ms(lambda: crop_resize_normalized_plain(
-                           frames, boxes, factor, S, mean, std)))
+                           frames, boxes, factor, S, mean, std)), library_ms=None,
+                       # ~20 f32 operations per output element
+                       **bound(crop_read_bytes(boxes, factor, S, H, W, 6)
+                               + nbytes(boxes, mean, std, got, rf), 20 * got.numel(), "f32"))
             log("kernels", **row)
             if row["max_abs_err"] > 0 or not row["rf_equal"]:
                 raise AssertionError(f"crop H={H} S={S}: {row}")
@@ -325,6 +424,8 @@ def compare_mhsa(dev, gen) -> list[dict]:
         qkv = torch.randn(TRAIN_B, L, 3 * 768, generator=gen).to(dev, torch.bfloat16)
         got = flash_mhsa_qkv(qkv, 12, 64 ** -0.5)
         want = flash_mhsa_qkv_plain(qkv, 12, 64 ** -0.5)
+        # the library call on q, k, v laid out (B, heads, L, 64) beforehand
+        q, k, v = qkv.reshape(TRAIN_B, L, 3, 12, 64).permute(2, 0, 3, 1, 4).contiguous()
         torch.cuda.synchronize()
         g, w = got.float(), want.float()
         err = (g - w).abs()
@@ -333,7 +434,9 @@ def compare_mhsa(dev, gen) -> list[dict]:
                    max_row_ulps=(err / bf16_ulp(scale)).max().item(), bar_row_ulps=MHSA_ULPS,
                    frac_differ=(err > 0).float().mean().item(),
                    ms=cuda_ms(lambda: flash_mhsa_qkv(qkv, 12, 64 ** -0.5)),
-                   plain_ms=cuda_ms(lambda: flash_mhsa_qkv_plain(qkv, 12, 64 ** -0.5)))
+                   plain_ms=cuda_ms(lambda: flash_mhsa_qkv_plain(qkv, 12, 64 ** -0.5)),
+                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                   **bound(nbytes(qkv, got), 4 * TRAIN_B * L * L * 768, "bf16"))
         log("kernels", **row)
         if not torch.isfinite(g).all() or row["max_row_ulps"] > MHSA_ULPS:
             raise AssertionError(f"flash_mhsa_qkv L={L}: {row}")
@@ -527,6 +630,163 @@ def train_kernels_vs_plain(cfg, dev) -> None:
         raise AssertionError(f"train step, kernels vs plain beyond bar: {off}")
 
 
+XCORR_CASES = (  # (name, N, H, W, C, fh, fw, per-sample filter, pad)
+    ("alpha_refine", 1, 32, 32, 64, 3, 3, True, 1),
+    ("alpha_refine", 16, 32, 32, 64, 3, 3, True, 1),
+    ("pallas_test", 3, 22, 22, 256, 6, 6, False, 0),
+)
+
+
+def compare_xcorr(dev, gen) -> list[dict]:
+    """The depthwise-correlation kernel against its plain version (bit
+    equality) and against F.conv2d(groups=C) on NCHW tensors laid out
+    beforehand (the library call; cuDNN at f32, TF32 off)."""
+    rows = []
+    for name, N, H, W, C, fh, fw, per_sample, pad in XCORR_CASES:
+        x = torch.randn(N, H, W, C, generator=gen).to(dev)
+        z = torch.randn(*((N,) if per_sample else ()), fh, fw, C, generator=gen).to(dev)
+        got = depthwise_xcorr(z, x, pad=pad)
+        want = depthwise_xcorr_plain(z, x, pad=pad)
+        groups = N * C if per_sample else C
+        # per-sample filters: the N samples' channels side by side as N * C groups
+        x_lib = x.permute(0, 3, 1, 2).reshape(-1, groups, H, W).contiguous()
+        w_lib = z.permute(*((0, 3) if per_sample else (2,)), -3, -2)
+        w_lib = w_lib.reshape(groups, 1, fh, fw).contiguous()
+
+        def library():
+            return F.conv2d(x_lib, w_lib, padding=pad, groups=groups)
+
+        lib = library()
+        lib = (lib.reshape(N, C, *lib.shape[2:]) if per_sample else lib).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        row = dict(kernel="depthwise_xcorr", case=name, N=N, x=[H, W, C], filter=[fh, fw],
+                   per_sample=per_sample, pad=pad, max_abs_err=(got - want).abs().max().item(),
+                   bar=0.0, library_max_abs_diff=(lib - want).abs().max().item(),
+                   ms=cuda_ms(lambda: depthwise_xcorr(z, x, pad=pad)),
+                   plain_ms=cuda_ms(lambda: depthwise_xcorr_plain(z, x, pad=pad)),
+                   library_ms=cuda_ms(library),
+                   **bound(nbytes(x, z, got), 2 * fh * fw * got.numel(), "f32"))
+        # back-to-back calls of a microsecond kernel measure the host's
+        # issue rate; the profiler gives the kernels' own device time
+        row.update(device_ms=device_ms(lambda: depthwise_xcorr(z, x, pad=pad)),
+                   plain_device_ms=device_ms(lambda: depthwise_xcorr_plain(z, x, pad=pad)),
+                   library_device_ms=device_ms(library), bound_us=row["bound_ms"] * 1e3)
+        log("xcorr", **row, card=card_line())
+        if not torch.equal(got, want):
+            raise AssertionError(f"depthwise_xcorr {name} N={N}: {row}")
+        rows.append(row)
+    return rows
+
+
+def vot_sequence(root: str, n: int, seed: int = 0):
+    """n synthetic 640x480 RGB-D frames as RGB PNG + 16-bit depth PNG
+    files: a bright box drifting over texture, nearer than a sloped
+    background. Returns (colour paths, depth paths, box of frame 0)."""
+    rng = np.random.RandomState(seed)
+    H, W = VOT_HW
+    bg = rng.randint(0, 90, (H, W, 3)).astype(np.uint8)
+    far = (3000 + 3000 * np.linspace(0, 1, H)[:, None]
+           + rng.randint(0, 200, (H, W))).astype(np.uint16)
+    x, y, w, h = 250.0, 180.0, 70.0, 55.0
+    colors, depths = [], []
+    for t in range(n):
+        xi, yi = int(round(x + 3.0 * t)), int(round(y + 1.5 * t))
+        rgb, depth = bg.copy(), far.copy()
+        rgb[yi:yi + int(h), xi:xi + int(w)] = (230, 200, 60)
+        depth[yi:yi + int(h), xi:xi + int(w)] = 1400
+        c, d = os.path.join(root, f"color_{t:04d}.png"), os.path.join(root, f"depth_{t:04d}.png")
+        cv2.imwrite(c, cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+        cv2.imwrite(d, depth)
+        colors.append(c)
+        depths.append(d)
+    return colors, depths, (x, y, w, h)
+
+
+def trax_script(colors, depths, region: str) -> str:
+    lines = [f'@@TRAX:initialize "file://{colors[0]}" "file://{depths[0]}" "{region}"']
+    lines += [f'@@TRAX:frame "file://{c}" "file://{d}"' for c, d in zip(colors[1:], depths[1:])]
+    return "\n".join(lines + ["@@TRAX:quit", ""])
+
+
+def vot_path(dev) -> dict:
+    """The VOT entry's loop, mask protocol then rectangle protocol, with
+    exact launch counts. Returns the launches of each kernel."""
+    counters = (crop_resize_normalized, depthwise_xcorr)
+    tracker = build_tracker("vipt_deep_rgbd", device=dev)          # f32, seed 0
+    refiner = refiner_factory(dev)()                                # AR at 256, seed 0
+    H, W = VOT_HW
+    counted = dict.fromkeys((fn.__name__ for fn in counters), 0)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        colors, depths, (x, y, w, h) = vot_sequence(root, VOT_FRAMES)
+        write_s = time.perf_counter() - t0
+        init_mask = np.ones((int(h), int(w)), np.uint8)
+        regions = {"mask": _encode_region(Mask(int(x), int(y), init_mask)),
+                   "rectangle": _encode_region(Rectangle(x, y, w, h))}
+
+        def session(protocol: str, n: int, timings=None) -> list:
+            fout = io.StringIO()
+            run_vot_exp(lambda: tracker, channels="rgbd", dtype="rgbcolormap",
+                        fin=io.StringIO(trax_script(colors[:n], depths[:n], regions[protocol])),
+                        fout=fout, mask=protocol == "mask", refine_factory=lambda: refiner,
+                        timings=timings)
+            return [_decode_region(ln.split('"')[1]) for ln in fout.getvalue().splitlines()
+                    if ln.startswith("@@TRAX:state")]
+
+        session("mask", 4)                                           # warm-up
+        torch.cuda.synchronize()
+        for protocol, per_session in (("mask", {"crop_resize_normalized": 2 * VOT_FRAMES,
+                                                "depthwise_xcorr": VOT_FRAMES - 1}),
+                                      ("rectangle", {"crop_resize_normalized": VOT_FRAMES,
+                                                     "depthwise_xcorr": 0})):
+            timings = {}
+            for fn in counters:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            states = session(protocol, VOT_FRAMES, timings)
+            elapsed = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counters}
+            if protocol == "mask":
+                ok = all(isinstance(s, Mask) and (s.x, s.y) == (0, 0) and s.mask.shape == (H, W)
+                         for s in states[1:])
+                covered = [float(s.mask.mean()) for s in states[1:]]
+            else:
+                ok = all(isinstance(s, Rectangle) and np.isfinite(list(s)).all()
+                         for s in states[1:])
+                covered = None
+            frames = timings["frames"]
+            log("vot", protocol=protocol, tracker="vipt_deep_rgbd", dtype="f32",
+                ar_input_size=AR_INPUT_SIZE, frames=VOT_FRAMES, frame=f"{W}x{H}",
+                png_write_s=write_s, states=len(states), states_ok=ok,
+                mask_area_fraction=covered, launches=launches, expected=per_session,
+                ms_per_frame=elapsed / VOT_FRAMES * 1e3,
+                ms_per_frame_split={k: timings[k] / frames * 1e3
+                                    for k in ("read_compose", "track", "refine", "encode")},
+                card=card_line())
+            if len(states) != VOT_FRAMES or not ok or launches != per_session:
+                raise AssertionError(f"vot {protocol}: {len(states)} states, ok {ok}, "
+                                     f"launches {launches} (want {per_session})")
+            for name, k in launches.items():
+                counted[name] += k
+
+        # one refine on the card against the same model on the CPU
+        frame = cv2.cvtColor(cv2.imread(colors[1]), cv2.COLOR_BGR2RGB)
+        box = [x + 2.0, y + 1.0, w + 3.0, h - 2.0]
+        cpu_ref = refiner_factory("cpu")()
+        cpu_ref.model.load_state_dict(refiner.model.state_dict())
+        for seg in (refiner, cpu_ref):
+            seg.initialize(cv2.cvtColor(cv2.imread(colors[0]), cv2.COLOR_BGR2RGB), [x, y, w, h])
+        (bg, pg), (bc, pc) = refiner.refine(frame, box), cpu_ref.refine(frame, box)
+        diff = dict(prob_max_abs_diff=float(np.abs(pg - pc).max()),
+                    box_max_abs_diff_px=float(np.abs(np.subtract(bg, bc)).max()),
+                    binary_pixels_differ=int(((pg > 0.5) != (pc > 0.5)).sum()),
+                    prob_bar=AR_PROB_BAR)
+        log("vot_refine_card_vs_cpu", **diff)
+        if not diff["prob_max_abs_diff"] <= AR_PROB_BAR:
+            raise AssertionError(f"Alpha-Refine card vs CPU: {diff}")
+    return counted
+
+
 def main() -> int:
     dev = require_cuda()
     card = card_line()
@@ -551,6 +811,7 @@ def main() -> int:
         mlp_rows = compare_blocks("mlp_block_fused", mlp_block_fused, mlp_block_fused_plain,
                                   768, 4 * 768, 4 * 768, {}, dev, gen)
         crop_rows = compare_crops(dev, gen)
+        xcorr_rows = compare_xcorr(dev, gen)
 
     cfg = vipt_experiment_config("deep_rgbd")
     rt = ViPTRuntime.from_config(cfg)
@@ -567,13 +828,19 @@ def main() -> int:
     for name, n in train_path(cfg, dev).items():
         launches[name] = launches.get(name, 0) + n
     train_kernels_vs_plain(cfg, dev)
+    for name, n in vot_path(dev).items():
+        launches[name] = launches.get(name, 0) + n
 
     def entry(name, source, replaces, rows):
-        first = rows[0]      # L=320 for the attention; S=256 on 320x240 frames for the crop
+        # the first row is the main path's shape: L=320 for the attention,
+        # S=256 on 320x240 frames for the crop, Alpha-Refine's N=1 for xcorr
+        first = rows[0]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
-                "ms": first["ms"], "plain_ms": first["plain_ms"]}
+                "ms": first["ms"], "plain_ms": first["plain_ms"],
+                "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                "library_ms": first["library_ms"]}
 
     search_row = next(r for r in crop_rows if r["H"] == FRAME_HW[0] and r["S"] == 256)
     print(card_line(), flush=True)
@@ -586,6 +853,8 @@ def main() -> int:
               "mmtrack_tpu/ops/pallas_preproc.py:21", [search_row] + crop_rows),
         entry("flash_mhsa_qkv", "mmtrack_torch/csrc/attention.cu",
               "mmtrack_tpu/ops/flash_attn.py:63", mhsa_rows),
+        entry("depthwise_xcorr", "mmtrack_torch/csrc/xcorr.cu",
+              "mmtrack_tpu/ops/xcorr.py:50", xcorr_rows),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,12 +5,19 @@ its counterpart's path and function names. Plain tensor code is PyTorch;
 every Pallas kernel of the JAX package on the ported path is a CUDA C++
 kernel in `csrc/`, built at first use by `kernels/build.py`.
 
-Ported so far (the ViPT batched tracking path):
+Ported so far (ViPT batched tracking, ViPT prompt-tuning training, the
+VOT entry with Alpha-Refine):
   ops/       crop (batched crop kernel), flash_attn, mlp_fuse (half-block
-             kernels), ce, window, box
-  models/    layers, heads (CENTER), vipt, convert (flax -> torch bridge)
+             kernels), xcorr (depthwise correlation kernel), ce, window,
+             box, heatmap, losses, prroi, plain_grad
+  models/    layers, heads (centre, corner), vipt, resnet, alpha_refine,
+             convert (flax -> torch bridge)
   trackers/  vipt_tracker
   parallel/  batched_eval (single device)
+  data/      synthetic data, sampler, processing, loader, composition
+  train/     actor, optim, train_step, trainer, run (entry point)
+  eval/      vot (TraX server, run_vot_exp), vot_entry (entry point)
+  registry   the ViPT recipes
 
 Kernel wrappers take the plain PyTorch version for a tensor on the CPU and
 launch the kernel (or raise) for a tensor on CUDA. This package never

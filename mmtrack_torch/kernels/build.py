@@ -40,6 +40,7 @@ _SIGNATURES = {
     "mmt_attention_bf16": (_P, _P, _I, _I, _I, _F, _P),
     "mmt_attention_max_tokens": (),
     "mmt_crop_resize_normalize": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "mmt_depthwise_xcorr": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

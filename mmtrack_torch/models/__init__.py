@@ -1,1 +1,2 @@
-"""Models of the port (ViPT, CENTER head) and the flax -> torch weight bridge."""
+"""Models of the port (ViPT, its heads, ResNet-18, Alpha-Refine) and the
+flax -> torch weight bridge."""

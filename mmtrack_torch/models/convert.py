@@ -10,6 +10,10 @@ that converter reads, so the bridge only relabels and re-lays out:
   LayerNorm scale                -> weight
   FrozenBatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
 
+`alpha_refine_state_dict_from_flax` does the same for Alpha-Refine
+(mmtrack_tpu/models/alpha_refine.py), with torchvision's ResNet names, and
+`load_flax_npz` reads a flax variables file for it.
+
 Works on numpy arrays; no jax or flax import.
 """
 
@@ -89,3 +93,49 @@ def vipt_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
         name, v = _leaf_name(path, value)
         out[name] = torch.from_numpy(np.array(v, dtype=np.float32))
     return out
+
+
+_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _ar_leaf(path: tuple[str, ...], value: np.ndarray):
+    """(port name, value) of one AlphaRefineNet flax leaf; None for the
+    ResNet stages the port does not build (layer3, layer4)."""
+    p = "/".join(path)
+    if re.fullmatch(r"backbone/layer[34]_\d+/.*", p):
+        return None
+    p = re.sub(r"^backbone/layer(\d)_(\d+)/", r"backbone.layer\1.\2.", p)
+    p = re.sub(r"downsample_conv/", "downsample.0.", p)
+    p = re.sub(r"downsample_bn/", "downsample.1.", p)
+    p = re.sub(r"^corner_head/(tl|br)/conv(\d)/conv/", r"corner_head.conv\2_\1.0.", p)
+    p = re.sub(r"^corner_head/(tl|br)/conv(\d)/bn/", r"corner_head.conv\2_\1.1.", p)
+    p = re.sub(r"^corner_head/(tl|br)/conv5/", r"corner_head.conv5_\1.", p)
+    *mod, leaf = p.replace("/", ".").split(".")
+    mod = ".".join(mod)
+    if leaf == "kernel":
+        return f"{mod}.weight", value.transpose(3, 2, 0, 1)
+    if leaf in _BN:                       # a conv's bias keeps its name too
+        return f"{mod}.{_BN[leaf]}", value
+    raise KeyError(f"no port counterpart for flax leaf {'/'.join(path)}")
+
+
+def alpha_refine_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax `params['params']` tree of an AlphaRefineNet -> the port's
+    AlphaRefineNet state_dict (f32 CPU tensors). Conv kernels (kh, kw, I, O)
+    become (O, I, kh, kw); FrozenBatchNorm scale/bias/mean/var become
+    weight/bias/running_mean/running_var; the JAX trunk's layer3/layer4
+    leaves, which Alpha-Refine never reads, are left out."""
+    out = {}
+    for path, value in _flatten(params).items():
+        item = _ar_leaf(path, value)
+        if item is not None:
+            out[item[0]] = torch.from_numpy(np.array(item[1], dtype=np.float32))
+    return out
+
+
+def load_flax_npz(path: str) -> dict:
+    """The `params` tree of a flax variables file written with
+    `np.savez(path, **variables)`: each top-level collection is one
+    pickled tree."""
+    with np.load(path, allow_pickle=True) as f:
+        return f["params"].item()

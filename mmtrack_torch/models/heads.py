@@ -1,9 +1,9 @@
-"""Box heads, port of mmtrack_tpu/models/heads.py (CENTER head only).
+"""Box heads, port of mmtrack_tpu/models/heads.py (the centre and corner heads).
 
 The conv towers run NCHW inside the module; its input and output maps are
 NHWC like the JAX package's. Parameter names are the reference's
-(`box_head.conv{k}_{ctr,offset,size}.{0,1}.*`, head.py:98-201).
-CornerPredictor and MLPHead are not ported yet.
+(`box_head.conv{k}_{ctr,offset,size}.{0,1}.*`, head.py:98-201; the corner
+head's `conv{k}_{tl,br}`). MLPHead is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +20,10 @@ class FrozenBatchNorm(nn.Module):
     y = x * inv + (bias - mean * inv), inv = weight / sqrt(var + eps), in
     f32 whatever the input dtype (flax promotes the bf16 conv output to the
     f32 parameters here).
+
+    The four statistics are parameters, as they are `params` leaves of the
+    JAX tree: a full fine-tune (no trainable mask) clips, decays and
+    updates them like any other leaf; prompt tuning freezes them by name.
     """
 
     eps = 1e-5
@@ -27,10 +31,10 @@ class FrozenBatchNorm(nn.Module):
     def __init__(self, ch: int, device=None):
         super().__init__()
         f32 = dict(dtype=torch.float32, device=device)
-        self.register_buffer("weight", torch.ones(ch, **f32))
-        self.register_buffer("bias", torch.zeros(ch, **f32))
-        self.register_buffer("running_mean", torch.zeros(ch, **f32))
-        self.register_buffer("running_var", torch.ones(ch, **f32))
+        self.weight = nn.Parameter(torch.ones(ch, **f32))
+        self.bias = nn.Parameter(torch.zeros(ch, **f32))
+        self.running_mean = nn.Parameter(torch.zeros(ch, **f32))
+        self.running_var = nn.Parameter(torch.ones(ch, **f32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inv = self.weight / torch.sqrt(self.running_var + self.eps)
@@ -49,6 +53,23 @@ class ConvBNRelu(nn.Sequential):
                          nn.ReLU())
 
 
+def _add_tower(module: nn.Module, branch: str, in_ch: int, channel: int, out_ch: int,
+               **kw) -> None:
+    """conv1..conv4 (BN + ReLU, widths channel, /2, /4, /8) and a 1x1
+    projection to `out_ch` (JAX heads.py::_ConvTower, :49-61)."""
+    widths = [in_ch, channel, channel // 2, channel // 4, channel // 8]
+    for k in range(1, 5):
+        module.add_module(f"conv{k}_{branch}", ConvBNRelu(widths[k - 1], widths[k], **kw))
+    module.add_module(f"conv5_{branch}", Conv2d(widths[4], out_ch, 1, **kw))
+
+
+def _conv_tower(module: nn.Module, branch: str, x: torch.Tensor) -> torch.Tensor:
+    """Run one branch built by `_add_tower` on NCHW features."""
+    for k in range(1, 6):
+        x = getattr(module, f"conv{k}_{branch}")(x)
+    return x
+
+
 class CenterPredictor(nn.Module):
     """Centre heatmap + size + offset head (head.py:98-201).
 
@@ -61,29 +82,51 @@ class CenterPredictor(nn.Module):
     def __init__(self, inplanes: int = 768, channel: int = 256, dtype=torch.float32,
                  device=None, param_dtype=None):
         super().__init__()
-        widths = [inplanes, channel, channel // 2, channel // 4, channel // 8]
         kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
         for branch, out_ch in self.BRANCHES.items():
-            for k in range(1, 5):
-                self.add_module(f"conv{k}_{branch}", ConvBNRelu(widths[k - 1], widths[k], **kw))
-            self.add_module(f"conv5_{branch}", Conv2d(widths[4], out_ch, 1, **kw))
-
-    def _conv_tower(self, branch: str, x: torch.Tensor) -> torch.Tensor:
-        """conv1..conv4 (BN + ReLU) then the 1x1 projection of one branch."""
-        for k in range(1, 6):
-            x = getattr(self, f"conv{k}_{branch}")(x)
-        return x
+            _add_tower(self, branch, inplanes, channel, out_ch, **kw)
 
     def forward(self, x: torch.Tensor):
         x = x.permute(0, 3, 1, 2)
-        score = self._conv_tower("ctr", x)[:, 0]
-        offset = self._conv_tower("offset", x).permute(0, 2, 3, 1)
-        size = self._conv_tower("size", x).permute(0, 2, 3, 1)
+        score = _conv_tower(self, "ctr", x)[:, 0]
+        offset = _conv_tower(self, "offset", x).permute(0, 2, 3, 1)
+        size = _conv_tower(self, "size", x).permute(0, 2, 3, 1)
 
         def clamp(v):
             return torch.clamp(torch.sigmoid(v.float()), 1e-4, 1 - 1e-4)
 
         return clamp(score), clamp(size), offset.float()
+
+
+class CornerPredictor(nn.Module):
+    """Top-left / bottom-right corner heatmaps with a soft-argmax decode
+    (head.py:24-95; JAX heads.py:137-168).
+
+    forward((B, S, S, C) NHWC features) -> (B, 4) xyxy in [0, 1]; the
+    softmax and the expected coordinates are computed in f32.
+    """
+
+    def __init__(self, inplanes: int = 256, channel: int = 256, feat_sz: int = 20,
+                 stride: int = 16, dtype=torch.float32, device=None):
+        super().__init__()
+        self.feat_sz, self.stride = feat_sz, stride
+        for branch in ("tl", "br"):
+            _add_tower(self, branch, inplanes, channel, 1, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        n = self.feat_sz
+        coord = torch.arange(n, dtype=torch.float32, device=x.device) * self.stride
+        cx = coord[None, :].expand(n, n).reshape(-1)
+        cy = coord[:, None].expand(n, n).reshape(-1)
+
+        def soft_argmax(score):
+            prob = torch.softmax(score.reshape(score.shape[0], -1).float(), dim=1)
+            return (prob * cx).sum(1), (prob * cy).sum(1)
+
+        x_tl, y_tl = soft_argmax(_conv_tower(self, "tl", x)[:, 0])
+        x_br, y_br = soft_argmax(_conv_tower(self, "br", x)[:, 0])
+        return torch.stack([x_tl, y_tl, x_br, y_br], dim=1) / (n * self.stride)
 
 
 def cal_bbox(score_map: torch.Tensor, size_map: torch.Tensor, offset_map: torch.Tensor):

@@ -60,21 +60,23 @@ class Dense(nn.Module):
 class Conv2d(nn.Module):
     """flax nn.Conv on NCHW tensors: round(conv(x, W)) + bias in the compute
     dtype. weight (O, I, kh, kw) in `param_dtype` (default `dtype`), bias
-    (O,) f32."""
+    (O,) f32 (none with `bias=False`, flax's use_bias=False)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 padding: int = 0, dtype=torch.float32, device=None, param_dtype=None):
+                 padding: int = 0, dtype=torch.float32, device=None, param_dtype=None,
+                 bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.stride, self.padding = stride, padding
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel,
                                                dtype=param_dtype or dtype, device=device))
-        self.bias = nn.Parameter(torch.zeros(out_ch, dtype=torch.float32, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_ch, dtype=torch.float32, device=device))
+                     if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
-        return y + self.bias.to(dt)[:, None, None]
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
 
 
 class LayerNorm(nn.Module):

@@ -96,7 +96,9 @@ class ViTCEPrompt(nn.Module):
     """ViT backbone with candidate elimination and modal prompts
     (vit_ce_prompt.py:74-346). forward(z (B,T,T,6), x (B,S,S,6)) ->
     (B, L_t + L_x, C) tokens with pruned search positions recovered as
-    zeros.
+    zeros. 3-channel crops (plain OSTrack, JAX `build_ostrack`) skip the
+    auxiliary stream: `patch_embed_prompt` and the prompts are not used,
+    and a model bridged from such a flax tree lacks their weights.
 
     Block i has drop-path rate drop_path_rate * i / (depth - 1)
     (vipt.py:204); drop path acts only when forward gets
@@ -141,19 +143,27 @@ class ViTCEPrompt(nn.Module):
         dt = self.dtype
         has_prompt = self.prompt_type in ("vipt_deep", "vipt_shaw")
 
+        # 3-channel crops: plain OSTrack, no auxiliary-modality stream
+        rgb_only = z.shape[-1] == 3
+        if rgb_only and self.prompt_type == "vipt_deep":
+            raise ValueError("vipt_deep re-injects its prompts in every block: it needs "
+                             "6-channel crops")
+
         z_tok = self.patch_embed(z[..., :3])
         x_tok = self.patch_embed(x[..., :3])
-        z_dte_tok = self.patch_embed_prompt(z[..., 3:])
-        x_dte_tok = self.patch_embed_prompt(x[..., 3:])
-        if has_prompt:
+        if rgb_only:
+            pass
+        elif has_prompt:
+            z_dte_tok = self.patch_embed_prompt(z[..., 3:])
+            x_dte_tok = self.patch_embed_prompt(x[..., 3:])
             n0, p0 = self.prompt_norms[0], self.prompt_blocks[0]
             z_prompted = p0(n0(z_tok), n0(z_dte_tok))
             x_prompted = p0(n0(x_tok), n0(x_dte_tok))
             z_tok = z_tok + z_prompted
             x_tok = x_tok + x_prompted
         else:
-            z_tok = z_tok + z_dte_tok
-            x_tok = x_tok + x_dte_tok
+            z_tok = z_tok + self.patch_embed_prompt(z[..., 3:])
+            x_tok = x_tok + self.patch_embed_prompt(x[..., 3:])
 
         z_tok = z_tok + self.pos_embed_z.to(dt)
         x_tok = x_tok + self.pos_embed_x.to(dt)

@@ -10,8 +10,8 @@ are not multiples of the GEMM tile, boxes far outside the frame, and the
 argument checks. Bars: the half-blocks within two bf16 ulps of the largest
 |x|, |y - x| or |y| in the element's token row (the two versions sum in
 another f32 order, so y = x + h may differ by one ulp of h plus one of y);
-the crop bit for bit; flash_mhsa_qkv within two bf16 ulps of the row's
-largest |output|.
+the crop and the depthwise correlation bit for bit; flash_mhsa_qkv within
+two bf16 ulps of the row's largest |output|.
 
 Under autograd (grad mode, an input that needs a gradient) each kernel
 runs inside a torch.autograd.Function whose backward is the gradient of
@@ -33,6 +33,7 @@ from mmtrack_torch.ops.flash_attn import (  # noqa: E402
     flash_mhsa_qkv_plain,
 )
 from mmtrack_torch.ops.mlp_fuse import mlp_block_fused, mlp_block_fused_plain  # noqa: E402
+from mmtrack_torch.ops.xcorr import depthwise_xcorr, depthwise_xcorr_plain  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 C = 768
@@ -192,3 +193,53 @@ def test_flash_mhsa_qkv_argument_checks(dev):
         flash_mhsa_qkv(torch.zeros(1, 8, 3 * C, device=dev), 12, 0.125)
     with pytest.raises(ValueError):
         flash_mhsa_qkv(torch.zeros(1, 465, 3 * C, device=dev, dtype=torch.bfloat16), 12, 0.125)
+
+
+XCORR_CASES = {
+    # name: (N, H, W, C, fh, fw, per-sample filter, pad)
+    "pallas-test-shared": (3, 22, 22, 256, 6, 6, False, 0),
+    "pallas-test-per-sample": (3, 22, 22, 256, 6, 6, True, 0),
+    "alpha-refine-n1": (1, 32, 32, 64, 3, 3, True, 1),
+    "alpha-refine-n16": (16, 32, 32, 64, 3, 3, True, 1),
+    "alpha-refine-shared": (1, 32, 32, 64, 3, 3, False, 1),
+    "odd-edges": (2, 7, 5, 3, 3, 4, True, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(XCORR_CASES))
+def test_depthwise_xcorr_kernel_bit_equal_to_plain(dev, case):
+    N, H, W, C_, fh, fw, per_sample, pad = XCORR_CASES[case]
+    g = torch.Generator().manual_seed(N * H + C_)
+    x = torch.randn(N, H, W, C_, generator=g).to(dev)
+    z = torch.randn(*((N,) if per_sample else ()), fh, fw, C_, generator=g).to(dev)
+    before = depthwise_xcorr.launches
+    got = depthwise_xcorr(z, x, pad=pad)
+    assert depthwise_xcorr.launches == before + 1
+    want = depthwise_xcorr_plain(z, x, pad=pad)
+    assert got.shape == (N, H + 2 * pad - fh + 1, W + 2 * pad - fw + 1, C_)
+    assert torch.equal(got, want)
+
+
+def test_depthwise_xcorr_kernel_special_values_and_gradient(dev):
+    """Padded taps multiply +0.0 like the padded tensor (inf * 0 = nan);
+    under autograd the gradients equal plain autograd's."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 6, 6, 8, generator=g).to(dev)
+    z = torch.randn(2, 3, 3, 8, generator=g).to(dev)
+    z[0, 0, 0, 0] = float("inf")
+    z[1, 2, 2, 1] = -0.0
+    got, want = depthwise_xcorr(z, x, pad=1), depthwise_xcorr_plain(z, x, pad=1)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    z = torch.randn(2, 3, 3, 8, generator=g).to(dev)
+    _, a = _grad_pair(depthwise_xcorr, z, x)
+    _, b = _grad_pair(depthwise_xcorr_plain, z, x)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def _grad_pair(fn, z, x):
+    z, x = z.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    out = fn(z, x, pad=1)
+    g_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(out.device)
+    return out, torch.autograd.grad(out, [z, x], g_out)

@@ -140,6 +140,40 @@ def test_three_steps_with_lr_drop_and_clip_match_jax(jax_params):
     _run_both(jax_params, KEEP, 3, dict(lr=1e-3, lr_drop_step=2, grad_clip_norm=0.1))
 
 
+def test_full_tune_step_matches_jax(jax_params):
+    """One `--full_tune` step (no trainable mask) on both sides: every leaf,
+    the FrozenBatchNorm statistics among them, moves as the JAX package's
+    does. The JAX tree holds the four statistics as `params`, so AdamW
+    (decay included) and the global-norm clip see them."""
+    lr = 4e-4
+    jm = jax_vipt.ViPTrack(**TINY)
+    mask_z = jax_vipt.generate_ctr_mask(2, "CTR_POINT")
+    tx = jax_optim.build_optimizer(jax_params, trainable_mask=None, lr=lr)
+    jstep = jax.jit(jax_train_step.make_train_step(
+        jm, tx, box_mask_z=mask_z, ce_keep_lens=KEEP, use_drop_path=False, **STEP_KW))
+    jstate, _ = jstep(jax_train_step.TrainState.create(jax_params, tx),
+                      {k: jnp.asarray(v) for k, v in _batch(0).items()}, jax.random.PRNGKey(0))
+
+    port = _port_from_flax(jax_params)
+    start = {k: v.clone() for k, v in port.state_dict().items()}
+    opt, sched = build_optimizer(port, trainable_mask=None, lr=lr)
+    step = make_train_step(box_mask_z=vipt.generate_ctr_mask(2, "CTR_POINT"),
+                           ce_keep_lens=KEEP, use_drop_path=False, **STEP_KW)
+    step(TrainState(port, opt, sched), _batch(0))
+
+    want = vipt_state_dict_from_flax(jax.tree.map(np.asarray, jstate.params["params"]))
+    got = port.state_dict()
+    assert want.keys() == got.keys()
+    bn = [k for k in got if "running_" in k]
+    assert bn, "the tiny model has FrozenBatchNorm statistics"
+    for k in got:
+        d = (got[k] - want[k]).abs().max()
+        assert d <= 0.1 * lr, (k, float(d))
+        # a leaf the JAX step moved must move in the port too
+        assert torch.equal(got[k], start[k]) == torch.equal(want[k], start[k]), k
+    assert not all(torch.equal(want[k], start[k]) for k in bn)
+
+
 def test_keep_rate_schedule_matches_jax():
     from mmtrack_tpu.train import actor as jax_actor
 
@@ -160,10 +194,11 @@ def test_count_trainable_full_deep_rgbd():
 
     port = vipt.build_viptrack(vipt_experiment_config("deep_rgbd"), device="meta")
     assert count_trainable(port, prompt_only_mask(port)) == want
-    # every flax leaf is a parameter or (FrozenBatchNorm) a buffer of the port
+    # every flax leaf, the FrozenBatchNorm statistics among them, is a
+    # parameter of the port
     total = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes))
-    assert total == (sum(p.numel() for p in port.parameters())
-                     + sum(b.numel() for b in port.buffers()))
+    assert total == sum(p.numel() for p in port.parameters())
+    assert not list(port.buffers())
 
 
 TRAIN_KEYS = ("TRAIN.PROMPT.TYPE", "TRAIN.LR", "TRAIN.WEIGHT_DECAY", "TRAIN.EPOCH",

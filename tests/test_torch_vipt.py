@@ -103,6 +103,26 @@ def test_tiny_vipt_forward_matches_jax(prompt_type):
     _compare_forward(jm, params, port, z, x, mask, rt.ce_keep_lens, atol=1e-4)
 
 
+def test_tiny_ostrack_rgb_only_matches_jax():
+    """3-channel crops through a prompt_type='none' model (JAX
+    `build_ostrack`): no auxiliary stream on either side, maps within 1e-4."""
+    rt = JaxRuntime(template_size=32, search_size=64, stride=16, ce_loc=(1,),
+                    ce_keep_ratio=(0.7,))
+    jm = jax_vipt.build_ostrack(**TINY)
+    params = jax.jit(lambda r: jm.init(r, jnp.zeros((1, 32, 32, 3)), jnp.zeros((1, 64, 64, 3)),
+                                       None, rt.ce_keep_lens))(jax.random.PRNGKey(7))
+    port = vipt.ViPTrack(**TINY, prompt_type="none").eval()
+    missing, unexpected = port.load_state_dict(
+        vipt_state_dict_from_flax(jax.tree.map(np.asarray, params["params"])), strict=False)
+    assert sorted(missing) == ["backbone.patch_embed_prompt.proj.bias",
+                               "backbone.patch_embed_prompt.proj.weight"] and not unexpected
+    rng = np.random.RandomState(0)
+    z = rng.randn(3, 32, 32, 3).astype(np.float32)
+    x = rng.randn(3, 64, 64, 3).astype(np.float32)
+    mask = np.array(jax_vipt.generate_ctr_mask(2, "CTR_POINT"))
+    _compare_forward(jm, params, port, z, x, mask, rt.ce_keep_lens, atol=1e-4)
+
+
 @pytest.mark.slow
 def test_deep_rgbd_forward_matches_jax():
     """Full-width deep_rgbd (ViT-B, 12 blocks, CE at 3/6/9) at f32, B=1."""
