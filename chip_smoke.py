@@ -16,13 +16,18 @@ non-zero:
      kernel and plain sum in another f32 order, so a few bf16 roundings in
      the block flip by one ulp, and y = x + h then differs by at most one
      ulp of h plus one of y (near-zero outputs differ by many of their own
-     ulps but not of their row's scale); the batched crop at S = 128 and 256
-     on 320x240 and 640x480 frames, bar bit equality. Times from CUDA events.
+     ulps but not of their row's scale); the attention kernel alone
+     (through flash_mhsa_qkv) at B=16 and the same L, as phase 5 measures
+     it; the batched crop at S = 128 and 256 on 320x240 and 640x480 frames,
+     bar bit equality. Times from CUDA events (and, for the attention,
+     the profiler's device time).
   3. main path: BatchedViPTTracker with deep_rgbd in bf16 on seeded random
      weights, B=16 sequences of 320x240 6-channel synthetic frames,
      initialize + 16 tracked steps. The launch counters must show 9 x 16
      attention half-blocks, 12 x 16 MLP half-blocks and 1 + 16 crops; every
      box must be finite and inside its frame. Reports ms/step and frames/s.
+     Then PROFILE_STEPS more steps under torch.profiler: the attention
+     kernel's device ms per step, the top kernels, all device work.
   4. one full forward with the kernels against the same model on the plain
      versions (use_kernels=False), same inputs: without candidate
      elimination the score and size maps within MAP_BAR and the offset map
@@ -32,13 +37,16 @@ non-zero:
      version at B=32, L = 320 / 244 / 190 / 153, bar MHSA_ULPS bf16 ulps of
      the row's largest |output| (the two sum logits and probabilities in
      another f32 order, so a probability or an output rounds one ulp the
-     other way); forward + backward of each kernel's autograd Function
-     against plain autograd (gradients equal: the backward is the plain
-     version's, recomputed), times from CUDA events. Then prompt-only
-     training of deep_rgbd at B=32, bf16 compute and f32 parameters: one
-     batch from the port's sampler, processing and loader on synthetic
-     sequences, then device-resident random batches; 2 warm-up + 8 counted
-     steps in each of three modes, with exact launch counts per step
+     other way), with the kernel's, the plain version's and
+     F.scaled_dot_product_attention's device times from the profiler
+     beside the CUDA-event times; forward + backward of each kernel's
+     autograd Function against plain autograd (gradients equal: the
+     backward is the plain version's, recomputed), times from CUDA events.
+     Then prompt-only training of deep_rgbd at B=32, bf16 compute and f32
+     parameters: one batch from the port's sampler, processing and loader
+     on synthetic sequences, then device-resident random batches; 2
+     warm-up + 8 counted steps in each of three modes, with exact launch
+     counts per step
      (flash_mhsa_qkv / attn_block_fused / mlp_block_fused): drop path with
      CE keep 0.7, 8/1/1; drop path in the CE warm-up, 11/1/1; no drop path,
      0/9/12. Every loss finite, every prompt leaf moved, every frozen leaf
@@ -46,7 +54,9 @@ non-zero:
   6. one training step's loss and prompt gradients with the kernels and
      with use_kernels=False (same weights, batch and drop-path generator):
      without CE within TRAIN_LOSS_REL_BAR and TRAIN_GRAD_REL_BAR (relative
-     L2), with CE printed only.
+     L2), with CE printed only; beside them the samples whose score-map
+     argmax (where the box is decoded) differs, and how close the plain
+     map's top two scores come.
   7. xcorr: the depthwise-correlation kernel against its plain version,
      bar bit equality, at Alpha-Refine's shape (N = 1 and 16 search
      features of 32 x 32 x 64 padded by one in the kernel, per-sample 3 x 3
@@ -130,6 +140,8 @@ from mmtrack_torch.utils.device import require_cuda
 B = 16
 TOKENS = (320, 244, 190, 153)      # 64 template + 256 / 180 / 126 / 89 search tokens
 STEPS = 16
+PROFILE_STEPS = 3                  # tracking steps under torch.profiler, after the counted run
+ATTENTION_KERNELS = ("attention_resident_kernel", "attention_streaming_kernel")
 FRAME_HW = (240, 320)
 BLOCK_ULPS = 2
 MAP_BAR = 0.05                     # score / size maps, values in (0, 1)
@@ -186,21 +198,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Mean device time of fn()'s kernels in ms over `iters` calls, from
-    torch.profiler (the CUDA rows of key_averages): what the kernels take
-    on the card, without the host's issue time between calls."""
+def cuda_events(fn, iters: int) -> list:
+    """The CUDA rows of torch.profiler's key_averages over `iters` calls of
+    fn() (after one call outside the window), largest device time first."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / iters / 1e3
+    for _ in range(3):   # a window now and then comes back without its device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if rows:
+            return sorted(rows, key=lambda e: -e.self_device_time_total)
+    raise RuntimeError("torch.profiler recorded no device time")
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of fn()'s kernels in ms over `iters` calls, from
+    torch.profiler: what the kernels take on the card, without the host's
+    issue time between calls."""
+    return sum(e.self_device_time_total for e in cuda_events(fn, iters)) / iters / 1e3
 
 
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -360,7 +381,27 @@ def main_path(cfg, rt, dev, frames, box0):
     if launches != expected or not inside:
         raise AssertionError(f"main path: launches {launches} (want {expected}), "
                              f"boxes inside: {inside}")
+    prof = profile_steps(tracker, frames[STEPS])
+    log("main_path_profile", **prof, card=card_line())
+    if prof["attention_kernel_calls_per_step"] != 9:
+        raise AssertionError(f"profiled step: {prof}")
     return model, tracker, launches
+
+
+def profile_steps(tracker, frame, steps: int = PROFILE_STEPS) -> dict:
+    """Device time per tracking step by kernel, from torch.profiler over a
+    short window of steps on one frame (after the counted run, so the
+    launch counts are untouched): the attention kernel's share, the top
+    kernels, and all device work."""
+    rows = cuda_events(lambda: tracker.track(frame), steps)
+    attn = [e for e in rows if any(k in e.key for k in ATTENTION_KERNELS)]
+    return dict(
+        steps=steps,
+        attention_kernel_ms_per_step=sum(e.self_device_time_total for e in attn) / steps / 1e3,
+        attention_kernel_calls_per_step=sum(e.count for e in attn) / steps,
+        device_ms_per_step=sum(e.self_device_time_total for e in rows) / steps / 1e3,
+        top_kernels_ms_per_step={e.key[:60]: e.self_device_time_total / steps / 1e3
+                                 for e in rows[:8]})
 
 
 def full_forward(cfg, rt, dev, model, tracker, frames):
@@ -416,30 +457,44 @@ def full_forward(cfg, rt, dev, model, tracker, frames):
         raise AssertionError(f"full forward: kernels vs plain beyond bar: {no_ce}")
 
 
-def compare_mhsa(dev, gen) -> list[dict]:
-    """flash_mhsa_qkv against its plain version at the training path's
-    shapes: B=32, L = 320 / 244 / 190 / 153, 12 heads of 64."""
+def compare_mhsa(dev, gen, batch: int) -> list[dict]:
+    """The attention kernel (through flash_mhsa_qkv) against its plain
+    version at L = 320 / 244 / 190 / 153, 12 heads of 64: at B=32, the
+    training path's shape, and at B=16, the tracking path's (where
+    attn_block_fused runs the same kernel between its two GEMMs). Times
+    from CUDA events and from the profiler's device time, for the kernel,
+    the plain version and F.scaled_dot_product_attention."""
     rows = []
     for L in TOKENS:
-        qkv = torch.randn(TRAIN_B, L, 3 * 768, generator=gen).to(dev, torch.bfloat16)
+        qkv = torch.randn(batch, L, 3 * 768, generator=gen).to(dev, torch.bfloat16)
         got = flash_mhsa_qkv(qkv, 12, 64 ** -0.5)
         want = flash_mhsa_qkv_plain(qkv, 12, 64 ** -0.5)
         # the library call on q, k, v laid out (B, heads, L, 64) beforehand
-        q, k, v = qkv.reshape(TRAIN_B, L, 3, 12, 64).permute(2, 0, 3, 1, 4).contiguous()
+        q, k, v = qkv.reshape(batch, L, 3, 12, 64).permute(2, 0, 3, 1, 4).contiguous()
         torch.cuda.synchronize()
         g, w = got.float(), want.float()
         err = (g - w).abs()
         scale = torch.maximum(g.abs(), w.abs()).amax(-1, keepdim=True)
-        row = dict(kernel="flash_mhsa_qkv", B=TRAIN_B, L=L, max_abs_err=err.max().item(),
+
+        def kernel():
+            return flash_mhsa_qkv(qkv, 12, 64 ** -0.5)
+
+        def plain():
+            return flash_mhsa_qkv_plain(qkv, 12, 64 ** -0.5)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v)
+
+        row = dict(kernel="flash_mhsa_qkv", B=batch, L=L, max_abs_err=err.max().item(),
                    max_row_ulps=(err / bf16_ulp(scale)).max().item(), bar_row_ulps=MHSA_ULPS,
                    frac_differ=(err > 0).float().mean().item(),
-                   ms=cuda_ms(lambda: flash_mhsa_qkv(qkv, 12, 64 ** -0.5)),
-                   plain_ms=cuda_ms(lambda: flash_mhsa_qkv_plain(qkv, 12, 64 ** -0.5)),
-                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
-                   **bound(nbytes(qkv, got), 4 * TRAIN_B * L * L * 768, "bf16"))
-        log("kernels", **row)
+                   ms=cuda_ms(kernel), plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
+                   device_ms=device_ms(kernel), plain_device_ms=device_ms(plain),
+                   library_device_ms=device_ms(library),
+                   **bound(nbytes(qkv, got), 4 * batch * L * L * 768, "bf16"))
+        log("kernels", **row, card=card_line())
         if not torch.isfinite(g).all() or row["max_row_ulps"] > MHSA_ULPS:
-            raise AssertionError(f"flash_mhsa_qkv L={L}: {row}")
+            raise AssertionError(f"flash_mhsa_qkv B={batch} L={L}: {row}")
         rows.append(row)
     return rows
 
@@ -588,14 +643,21 @@ def train_kernels_vs_plain(cfg, dev) -> None:
     their plain versions (use_kernels=False): same weights, batch and
     drop-path generator. Asserted without candidate elimination, printed
     with it (tied bf16 CE scores on random weights move tokens). The same
-    step at f32 compute gives the scale of bf16 rounding for comparison."""
+    step at f32 compute gives the scale of bf16 rounding for comparison.
+
+    The box loss is not continuous in the kernels' rounding: each box is
+    decoded at its score map's argmax, and random weights give nearly flat
+    maps, so a one-ulp change can move a sample's box to another peak.
+    Printed beside the bars: the samples whose argmax differs between the
+    two bf16 runs, and the smallest gap between the plain map's top two
+    scores, against the largest difference between the two maps."""
     stride = cfg.MODEL.BACKBONE.STRIDE
     mask = generate_ctr_mask(cfg.DATA.TEMPLATE.SIZE // stride,
                              cfg.MODEL.BACKBONE.CE_TEMPLATE_RANGE, dev)
     ce_lens = ce_keep_schedule((cfg.DATA.SEARCH.SIZE // stride) ** 2,
                                cfg.MODEL.BACKBONE.CE_LOC, cfg.MODEL.BACKBONE.CE_KEEP_RATIO)
     batch = synthetic_train_batch(cfg, dev)
-    results = {}
+    results, score_maps = {}, {}
     for name, dtype, use_kernels, runs in (("kernels", torch.bfloat16, True, (None, ce_lens)),
                                            ("plain", torch.bfloat16, False, (None, ce_lens)),
                                            ("f32", torch.float32, False, (None,))):
@@ -612,6 +674,11 @@ def train_kernels_vs_plain(cfg, dev) -> None:
             grads = torch.autograd.grad(loss, params)
             results[name, lens is None] = (loss.detach().float(),
                                            torch.cat([g.flatten() for g in grads]))
+        if dtype == torch.bfloat16:
+            with torch.no_grad():
+                out = model(batch["template"], batch["search"], mask, None,
+                            deterministic=False, generator=drop_path_generator(0, 0, dev))
+            score_maps[name] = out["score_map"].float().flatten(1)
         del model
 
     def diff(a, b):
@@ -620,9 +687,14 @@ def train_kernels_vs_plain(cfg, dev) -> None:
                     grad_rel_l2=((ga - gb).norm() / gb.norm()).item())
 
     off = diff(("kernels", True), ("plain", True))
+    sk, sp = score_maps["kernels"], score_maps["plain"]
+    top2 = sp.topk(2, dim=1).values
+    ties = dict(argmax_differs=(sk.argmax(1) != sp.argmax(1)).nonzero().flatten().tolist(),
+                plain_min_top2_gap=(top2[:, 0] - top2[:, 1]).min().item(),
+                score_map_max_abs_diff=(sk - sp).abs().max().item())
     log("train_kernels_vs_plain",
         ce_off=dict(loss_kernels=results["kernels", True][0].item(),
-                    loss_plain=results["plain", True][0].item(), **off),
+                    loss_plain=results["plain", True][0].item(), **off, **ties),
         ce_on=diff(("kernels", False), ("plain", False)),
         bf16_plain_vs_f32_ce_off=diff(("plain", True), ("f32", True)),
         loss_rel_bar=TRAIN_LOSS_REL_BAR, grad_rel_l2_bar=TRAIN_GRAD_REL_BAR, asserted="ce_off")
@@ -799,8 +871,7 @@ def main() -> int:
     lib = load_library()
     log_text = lib.path.with_suffix(".log").read_text() if lib.build_seconds else ""
     log("build", seconds=time.perf_counter() - t0, nvcc_seconds=lib.build_seconds,
-        library=str(lib.path.name), attention_max_tokens=lib.attention_max_tokens,
-        ptxas=[ln.strip() for ln in log_text.splitlines()
+        library=str(lib.path.name), ptxas=[ln.strip() for ln in log_text.splitlines()
                if "registers" in ln or "spill" in ln])
 
     gen = torch.Generator().manual_seed(0)
@@ -810,6 +881,7 @@ def main() -> int:
                                    dict(num_heads=12, scale=64 ** -0.5), dev, gen)
         mlp_rows = compare_blocks("mlp_block_fused", mlp_block_fused, mlp_block_fused_plain,
                                   768, 4 * 768, 4 * 768, {}, dev, gen)
+        compare_mhsa(dev, gen, B)
         crop_rows = compare_crops(dev, gen)
         xcorr_rows = compare_xcorr(dev, gen)
 
@@ -823,7 +895,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with torch.inference_mode():
-        mhsa_rows = compare_mhsa(dev, gen)
+        mhsa_rows = compare_mhsa(dev, gen, TRAIN_B)
     time_functions(dev, gen)
     for name, n in train_path(cfg, dev).items():
         launches[name] = launches.get(name, 0) + n

@@ -38,7 +38,6 @@ _SIGNATURES = {
     "mmt_layernorm_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
     "mmt_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mmt_attention_bf16": (_P, _P, _I, _I, _I, _F, _P),
-    "mmt_attention_max_tokens": (),
     "mmt_crop_resize_normalize": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "mmt_depthwise_xcorr": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
@@ -124,7 +123,6 @@ class _Kernels:
             fn = getattr(self._lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        self.attention_max_tokens = self._lib.mmt_attention_max_tokens()
 
     def launch(self, name: str, *args) -> None:
         """Call a launcher and raise if CUDA refused the launch."""

@@ -3,16 +3,16 @@
 Port of mmtrack_tpu/ops/flash_attn.py::attn_block_fused (Pallas, :88-160),
 used by the transformer blocks without candidate elimination. On CUDA it
 runs four hand-written kernels from `csrc/`: the LayerNorm row kernel, the
-bf16 GEMM for qkv (bias epilogue), the attention kernel (one block per
-query tile, head and sequence, reading the fused (B, L, 3C) qkv directly
-and writing (B, L, C) token-major), and the bf16 GEMM for the output
-projection (bias + residual epilogue).
+bf16 GEMM for qkv (bias epilogue), the attention kernel (one block per 64
+query rows, head and sequence, streaming K and V tiles through shared
+memory from the fused (B, L, 3C) qkv and writing (B, L, C) token-major),
+and the bf16 GEMM for the output projection (bias + residual epilogue).
 
 Rounding points are the Pallas kernel's: qkv rounded to the compute dtype
 after an f32 bias add; q scaled in the compute dtype; logits and the
-max-subtracted softmax in f32; probabilities rounded before PV; PV in f32
-rounded per head; proj in f32 + bias, rounded, then the residual added in
-the compute dtype.
+max-subtracted softmax in f32; the normalised probabilities rounded before
+PV; PV in f32 rounded per head; proj in f32 + bias, rounded, then the
+residual added in the compute dtype.
 
 Weights use the torch nn.Linear layout: wqkv (3C, C), wproj (C, C).
 
@@ -29,6 +29,8 @@ gradient of its plain version, recomputed from the saved inputs
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -85,20 +87,23 @@ def flash_mhsa_qkv_plain(qkv: torch.Tensor, num_heads: int, scale: float) -> tor
     return mhsa_plain(qkv, num_heads, scale)[0]
 
 
+@functools.lru_cache(maxsize=None)
+def _bf16_value(v: float) -> float:
+    """v rounded to bf16 (to nearest even), as a Python float."""
+    return float(torch.tensor(v, dtype=torch.bfloat16))
+
+
 def mhsa_bf16(qkv2d: torch.Tensor, B: int, L: int, num_heads: int,
               scale: float) -> torch.Tensor:
     """Launch the attention kernel on a contiguous (B*L, 3C) bf16 qkv."""
     C = qkv2d.shape[1] // 3
     if C != num_heads * HEAD_DIM:
         raise ValueError(f"attention kernel needs head dim {HEAD_DIM}, got {C // num_heads}")
-    lib = load_library()
-    if L > lib.attention_max_tokens:
-        raise ValueError(f"attention kernel holds at most {lib.attention_max_tokens} "
-                         f"tokens in shared memory, got L={L}")
+    if qkv2d.data_ptr() % 16:
+        raise ValueError("attention kernel needs a 16-byte aligned qkv")
     out = torch.empty((B * L, C), dtype=torch.bfloat16, device=qkv2d.device)
-    scale_bf16 = float(torch.tensor(scale, dtype=torch.bfloat16))
-    lib.launch("mmt_attention_bf16", qkv2d.data_ptr(), out.data_ptr(), B, L, num_heads,
-               scale_bf16, stream_handle(qkv2d.device))
+    load_library().launch("mmt_attention_bf16", qkv2d.data_ptr(), out.data_ptr(), B, L,
+                          num_heads, _bf16_value(scale), stream_handle(qkv2d.device))
     return out
 
 
@@ -114,8 +119,7 @@ def flash_mhsa_qkv(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Ten
     """softmax(q k^T * scale) v for a fused qkv (B, L, 3C) -> (B, L, C).
 
     A CPU tensor takes the plain version. A CUDA tensor launches the
-    attention kernel (contiguous bf16, head dim 64, L at most the kernel's
-    `attention_max_tokens`) or raises.
+    attention kernel (contiguous bf16, head dim 64, any L) or raises.
     """
     if qkv.device.type == "cpu":
         return flash_mhsa_qkv_plain(qkv, num_heads, scale)

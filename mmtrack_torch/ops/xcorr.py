@@ -82,6 +82,8 @@ def _launch(z_feat: torch.Tensor, x_feat: torch.Tensor, pad: int = 0) -> torch.T
     dev = x_feat.device
     if z_feat.device != dev:
         raise ValueError(f"z_feat on {z_feat.device}, x_feat on {dev}")
+    if H * W * C >= 2 ** 31:
+        raise ValueError(f"one search feature of {H * W * C} elements exceeds 32-bit indexing")
     x = x_feat.detach().float().contiguous()
     z = z_feat.detach().float().contiguous()
     out = torch.empty((N, oh, ow, C), dtype=torch.float32, device=dev)

@@ -5,11 +5,15 @@
 Every test needs an NVIDIA GPU and skips without one (the decision is made
 in a fixture, never at import). chip_smoke.py covers the main path's shapes;
 these cover the edges: one token, token counts that are not multiples of
-16 or 32, the largest count the attention kernel holds, row counts that
-are not multiples of the GEMM tile, boxes far outside the frame, and the
-argument checks. Bars: the half-blocks within two bf16 ulps of the largest
-|x|, |y - x| or |y| in the element's token row (the two versions sum in
-another f32 order, so y = x + h may differ by one ulp of h plus one of y);
+16 or 64, counts of several hundred and a thousand tokens, logits spread
+over more than 80 in a row (max subtraction, no overflow), row counts that
+are not multiples of the GEMM tile, boxes far outside the frame, output
+widths and channel counts that the correlation's tiles do not divide, and
+the argument checks; the attention kernels also at the main paths' shapes
+(B = 16 and 32, L = 320 / 244 / 190 / 153). Bars: the half-blocks within
+two bf16 ulps of the largest |x|, |y - x| or |y| in the element's token
+row (the two versions sum in another f32 order, so y = x + h may differ by
+one ulp of h plus one of y);
 the crop and the depthwise correlation bit for bit; flash_mhsa_qkv within
 two bf16 ulps of the row's largest |output|.
 
@@ -32,7 +36,12 @@ from mmtrack_torch.ops.flash_attn import (  # noqa: E402
     flash_mhsa_qkv,
     flash_mhsa_qkv_plain,
 )
-from mmtrack_torch.ops.mlp_fuse import mlp_block_fused, mlp_block_fused_plain  # noqa: E402
+from mmtrack_torch.ops.mlp_fuse import (  # noqa: E402
+    layer_norm_f32,
+    linear_f32,
+    mlp_block_fused,
+    mlp_block_fused_plain,
+)
 from mmtrack_torch.ops.xcorr import depthwise_xcorr, depthwise_xcorr_plain  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -62,6 +71,13 @@ def _x(B, L, dev, seed):
     return torch.randn(B, L, C, generator=g).to(dev, torch.bfloat16)
 
 
+def _max_logit_spread(qkv):
+    """The largest max - min of q k^T * scale over the rows of head 0."""
+    q = qkv[..., :64].float() * 64 ** -0.5
+    logits = q @ qkv[..., C:C + 64].float().transpose(-1, -2)
+    return (logits.amax(-1) - logits.amin(-1)).max().item()
+
+
 def _assert_row_ulps(got, want, x, ulps=2):
     g, w = got.float(), want.float()
     xf = x.float()
@@ -71,10 +87,19 @@ def _assert_row_ulps(got, want, x, ulps=2):
     assert ((g - w).abs() <= bar).all(), ((g - w).abs() - bar).max().item()
 
 
-@pytest.mark.parametrize("B,L", [(1, 1), (1, 17), (3, 37), (2, 100), (1, 464)])
-def test_attn_block_kernel_matches_plain(dev, B, L):
+MAIN_PATH = [(B, L) for B in (16, 32) for L in (320, 244, 190, 153)]
+EDGES = [(1, 1), (1, 17), (3, 37), (2, 100), (1, 464), (1, 465), (1, 1024)]
+
+
+@pytest.mark.parametrize("B,L,spread", [(B, L, False) for B, L in EDGES + MAIN_PATH]
+                         + [(2, 320, True)])
+def test_attn_block_kernel_matches_plain(dev, B, L, spread):
     p = _params(3 * C, C, dev, seed=L)
     x = _x(B, L, dev, seed=B)
+    if spread:       # q rows of wqkv x 32: a row's logits spread over more than 80
+        p[2][:C] *= 32
+        h = layer_norm_f32(x, p[0], p[1], 1e-6).to(torch.bfloat16)
+        assert _max_logit_spread(linear_f32(h, p[2], p[3]).to(torch.bfloat16)) > 80
     kw = dict(num_heads=12, scale=64 ** -0.5)
     before = attn_block_fused.launches
     got = attn_block_fused(x, *p, **kw)
@@ -119,18 +144,20 @@ def test_kernel_argument_checks(dev):
     with pytest.raises(TypeError):
         attn_block_fused(_x(1, 8, dev, 0).float(), *p, **kw)
     with pytest.raises(ValueError):
-        attn_block_fused(_x(1, 465, dev, 0), *p, **kw)          # beyond shared memory
-    with pytest.raises(ValueError):
         attn_block_fused(_x(1, 8, dev, 0), *p, num_heads=6, scale=1.0)   # head dim 128
     with pytest.raises(TypeError):
         crop_resize_normalized(torch.zeros(1, 8, 8, 6, device=dev), torch.zeros(1, 4),
                                2.0, 16, torch.zeros(6), torch.ones(6))
 
 
-@pytest.mark.parametrize("B,L", [(1, 1), (1, 17), (3, 37), (2, 100), (1, 464)])
-def test_flash_mhsa_qkv_kernel_matches_plain(dev, B, L):
+@pytest.mark.parametrize("B,L,spread", [(B, L, False) for B, L in EDGES + MAIN_PATH]
+                         + [(2, 320, True)])
+def test_flash_mhsa_qkv_kernel_matches_plain(dev, B, L, spread):
     g = torch.Generator().manual_seed(L)
     qkv = torch.randn(B, L, 3 * C, generator=g).to(dev, torch.bfloat16)
+    if spread:       # q x 32: a row's logits spread over more than 80
+        qkv[..., :C] *= 32
+        assert _max_logit_spread(qkv) > 80
     before = flash_mhsa_qkv.launches
     got = flash_mhsa_qkv(qkv, 12, 64 ** -0.5)
     assert flash_mhsa_qkv.launches == before + 1
@@ -140,6 +167,9 @@ def test_flash_mhsa_qkv_kernel_matches_plain(dev, B, L):
     bar = 2 * torch.exp2(torch.floor(torch.log2(scale.clamp(min=2.0 ** -126))) - 7)
     assert torch.isfinite(gf).all()
     assert ((gf - wf).abs() <= bar).all()
+    # the normalised rounding point: rounding p before the division would
+    # change 12-50% of the outputs (tests/test_torch_attention_order.py)
+    assert (gf != wf).float().mean() < 0.01
 
 
 def _function_case(kind, L, dev):
@@ -191,8 +221,11 @@ def test_kernels_record_nothing_without_grad(dev):
 def test_flash_mhsa_qkv_argument_checks(dev):
     with pytest.raises(TypeError):
         flash_mhsa_qkv(torch.zeros(1, 8, 3 * C, device=dev), 12, 0.125)
-    with pytest.raises(ValueError):
-        flash_mhsa_qkv(torch.zeros(1, 465, 3 * C, device=dev, dtype=torch.bfloat16), 12, 0.125)
+    with pytest.raises(ValueError):     # head dim 128
+        flash_mhsa_qkv(torch.zeros(1, 8, 3 * C, device=dev, dtype=torch.bfloat16), 6, 0.125)
+    with pytest.raises(ValueError):     # not 16-byte aligned
+        flat = torch.zeros(8 * 3 * C + 1, device=dev, dtype=torch.bfloat16)
+        flash_mhsa_qkv(flat[1:].view(1, 8, 3 * C), 12, 0.125)
 
 
 XCORR_CASES = {
@@ -203,6 +236,12 @@ XCORR_CASES = {
     "alpha-refine-n16": (16, 32, 32, 64, 3, 3, True, 1),
     "alpha-refine-shared": (1, 32, 32, 64, 3, 3, False, 1),
     "odd-edges": (2, 7, 5, 3, 3, 4, True, 2),
+    # ow and C that the kernel's runs (2 or 8 columns) and 32-channel chunks do not divide
+    "ragged-tiles": (2, 19, 23, 70, 3, 3, True, 1),
+    # rows wider than one segment of the kernel's (8 runs)
+    "wide-segments": (1, 12, 150, 33, 5, 7, False, 2),
+    # a filter whose staged band needs more than 48 KB of shared memory
+    "large-filter": (1, 24, 24, 8, 20, 20, False, 0),
 }
 
 
