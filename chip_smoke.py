@@ -8,7 +8,9 @@ non-zero:
 
   0. card: name and power limit (nvidia-smi), torch and CUDA versions;
      TF32 off for matmuls and convolutions.
-  1. build: compile the kernels of mmtrack_torch/csrc (nvcc, first use).
+  1. build: compile the kernels of mmtrack_torch/csrc (nvcc, first use);
+     every GEMM variant must contain wgmma (HGMMA) and TMA loads (UTMALDG)
+     in its SASS (cuobjdump -sass) and show no spill in its ptxas report.
   2. kernels against their plain PyTorch versions at the main path's
      shapes: the attention and MLP half-blocks in bf16 at B=16 for every
      token count the path gives them (L = 320, 244, 190, 153), bar two bf16
@@ -18,16 +20,22 @@ non-zero:
      ulp of h plus one of y (near-zero outputs differ by many of their own
      ulps but not of their row's scale); the attention kernel alone
      (through flash_mhsa_qkv) at B=16 and the same L, as phase 5 measures
-     it; the batched crop at S = 128 and 256 on 320x240 and 640x480 frames,
-     bar bit equality. Times from CUDA events (and, for the attention,
-     the profiler's device time).
+     it; the GEMM alone for the four products (qkv, proj, fc1, fc2) at
+     M = 16 L and at the training block's 32 x 320, against its plain
+     epilogue, same bar, with device TFLOP/s, the wrapper's host time,
+     torch.matmul's device time and the tile plan; the LayerNorm kernel at
+     M = 16 L against its byte bound; the batched crop at S = 128 and 256
+     on 320x240 and 640x480 frames, bar bit equality. Times from CUDA
+     events (and, for the attention, GEMM and LayerNorm, the profiler's
+     device time).
   3. main path: BatchedViPTTracker with deep_rgbd in bf16 on seeded random
      weights, B=16 sequences of 320x240 6-channel synthetic frames,
      initialize + 16 tracked steps. The launch counters must show 9 x 16
      attention half-blocks, 12 x 16 MLP half-blocks and 1 + 16 crops; every
      box must be finite and inside its frame. Reports ms/step and frames/s.
-     Then PROFILE_STEPS more steps under torch.profiler: the attention
-     kernel's device ms per step, the top kernels, all device work.
+     Then PROFILE_STEPS more steps under torch.profiler: the attention,
+     GEMM and LayerNorm kernels' device ms and calls per step (9 attention
+     and 42 GEMM calls asserted), the top kernels, all device work.
   4. one full forward with the kernels against the same model on the plain
      versions (use_kernels=False), same inputs: without candidate
      elimination the score and size maps within MAP_BAR and the offset map
@@ -54,9 +62,10 @@ non-zero:
   6. one training step's loss and prompt gradients with the kernels and
      with use_kernels=False (same weights, batch and drop-path generator):
      without CE within TRAIN_LOSS_REL_BAR and TRAIN_GRAD_REL_BAR (relative
-     L2), with CE printed only; beside them the samples whose score-map
-     argmax (where the box is decoded) differs, and how close the plain
-     map's top two scores come.
+     L2), with CE printed only. Every run decodes its boxes at the plain
+     bf16 run's score-map argmax, so a near-tie that one ulp flips cannot
+     move a box; printed beside the bars: the samples whose own argmax
+     differs, and how close the plain map's top two scores come.
   7. xcorr: the depthwise-correlation kernel against its plain version,
      bar bit equality, at Alpha-Refine's shape (N = 1 and 16 search
      features of 32 x 32 x 64 padded by one in the kernel, per-sample 3 x 3
@@ -83,7 +92,8 @@ bytes over 3.35 TB/s and its operations over the peak rate of their type
 data sheet), from the shapes of its row, and library_ms, one PyTorch call
 that computes the same function where there is one
 (F.scaled_dot_product_attention for flash_mhsa_qkv, F.conv2d(groups=C) for
-the depthwise correlation), timed here and used nowhere in the port.
+the depthwise correlation, torch.matmul for the GEMM lines), timed here
+and used nowhere in the port.
 
 The line before the last is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Without CUDA the script raises before any
@@ -96,6 +106,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -113,7 +124,8 @@ from mmtrack_torch.data.processing import from_config as processing_from_config
 from mmtrack_torch.data.sampler import TrackingSampler
 from mmtrack_torch.eval.vot import Mask, Rectangle, _decode_region, _encode_region, run_vot_exp
 from mmtrack_torch.eval.vot_entry import AR_INPUT_SIZE, refiner_factory
-from mmtrack_torch.kernels.build import load_library
+from mmtrack_torch.kernels.build import load_library, sass_by_kernel
+from mmtrack_torch.models.heads import cal_bbox
 from mmtrack_torch.models.vipt import build_viptrack, ce_keep_schedule, generate_ctr_mask
 from mmtrack_torch.ops.crop import crop_resize_normalized, crop_resize_normalized_plain
 from mmtrack_torch.ops.flash_attn import (
@@ -122,11 +134,23 @@ from mmtrack_torch.ops.flash_attn import (
     flash_mhsa_qkv,
     flash_mhsa_qkv_plain,
 )
-from mmtrack_torch.ops.mlp_fuse import mlp_block_fused, mlp_block_fused_plain
+from mmtrack_torch.ops.mlp_fuse import (
+    EPI_BIAS,
+    EPI_BIAS_GELU,
+    EPI_BIAS_RESIDUAL,
+    GEMM_BN,
+    gemm_bf16,
+    gemm_bf16_plain,
+    gemm_plan,
+    layer_norm_f32,
+    layernorm_bf16,
+    mlp_block_fused,
+    mlp_block_fused_plain,
+)
 from mmtrack_torch.ops.xcorr import depthwise_xcorr, depthwise_xcorr_plain
 from mmtrack_torch.parallel.batched_eval import BatchedViPTTracker
 from mmtrack_torch.registry import build_tracker
-from mmtrack_torch.train.actor import vipt_forward_and_loss
+from mmtrack_torch.train.actor import vipt_loss
 from mmtrack_torch.train.optim import build_optimizer, prompt_only_mask
 from mmtrack_torch.train.train_step import TrainState, drop_path_generator, make_train_step
 from mmtrack_torch.trackers.vipt_tracker import (
@@ -142,6 +166,10 @@ TOKENS = (320, 244, 190, 153)      # 64 template + 256 / 180 / 126 / 89 search t
 STEPS = 16
 PROFILE_STEPS = 3                  # tracking steps under torch.profiler, after the counted run
 ATTENTION_KERNELS = ("attention_resident_kernel", "attention_streaming_kernel")
+GEMM_KERNEL, LAYERNORM_KERNEL = "gemm_bf16_kernel", "layernorm_bf16_kernel"
+GEMM_SHAPES = (("qkv", 2304, 768, EPI_BIAS), ("proj", 768, 768, EPI_BIAS_RESIDUAL),
+               ("fc1", 3072, 768, EPI_BIAS_GELU), ("fc2", 768, 3072, EPI_BIAS_RESIDUAL))
+GEMM_CALLS_PER_STEP = 2 * 9 + 2 * 12   # qkv + proj in 9 attention, fc1 + fc2 in 12 MLP half-blocks
 FRAME_HW = (240, 320)
 BLOCK_ULPS = 2
 MAP_BAR = 0.05                     # score / size maps, values in (0, 1)
@@ -229,6 +257,133 @@ def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(v)) - 7)
 
 
+def gemm_build_checks(lib) -> dict:
+    """The GEMM kernels as compiled: each of the len(GEMM_BN) variants must
+    contain wgmma (SASS HGMMA) and TMA loads (UTMALDG), by `cuobjdump
+    -sass` of the library, and its ptxas report must show no spill."""
+    log_path = lib.path.with_suffix(".log")
+    text = log_path.read_text() if log_path.exists() else ""
+    spills, name = {}, None
+    for ln in text.splitlines():
+        if "Function properties for " in ln:
+            name = ln.split("Function properties for ", 1)[1].strip()
+        elif name and "spill stores" in ln:
+            spills[name] = ln.strip()
+            name = None
+    gemm_spills = {k: v for k, v in spills.items() if GEMM_KERNEL in k}
+    opcodes = {k: {op: op in v for op in ("HGMMA", "UTMALDG")}
+               for k, v in sass_by_kernel(lib.path).items() if GEMM_KERNEL in k}
+
+    def no_spill(line):
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        return bool(m) and m.group(1) == "0" and m.group(2) == "0"
+
+    ok = (len(opcodes) == len(GEMM_BN) and all(all(v.values()) for v in opcodes.values())
+          and len(gemm_spills) == len(GEMM_BN) and all(map(no_spill, gemm_spills.values())))
+    return dict(ok=ok, sass_opcodes=opcodes, ptxas_spills=gemm_spills,
+                wgmma_notes=[ln.strip() for ln in text.splitlines() if "wgmma" in ln.lower()])
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host time of one fn() call in microseconds, enqueue only (the card
+    runs behind): what CUDA events do not see."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e6
+
+
+def row_ulps(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor) -> dict:
+    """The largest |got - want|, the same in bf16 ulps of the row's largest
+    |x|, |got|, |want| or |want - x|, and the share of outputs that differ;
+    raises if got is not finite."""
+    g, w, xf = got.float(), want.float(), x.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError("non-finite kernel output")
+    err = (g - w).abs()
+    scale = torch.stack([xf.abs(), g.abs(), w.abs(), (w - xf).abs()]).amax(0).amax(
+        -1, keepdim=True)
+    return dict(max_abs_err=err.max().item(), max_row_ulps=(err / bf16_ulp(scale)).max().item(),
+                frac_differ=(err > 0).float().mean().item())
+
+
+def compare_gemms(dev, gen) -> list[dict]:
+    """The GEMM kernel alone against its plain version (its epilogue's
+    rounding points), for the four products of the half-blocks at the
+    tracking path's M = 16 L and the training block's 32 x 320, bar
+    BLOCK_ULPS of the row's scale. Times: CUDA events, the profiler's
+    device time (also with the bias epilogue alone), the wrapper's host
+    time, and torch.matmul(a, w.t()) in bf16 (cuBLAS) as the library call;
+    the block tile, its tiles and waves from gemm_plan."""
+    rows = []
+    for name, N, K, epi in GEMM_SHAPES:
+        w = (torch.randn(N, K, generator=gen) * K ** -0.5).to(dev, torch.bfloat16)
+        b = (torch.randn(N, generator=gen) * 0.05).to(dev)
+        for M in [B * L for L in TOKENS] + [TRAIN_B * TOKENS[0]]:
+            a = torch.randn(M, K, generator=gen).to(dev, torch.bfloat16)
+            res = (torch.randn(M, N, generator=gen).to(dev, torch.bfloat16)
+                   if epi == EPI_BIAS_RESIDUAL else None)
+            got = gemm_bf16(a, w, b, epi, res)
+            want = gemm_bf16_plain(a, w, b, epi, res)
+            torch.cuda.synchronize()
+            diff = row_ulps(got, want, torch.zeros_like(want) if res is None else res)
+            plan = gemm_plan(M, N, K)
+
+            def kernel():
+                return gemm_bf16(a, w, b, epi, res)
+
+            dev_ms = device_ms(kernel)
+            flops = 2 * M * N * K
+            row = dict(kernel="gemm_bf16", product=name, M=M, N=N, K=K, **diff,
+                       bar_row_ulps=BLOCK_ULPS, ms=cuda_ms(kernel),
+                       device_ms=dev_ms, tflops=flops / dev_ms / 1e9,
+                       # the same product with the bias epilogue alone: what GELU or
+                       # the residual add to the kernel
+                       bias_only_device_ms=(device_ms(lambda: gemm_bf16(a, w, b, EPI_BIAS))
+                                            if epi != EPI_BIAS else dev_ms),
+                       host_us_per_call=host_us(kernel),
+                       library_ms=device_ms(lambda: torch.matmul(a, w.t())),
+                       # the same host's cost of one PyTorch call, for scale
+                       library_host_us_per_call=host_us(lambda: torch.matmul(a, w.t())),
+                       tile=[plan.bm, plan.bn], tiles=plan.tiles, waves=plan.waves,
+                       tail_fill=plan.tail_fill,
+                       **bound(nbytes(a, w, b, got, *(() if res is None else (res,))), flops,
+                               "bf16"))
+            log("kernels", **row, card=card_line())
+            if row["max_row_ulps"] > BLOCK_ULPS:
+                raise AssertionError(f"gemm {name} M={M}: {row}")
+            rows.append(row)
+    return rows
+
+
+def compare_layernorm(dev, gen) -> list[dict]:
+    """The LayerNorm row kernel against its plain version at the half-blocks'
+    (16 L, 768), bar BLOCK_ULPS of the row's largest |output|; device time
+    from the profiler beside the byte bound."""
+    rows = []
+    g = (1 + torch.randn(768, generator=gen) * 0.1).to(dev)
+    b = (torch.randn(768, generator=gen) * 0.1).to(dev)
+    for L in TOKENS:
+        x = torch.randn(B * L, 768, generator=gen).to(dev, torch.bfloat16)
+        got = layernorm_bf16(x, g, b, 1e-6)
+        want = layer_norm_f32(x, g, b, 1e-6).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        row = dict(kernel="layernorm_bf16", M=B * L, C=768,
+                   **row_ulps(got, want, torch.zeros_like(want)), bar_row_ulps=BLOCK_ULPS,
+                   ms=cuda_ms(lambda: layernorm_bf16(x, g, b, 1e-6)),
+                   device_ms=device_ms(lambda: layernorm_bf16(x, g, b, 1e-6)),
+                   # ~8 f32 operations per element: two sums, the normalisation
+                   **bound(nbytes(x, g, b, got), 8 * x.numel(), "f32"))
+        log("kernels", **row, card=card_line())
+        if row["max_row_ulps"] > BLOCK_ULPS:
+            raise AssertionError(f"layernorm L={L}: {row}")
+        rows.append(row)
+    return rows
+
+
 def block_params(C: int, n1: int, k2: int, gen: torch.Generator, dev) -> dict:
     """LayerNorm parameters, w1 (n1, C) and w2 (C, k2) in bf16, f32 biases."""
     def r(*shape, scale=1.0):
@@ -256,19 +411,12 @@ def compare_blocks(name, kernel, plain, C, n1, k2, extra, dev, gen) -> list[dict
         got = kernel(x, *args, **extra)
         want = plain(x, *args, **extra)
         torch.cuda.synchronize()
-        g, w, xf = got.float(), want.float(), x.float()
-        err = (g - w).abs()
-        scale = torch.stack([xf.abs(), g.abs(), w.abs(), (w - xf).abs()]).amax(0).amax(
-            -1, keepdim=True)
-        ulps = (err / bf16_ulp(scale)).max()
-        row = dict(kernel=name, B=B, L=L, max_abs_err=err.max().item(),
-                   max_row_ulps=ulps.item(), bar_row_ulps=BLOCK_ULPS,
-                   frac_differ=(err > 0).float().mean().item(),
+        row = dict(kernel=name, B=B, L=L, **row_ulps(got, want, x), bar_row_ulps=BLOCK_ULPS,
                    ms=cuda_ms(lambda: kernel(x, *args, **extra)),
                    plain_ms=cuda_ms(lambda: plain(x, *args, **extra)), library_ms=None,
                    **bound(nbytes(x, *args, got), block_flops(name, L, C, n1, k2), "bf16"))
         log("kernels", **row)
-        if not torch.isfinite(g).all() or row["max_row_ulps"] > BLOCK_ULPS:
+        if row["max_row_ulps"] > BLOCK_ULPS:
             raise AssertionError(f"{name} L={L}: {row}")
         rows.append(row)
     return rows
@@ -383,7 +531,8 @@ def main_path(cfg, rt, dev, frames, box0):
                              f"boxes inside: {inside}")
     prof = profile_steps(tracker, frames[STEPS])
     log("main_path_profile", **prof, card=card_line())
-    if prof["attention_kernel_calls_per_step"] != 9:
+    if (prof["attention_kernel_calls_per_step"] != 9
+            or prof["gemm_kernel_calls_per_step"] != GEMM_CALLS_PER_STEP):
         raise AssertionError(f"profiled step: {prof}")
     return model, tracker, launches
 
@@ -394,11 +543,20 @@ def profile_steps(tracker, frame, steps: int = PROFILE_STEPS) -> dict:
     launch counts are untouched): the attention kernel's share, the top
     kernels, and all device work."""
     rows = cuda_events(lambda: tracker.track(frame), steps)
-    attn = [e for e in rows if any(k in e.key for k in ATTENTION_KERNELS)]
+
+    def per_step(names):
+        sel = [e for e in rows if any(k in e.key for k in names)]
+        return (sum(e.self_device_time_total for e in sel) / steps / 1e3,
+                sum(e.count for e in sel) / steps)
+
+    attn_ms, attn_calls = per_step(ATTENTION_KERNELS)
+    gemm_ms, gemm_calls = per_step((GEMM_KERNEL,))
+    ln_ms, ln_calls = per_step((LAYERNORM_KERNEL,))
     return dict(
         steps=steps,
-        attention_kernel_ms_per_step=sum(e.self_device_time_total for e in attn) / steps / 1e3,
-        attention_kernel_calls_per_step=sum(e.count for e in attn) / steps,
+        attention_kernel_ms_per_step=attn_ms, attention_kernel_calls_per_step=attn_calls,
+        gemm_kernel_ms_per_step=gemm_ms, gemm_kernel_calls_per_step=gemm_calls,
+        layernorm_kernel_ms_per_step=ln_ms, layernorm_kernel_calls_per_step=ln_calls,
         device_ms_per_step=sum(e.self_device_time_total for e in rows) / steps / 1e3,
         top_kernels_ms_per_step={e.key[:60]: e.self_device_time_total / steps / 1e3
                                  for e in rows[:8]})
@@ -645,21 +803,25 @@ def train_kernels_vs_plain(cfg, dev) -> None:
     with it (tied bf16 CE scores on random weights move tokens). The same
     step at f32 compute gives the scale of bf16 rounding for comparison.
 
-    The box loss is not continuous in the kernels' rounding: each box is
+    The box loss is not continuous in the kernels' rounding: a box is
     decoded at its score map's argmax, and random weights give nearly flat
     maps, so a one-ulp change can move a sample's box to another peak.
-    Printed beside the bars: the samples whose argmax differs between the
-    two bf16 runs, and the smallest gap between the plain map's top two
-    scores, against the largest difference between the two maps."""
+    So every run decodes its boxes at the plain bf16 run's argmax cells
+    (the size and offset maps read there, the focal loss on the whole
+    score map, as in training): the bars then see the kernels' rounding
+    and not the ties. Printed beside them: the samples whose own argmax
+    differs between the two bf16 runs, and the smallest gap between the
+    plain map's top two scores, against the largest difference between
+    the two maps."""
     stride = cfg.MODEL.BACKBONE.STRIDE
     mask = generate_ctr_mask(cfg.DATA.TEMPLATE.SIZE // stride,
                              cfg.MODEL.BACKBONE.CE_TEMPLATE_RANGE, dev)
     ce_lens = ce_keep_schedule((cfg.DATA.SEARCH.SIZE // stride) ** 2,
                                cfg.MODEL.BACKBONE.CE_LOC, cfg.MODEL.BACKBONE.CE_KEEP_RATIO)
     batch = synthetic_train_batch(cfg, dev)
-    results, score_maps = {}, {}
-    for name, dtype, use_kernels, runs in (("kernels", torch.bfloat16, True, (None, ce_lens)),
-                                           ("plain", torch.bfloat16, False, (None, ce_lens)),
+    results, score_maps, cells = {}, {}, {}
+    for name, dtype, use_kernels, runs in (("plain", torch.bfloat16, False, (None, ce_lens)),
+                                           ("kernels", torch.bfloat16, True, (None, ce_lens)),
                                            ("f32", torch.float32, False, (None,))):
         model = build_viptrack(cfg, dtype=dtype, param_dtype=torch.float32, device=dev, seed=0,
                                use_kernels=use_kernels)
@@ -667,18 +829,20 @@ def train_kernels_vs_plain(cfg, dev) -> None:
         for pname, p in model.named_parameters():
             p.requires_grad_(trainable[pname])
         for lens in runs:
-            loss, _ = vipt_forward_and_loss(model, batch, box_mask_z=mask, ce_keep_lens=lens,
-                                            search_size=cfg.DATA.SEARCH.SIZE, stride=stride,
-                                            generator=drop_path_generator(0, 0, dev))
+            out = model(batch["template"], batch["search"], mask, lens, deterministic=False,
+                        generator=drop_path_generator(0, 0, dev))
+            flat = out["score_map"].detach().float().flatten(1)
+            at = cells.setdefault(lens is None, flat.argmax(1))     # the plain bf16 run's
+            out["pred_boxes"], _ = cal_bbox(out["score_map"], out["size_map"],
+                                            out["offset_map"], at)
+            loss, _ = vipt_loss(out, batch["search_anno"], search_size=cfg.DATA.SEARCH.SIZE,
+                                stride=stride)
             params = [p for p in model.parameters() if p.requires_grad]
             grads = torch.autograd.grad(loss, params)
             results[name, lens is None] = (loss.detach().float(),
                                            torch.cat([g.flatten() for g in grads]))
-        if dtype == torch.bfloat16:
-            with torch.no_grad():
-                out = model(batch["template"], batch["search"], mask, None,
-                            deterministic=False, generator=drop_path_generator(0, 0, dev))
-            score_maps[name] = out["score_map"].float().flatten(1)
+            if dtype == torch.bfloat16 and lens is None:
+                score_maps[name] = flat
         del model
 
     def diff(a, b):
@@ -697,7 +861,8 @@ def train_kernels_vs_plain(cfg, dev) -> None:
                     loss_plain=results["plain", True][0].item(), **off, **ties),
         ce_on=diff(("kernels", False), ("plain", False)),
         bf16_plain_vs_f32_ce_off=diff(("plain", True), ("f32", True)),
-        loss_rel_bar=TRAIN_LOSS_REL_BAR, grad_rel_l2_bar=TRAIN_GRAD_REL_BAR, asserted="ce_off")
+        loss_rel_bar=TRAIN_LOSS_REL_BAR, grad_rel_l2_bar=TRAIN_GRAD_REL_BAR, asserted="ce_off",
+        boxes_decoded_at="the plain bf16 run's score-map argmax")
     if off["loss_rel_diff"] > TRAIN_LOSS_REL_BAR or off["grad_rel_l2"] > TRAIN_GRAD_REL_BAR:
         raise AssertionError(f"train step, kernels vs plain beyond bar: {off}")
 
@@ -870,9 +1035,12 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = load_library()
     log_text = lib.path.with_suffix(".log").read_text() if lib.build_seconds else ""
+    checks = gemm_build_checks(lib)
     log("build", seconds=time.perf_counter() - t0, nvcc_seconds=lib.build_seconds,
         library=str(lib.path.name), ptxas=[ln.strip() for ln in log_text.splitlines()
-               if "registers" in ln or "spill" in ln])
+               if "registers" in ln or "spill" in ln], gemm=checks)
+    if not checks["ok"]:
+        raise AssertionError(f"GEMM kernels: no HGMMA/UTMALDG in the SASS or a spill: {checks}")
 
     gen = torch.Generator().manual_seed(0)
     with torch.inference_mode():
@@ -882,6 +1050,8 @@ def main() -> int:
         mlp_rows = compare_blocks("mlp_block_fused", mlp_block_fused, mlp_block_fused_plain,
                                   768, 4 * 768, 4 * 768, {}, dev, gen)
         compare_mhsa(dev, gen, B)
+        compare_gemms(dev, gen)
+        compare_layernorm(dev, gen)
         crop_rows = compare_crops(dev, gen)
         xcorr_rows = compare_xcorr(dev, gen)
 

@@ -29,6 +29,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# No -lcuda: the GEMM looks cuTensorMapEncodeTiled up at run time
+# (cudaGetDriverEntryPointByVersion in csrc/gemm.cu).
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,7 +39,7 @@ _F = ctypes.c_float
 # name -> argtypes; every function returns a cudaError_t as int
 _SIGNATURES = {
     "mmt_layernorm_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
-    "mmt_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mmt_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mmt_attention_bf16": (_P, _P, _I, _I, _I, _F, _P),
     "mmt_crop_resize_normalize": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "mmt_depthwise_xcorr": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -62,7 +65,7 @@ def _nvcc() -> str:
 
 
 def _library_path() -> Path:
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -97,7 +100,7 @@ def build() -> tuple[Path, float]:
                 failed.append(name)
         if not failed:
             tmp = os.path.join(work, lib.name)
-            link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+            link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp,
                                    *(obj for _, obj, _ in jobs)],
                                   capture_output=True, text=True)
             log.append(f"== link (exit {link.returncode})\n{link.stdout}{link.stderr}")
@@ -110,6 +113,22 @@ def build() -> tuple[Path, float]:
             raise KernelCompileError(f"nvcc failed for {failed}:\n{text[-4000:]}")
         os.replace(tmp, lib)
     return lib, seconds
+
+
+def sass_by_kernel(lib: Path) -> dict[str, str]:
+    """The SASS of every kernel in the built library (`cuobjdump -sass`,
+    from the toolkit beside nvcc), by mangled name."""
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    kernels, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            kernels[name] = ""
+        elif name is not None:
+            kernels[name] += line + "\n"
+    return kernels
 
 
 class _Kernels:

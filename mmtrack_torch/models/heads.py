@@ -129,13 +129,16 @@ class CornerPredictor(nn.Module):
         return torch.stack([x_tl, y_tl, x_br, y_br], dim=1) / (n * self.stride)
 
 
-def cal_bbox(score_map: torch.Tensor, size_map: torch.Tensor, offset_map: torch.Tensor):
+def cal_bbox(score_map: torch.Tensor, size_map: torch.Tensor, offset_map: torch.Tensor,
+             idx: torch.Tensor | None = None):
     """Decode (cx, cy, w, h) in [0, 1] crop coordinates from the head maps
     (head.py:142-160): first-index argmax cell + sub-cell offset, size at the
-    argmax. Returns (bbox (B, 4), max_score (B,))."""
+    argmax. `idx` (B,) flat cells decode elsewhere than the argmax. Returns
+    (bbox (B, 4), max_score (B,): the score at the decoded cell)."""
     B, S, _ = score_map.shape
     flat = score_map.reshape(B, S * S)
-    idx = torch.argmax(flat, dim=1)
+    if idx is None:
+        idx = torch.argmax(flat, dim=1)
     max_score = torch.gather(flat, 1, idx[:, None])[:, 0]
     idx_y = torch.div(idx, S, rounding_mode="floor").float()
     idx_x = (idx % S).float()

@@ -43,8 +43,13 @@ def vipt_forward_and_loss(model, batch: dict, *, box_mask_z, ce_keep_lens,
     active exactly when a `generator` is given."""
     out = model(batch["template"], batch["search"], box_mask_z, ce_keep_lens,
                 deterministic=generator is None, generator=generator)
+    return vipt_loss(out, batch["search_anno"], weights, search_size, stride)
 
-    gt_bbox = batch["search_anno"]
+
+def vipt_loss(out: dict, gt_bbox: torch.Tensor, weights=(2.0, 5.0, 1.0),
+              search_size: int = 256, stride: int = 16):
+    """The objective of the model's outputs `out` (pred_boxes, score_map)
+    against the (B, 4) xywh boxes: returns (loss, stats)."""
     pred_xyxy = box_cxcywh_to_xyxy(out["pred_boxes"])
     gt_xyxy = box_xywh_to_xyxy(gt_bbox).clamp(0.0, 1.0)
 

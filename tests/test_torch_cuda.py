@@ -9,8 +9,14 @@ these cover the edges: one token, token counts that are not multiples of
 over more than 80 in a row (max subtraction, no overflow), row counts that
 are not multiples of the GEMM tile, boxes far outside the frame, output
 widths and channel counts that the correlation's tiles do not divide, and
-the argument checks; the attention kernels also at the main paths' shapes
-(B = 16 and 32, L = 320 / 244 / 190 / 153). Bars: the half-blocks within
+the argument checks; the attention kernels and the MLP half-block also at
+the main paths' shapes (B = 16 and 32, L = 320 / 244 / 190 / 153). The GEMM
+alone at each epilogue for the half-blocks' four products at M = 1, 37,
+2448 and 5120, plus an N only its 64-wide tile divides with a K that its
+64-deep k-tiles do not (zero-filled by TMA), and each tile width at the M
+whose plan takes it; the LayerNorm kernel at widths 8 to 1024 (and
+refusing others); a misaligned GEMM operand raises. Bars: the half-blocks
+(and the GEMM and LayerNorm kernels alone) within
 two bf16 ulps of the largest |x|, |y - x| or |y| in the element's token
 row (the two versions sum in another f32 order, so y = x + h may differ by
 one ulp of h plus one of y);
@@ -37,7 +43,14 @@ from mmtrack_torch.ops.flash_attn import (  # noqa: E402
     flash_mhsa_qkv_plain,
 )
 from mmtrack_torch.ops.mlp_fuse import (  # noqa: E402
+    EPI_BIAS,
+    EPI_BIAS_GELU,
+    EPI_BIAS_RESIDUAL,
+    gemm_bf16,
+    gemm_bf16_plain,
+    gemm_plan,
     layer_norm_f32,
+    layernorm_bf16,
     linear_f32,
     mlp_block_fused,
     mlp_block_fused_plain,
@@ -107,7 +120,7 @@ def test_attn_block_kernel_matches_plain(dev, B, L, spread):
     _assert_row_ulps(got, attn_block_fused_plain(x, *p, **kw), x)
 
 
-@pytest.mark.parametrize("B,L", [(1, 1), (3, 37), (2, 100)])
+@pytest.mark.parametrize("B,L", [(1, 1), (3, 37), (2, 100)] + MAIN_PATH)
 def test_mlp_block_kernel_matches_plain(dev, B, L):
     p = _params(4 * C, 4 * C, dev, seed=L)
     x = _x(B, L, dev, seed=B)
@@ -115,6 +128,77 @@ def test_mlp_block_kernel_matches_plain(dev, B, L):
     got = mlp_block_fused(x, *p)
     assert mlp_block_fused.launches == before + 1
     _assert_row_ulps(got, mlp_block_fused_plain(x, *p), x)
+
+
+GEMM_PAIRS = {"qkv": (2304, 768), "proj": (768, 768), "fc1": (3072, 768), "fc2": (768, 3072),
+              # N that only the 64-wide tile divides; K past the last 64 zero-filled by TMA
+              "narrow": (320, 200)}
+
+
+def _gemm_case(N, K, M, epilogue, seed):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(M, K, generator=g).bfloat16()
+    w = (torch.randn(N, K, generator=g) * K ** -0.5).bfloat16()
+    b = torch.randn(N, generator=g) * 0.05
+    res = torch.randn(M, N, generator=g).bfloat16() if epilogue == EPI_BIAS_RESIDUAL else None
+    return a, w, b, res
+
+
+@pytest.mark.parametrize("M", [1, 37, 2448, 5120])
+@pytest.mark.parametrize("pair", list(GEMM_PAIRS))
+@pytest.mark.parametrize("epilogue", [EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESIDUAL])
+def test_gemm_kernel_matches_plain(dev, epilogue, pair, M):
+    """Every tile width the plan picks at these shapes (64 at M <= 37 and
+    for "narrow", 128 / 192 / 256 at the main path's M), a ragged last
+    row tile, each epilogue."""
+    N, K = GEMM_PAIRS[pair]
+    a, w, b, res = (None if t is None else t.to(dev) for t in _gemm_case(N, K, M, epilogue, M))
+    got = gemm_bf16(a, w, b, epilogue, res)
+    want = gemm_bf16_plain(a, w, b, epilogue, res)
+    _assert_row_ulps(got, want, torch.zeros_like(want) if res is None else res)
+    if pair == "narrow":
+        assert gemm_plan(M, N, K).bn == 64
+
+
+@pytest.mark.parametrize("bn_M", [(64, 37), (128, 2448), (192, 3040), (256, 5120)])
+def test_gemm_kernel_every_tile_width_at_main_path_rows(dev, bn_M):
+    """proj's shape at the M whose plan takes each width, the residual
+    epilogue (reads and writes through the 16-byte epilogue path)."""
+    bn, M = bn_M
+    assert gemm_plan(M, 768, 768).bn == bn
+    a, w, b, res = (t.to(dev) for t in _gemm_case(768, 768, M, EPI_BIAS_RESIDUAL, bn))
+    _assert_row_ulps(gemm_bf16(a, w, b, EPI_BIAS_RESIDUAL, res),
+                     gemm_bf16_plain(a, w, b, EPI_BIAS_RESIDUAL, res), res)
+
+
+@pytest.mark.parametrize("operand", ["x", "w", "residual"])
+def test_gemm_kernel_rejects_misaligned_operand(dev, operand):
+    a, w, b, res = (t.to(dev) for t in _gemm_case(768, 768, 64, EPI_BIAS_RESIDUAL, 0))
+    ops = dict(x=a, w=w, residual=res)
+    t = ops[operand]
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    ops[operand] = flat[1:].view(t.shape).copy_(t)        # 2 bytes past an aligned start
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gemm_bf16(ops["x"], ops["w"], b, EPI_BIAS_RESIDUAL, ops["residual"])
+
+
+@pytest.mark.parametrize("M,C", [(1, 768), (5120, 768), (37, 8), (17, 264), (9, 1024),
+                                 (3, 776)])
+def test_layernorm_kernel_matches_plain(dev, M, C):
+    g = torch.Generator().manual_seed(C)
+    x = (torch.randn(M, C, generator=g) * 3 + 1).to(dev, torch.bfloat16)
+    scale = (1 + 0.1 * torch.randn(C, generator=g)).to(dev)
+    bias = (0.1 * torch.randn(C, generator=g)).to(dev)
+    got = layernorm_bf16(x, scale, bias, 1e-6)
+    want = layer_norm_f32(x, scale, bias, 1e-6).to(torch.bfloat16)
+    _assert_row_ulps(got, want, torch.zeros_like(want))
+
+
+@pytest.mark.parametrize("C", [12, 1032])
+def test_layernorm_kernel_rejects_width(dev, C):
+    x = torch.zeros(4, C, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        layernorm_bf16(x, torch.ones(C, device=dev), torch.zeros(C, device=dev), 1e-6)
 
 
 @pytest.mark.parametrize("H,W,S,factor", [(96, 128, 64, 4.0), (480, 640, 256, 4.0),

@@ -98,3 +98,23 @@ def test_cal_bbox_tied_maxima(S):
                       torch.from_numpy(offset))
     np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
     np.testing.assert_allclose(gb.numpy(), np.asarray(wb), rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("S", [16, 12])
+def test_cal_bbox_at_given_cells(S):
+    """Boxes decoded at given cells are the JAX decode of maps whose maximum
+    sits at those cells; the scores are the given cells' own."""
+    r = np.random.RandomState(9)
+    B = 3
+    score = r.uniform(0, 0.5, (B, S, S)).astype(np.float32)
+    size = r.uniform(0, 1, (B, S, S, 2)).astype(np.float32)
+    offset = r.uniform(-1, 1, (B, S, S, 2)).astype(np.float32)
+    idx = r.randint(0, S * S, B)
+    peaked = score.reshape(B, -1).copy()
+    peaked[np.arange(B), idx] = 1.0
+    wb, _ = jax_cal_bbox(jnp.asarray(peaked.reshape(B, S, S)), jnp.asarray(size),
+                         jnp.asarray(offset))
+    gb, gs = cal_bbox(torch.from_numpy(score), torch.from_numpy(size),
+                      torch.from_numpy(offset), torch.from_numpy(idx))
+    np.testing.assert_allclose(gb.numpy(), np.asarray(wb), rtol=0, atol=1e-7)
+    np.testing.assert_array_equal(gs.numpy(), score.reshape(B, -1)[np.arange(B), idx])
