@@ -25,9 +25,9 @@ non-zero:
      epilogue, same bar, with device TFLOP/s, the wrapper's host time,
      torch.matmul's device time and the tile plan; the LayerNorm kernel at
      M = 16 L against its byte bound; the batched crop at S = 128 and 256
-     on 320x240 and 640x480 frames, bar bit equality. Times from CUDA
-     events (and, for the attention, GEMM and LayerNorm, the profiler's
-     device time).
+     on 320x240 and 640x480 frames of 6 channels, and at Alpha-Refine's
+     S = 256 on 640x480 frames of 3, bar bit equality. Times from CUDA
+     events and the profiler's device time.
   3. main path: BatchedViPTTracker with deep_rgbd in bf16 on seeded random
      weights, B=16 sequences of 320x240 6-channel synthetic frames,
      initialize + 16 tracked steps. The launch counters must show 9 x 16
@@ -36,6 +36,18 @@ non-zero:
      Then PROFILE_STEPS more steps under torch.profiler: the attention,
      GEMM and LayerNorm kernels' device ms and calls per step (9 attention
      and 42 GEMM calls asserted), the top kernels, all device work.
+ 3b. scan: the same model, frames and init as the chunked device-resident
+     cell of the JAX bench (bench.py:400-418): chunks of T=16 frames for
+     B=16 sequences, 4 chunks, best of 3 repetitions each ending in a host
+     read of the boxes; first the eager vipt_track_scan_batched (the step
+     loop, kernels on the card), then make_track_scan (one CUDA graph per
+     chunk) from the same initial state. The graph's boxes and scores over
+     the 4 x 16 frames must equal the eager loop's bit for bit and lie
+     inside their frames; the wrappers count (warm-up + T) steps at capture
+     and nothing at replay; torch.profiler over one replayed chunk must
+     count 9 attention, 42 GEMM, 21 LayerNorm and 1 crop kernel per step.
+     Prints ms/step and frames/s of both, and the device ms per step and
+     idle share of both (profiler windows of one chunk).
   4. one full forward with the kernels against the same model on the plain
      versions (use_kernels=False), same inputs: without candidate
      elimination the score and size maps within MAP_BAR and the offset map
@@ -155,9 +167,13 @@ from mmtrack_torch.train.optim import build_optimizer, prompt_only_mask
 from mmtrack_torch.train.train_step import TrainState, drop_path_generator, make_train_step
 from mmtrack_torch.trackers.vipt_tracker import (
     MEAN_6CH,
+    SCAN_WARMUP_STEPS,
     STD_6CH,
     ViPTRuntime,
+    make_track_scan,
+    vipt_init_state,
     vipt_step_from_crop,
+    vipt_track_scan_batched,
 )
 from mmtrack_torch.utils.device import require_cuda
 
@@ -167,6 +183,8 @@ STEPS = 16
 PROFILE_STEPS = 3                  # tracking steps under torch.profiler, after the counted run
 ATTENTION_KERNELS = ("attention_resident_kernel", "attention_streaming_kernel")
 GEMM_KERNEL, LAYERNORM_KERNEL = "gemm_bf16_kernel", "layernorm_bf16_kernel"
+CROP_KERNEL = "crop_rows_kernel"
+SCAN_T, SCAN_CHUNKS, SCAN_REPS = 16, 4, 3   # bench.py:47 and :409-418
 GEMM_SHAPES = (("qkv", 2304, 768, EPI_BIAS), ("proj", 768, 768, EPI_BIAS_RESIDUAL),
                ("fc1", 3072, 768, EPI_BIAS_GELU), ("fc2", 768, 3072, EPI_BIAS_RESIDUAL))
 GEMM_CALLS_PER_STEP = 2 * 9 + 2 * 12   # qkv + proj in 9 attention, fc1 + fc2 in 12 MLP half-blocks
@@ -226,23 +244,41 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def cuda_events(fn, iters: int) -> list:
+def profile_window(fn, iters: int) -> tuple[list, float]:
     """The CUDA rows of torch.profiler's key_averages over `iters` calls of
-    fn() (after one call outside the window), largest device time first."""
-    from torch.profiler import ProfilerActivity, profile
+    fn(), largest device time first, and the window's wall seconds (host
+    clock, ending in a synchronize). One call runs before the window and
+    one in the profiler's warm-up step, whose events are dropped: a window
+    that starts cold has lost its first kernel. The step's own annotation
+    (ProfilerStep#, a device-side span of the whole window) is no kernel."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     for _ in range(3):   # a window now and then comes back without its device events
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kept = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: kept.extend(p.key_averages())) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+            wall = time.perf_counter() - t0
+            prof.step()
+        rows = [e for e in kept if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith("ProfilerStep")]
         if rows:
-            return sorted(rows, key=lambda e: -e.self_device_time_total)
+            return sorted(rows, key=lambda e: -e.self_device_time_total), wall
     raise RuntimeError("torch.profiler recorded no device time")
+
+
+def cuda_events(fn, iters: int) -> list:
+    """The CUDA rows of `profile_window`."""
+    return profile_window(fn, iters)[0]
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -449,31 +485,44 @@ def crop_read_bytes(boxes: torch.Tensor, factor: float, S: int, H: int, W: int,
     return total
 
 
+# (H, W, C, [(S, factor), ...]): ViPT's template and search crops on both
+# frame sizes, and Alpha-Refine's 3-channel search crop (ARRuntime)
+CROP_CASES = (((240, 320), 6, ((128, 2.0), (256, 4.0))),
+              ((480, 640), 6, ((128, 2.0), (256, 4.0))),
+              ((480, 640), 3, ((256, 2.0),)))
+
+
 def compare_crops(dev, gen) -> list[dict]:
-    mean = torch.from_numpy(MEAN_6CH).to(dev)
-    std = torch.from_numpy(STD_6CH).to(dev)
+    """The crop kernel against its plain version, bar bit equality. No one
+    PyTorch call computes the crop (grid_sample would also sample the last
+    row and column, which the reference never reads): library_ms is null."""
     rows = []
-    for H, W in ((240, 320), (480, 640)):
-        frames = torch.randint(0, 256, (B, H, W, 6), generator=gen,
+    for (H, W), C, sizes in CROP_CASES:
+        mean = torch.from_numpy(MEAN_6CH[:C]).to(dev)
+        std = torch.from_numpy(STD_6CH[:C]).to(dev)
+        frames = torch.randint(0, 256, (B, H, W, C), generator=gen,
                                dtype=torch.uint8).to(dev)
         boxes = crop_boxes(H, W, gen).to(dev)
-        for S, factor in ((128, 2.0), (256, 4.0)):
-            got, rf = crop_resize_normalized(frames, boxes, factor, S, mean, std)
-            want, rf_w = crop_resize_normalized_plain(frames, boxes, factor, S, mean, std)
+        for S, factor in sizes:
+            def kernel():
+                return crop_resize_normalized(frames, boxes, factor, S, mean, std)
+
+            def plain():
+                return crop_resize_normalized_plain(frames, boxes, factor, S, mean, std)
+
+            (got, rf), (want, rf_w) = kernel(), plain()
             torch.cuda.synchronize()
-            row = dict(kernel="crop_resize_normalized", B=B, H=H, W=W, S=S,
+            row = dict(kernel="crop_resize_normalized", B=B, H=H, W=W, C=C, S=S,
                        max_abs_err=(got - want).abs().max().item(),
                        rf_equal=bool(torch.equal(rf, rf_w)), bar=0.0,
-                       ms=cuda_ms(lambda: crop_resize_normalized(frames, boxes, factor, S,
-                                                                 mean, std)),
-                       plain_ms=cuda_ms(lambda: crop_resize_normalized_plain(
-                           frames, boxes, factor, S, mean, std)), library_ms=None,
+                       ms=cuda_ms(kernel), device_ms=device_ms(kernel),
+                       plain_ms=cuda_ms(plain), library_ms=None,
                        # ~20 f32 operations per output element
-                       **bound(crop_read_bytes(boxes, factor, S, H, W, 6)
+                       **bound(crop_read_bytes(boxes, factor, S, H, W, C)
                                + nbytes(boxes, mean, std, got, rf), 20 * got.numel(), "f32"))
-            log("kernels", **row)
+            log("kernels", **row, card=card_line())
             if row["max_abs_err"] > 0 or not row["rf_equal"]:
-                raise AssertionError(f"crop H={H} S={S}: {row}")
+                raise AssertionError(f"crop H={H} C={C} S={S}: {row}")
             rows.append(row)
     return rows
 
@@ -497,6 +546,14 @@ def synthetic_frames(n: int, gen: np.random.RandomState):
     return frames, box0
 
 
+def boxes_inside(boxes: np.ndarray) -> bool:
+    """Every (..., 4) xywh box finite and inside the FRAME_HW frame."""
+    H, W = FRAME_HW
+    return bool(np.isfinite(boxes).all() and (boxes[..., :2] >= 0).all()
+                and (boxes[..., 0] + boxes[..., 2] <= W + 1e-3).all()
+                and (boxes[..., 1] + boxes[..., 3] <= H + 1e-3).all())
+
+
 def main_path(cfg, rt, dev, frames, box0):
     model = build_viptrack(cfg, dtype=torch.bfloat16, device=dev, seed=0)
     tracker = BatchedViPTTracker(model, dev, rt)
@@ -517,11 +574,8 @@ def main_path(cfg, rt, dev, frames, box0):
 
     expected = {"attn_block_fused": 9 * STEPS, "mlp_block_fused": 12 * STEPS,
                 "crop_resize_normalized": STEPS + 1}
-    boxes = np.stack(all_boxes)
+    inside = boxes_inside(np.stack(all_boxes))
     H, W = FRAME_HW
-    inside = bool(np.isfinite(boxes).all() and (boxes[..., :2] >= 0).all()
-                  and (boxes[..., 0] + boxes[..., 2] <= W + 1e-3).all()
-                  and (boxes[..., 1] + boxes[..., 3] <= H + 1e-3).all())
     ms = elapsed / STEPS * 1e3
     log("main_path", config="deep_rgbd", dtype="bf16", B=B, steps=STEPS, frame=f"{W}x{H}",
         ms_per_step=ms, frames_per_s=B * STEPS / elapsed, launches=launches,
@@ -560,6 +614,118 @@ def profile_steps(tracker, frame, steps: int = PROFILE_STEPS) -> dict:
         device_ms_per_step=sum(e.self_device_time_total for e in rows) / steps / 1e3,
         top_kernels_ms_per_step={e.key[:60]: e.self_device_time_total / steps / 1e3
                                  for e in rows[:8]})
+
+
+SCAN_COUNTERS = (attn_block_fused, mlp_block_fused, crop_resize_normalized)
+SCAN_PER_STEP = {"attn_block_fused": 9, "mlp_block_fused": 12, "crop_resize_normalized": 1}
+
+
+def scan_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in SCAN_COUNTERS}
+
+
+def scan_reps(scan, rt, frames, box0, chunk) -> tuple[float, list, list]:
+    """SCAN_REPS runs of SCAN_CHUNKS chunks from the initial state, each
+    ending in a host read of the boxes: the best wall seconds, and each
+    run's boxes and scores (SCAN_CHUNKS * T, B, ...) and its launch
+    counts, the init's crop left out."""
+    best, runs, counts = float("inf"), [], []
+    for _ in range(SCAN_REPS):
+        state = vipt_init_state(rt, frames[0], torch.from_numpy(box0))
+        torch.cuda.synchronize()
+        before = scan_counts()
+        t0 = time.perf_counter()
+        out = []
+        for _ in range(SCAN_CHUNKS):
+            state, boxes, scores = scan(state, chunk)
+            out.append((boxes.clone(), scores.clone()))   # the graph's results alias its buffers
+        boxes = torch.cat([b for b, _ in out]).cpu()
+        best = min(best, time.perf_counter() - t0)
+        counts.append({k: v - before[k] for k, v in scan_counts().items()})
+        runs.append((boxes, torch.cat([s for _, s in out]).cpu()))
+    return best, runs, counts
+
+
+SCAN_KERNELS = {"attention": 9, "gemm": GEMM_CALLS_PER_STEP, "layernorm": 21, "crop": 1}
+
+
+def profile_chunk(scan, rt, frames, box0, chunk) -> dict:
+    """torch.profiler over one chunk: device ms and kernel calls per step,
+    and the device's idle share of the window's wall time. A window now
+    and then loses a kernel's event (one crop of 16 in some runs): up to
+    three windows are taken until one holds whole counts."""
+    state = vipt_init_state(rt, frames[0], torch.from_numpy(box0))
+    for _ in range(3):
+        rows, wall = profile_window(lambda: scan(state, chunk), 1)
+
+        def per_step(names):
+            return sum(e.count for e in rows if any(k in e.key for k in names)) / SCAN_T
+
+        kernels = {"attention": per_step(ATTENTION_KERNELS), "gemm": per_step((GEMM_KERNEL,)),
+                   "layernorm": per_step((LAYERNORM_KERNEL,)), "crop": per_step((CROP_KERNEL,))}
+        if kernels == SCAN_KERNELS:
+            break
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    return dict(device_ms_per_step=dev_ms / SCAN_T, wall_ms_per_step=wall * 1e3 / SCAN_T,
+                idle_share=1 - dev_ms / (wall * 1e3), kernels_per_step=kernels)
+
+
+def scan_path(rt, dev, model, frames, box0) -> dict:
+    """Phase 3b: the chunked scan, eager and as one CUDA graph per chunk,
+    from the same initial state. Returns the launches counted in it."""
+    chunk = frames[1:SCAN_T + 1]                                  # (T, B, H, W, 6)
+    for fn in SCAN_COUNTERS:
+        fn.launches = 0
+    with torch.inference_mode():
+        def eager(state, frames_t):
+            return vipt_track_scan_batched(rt, model, state, frames_t)
+
+        eager_s, eager_runs, eager_counts = scan_reps(eager, rt, frames, box0, chunk)
+        eager_prof = profile_chunk(eager, rt, frames, box0, chunk)
+
+        graph = make_track_scan(rt, model, dev)
+        state = vipt_init_state(rt, frames[0], torch.from_numpy(box0))
+        before = scan_counts()
+        graph(state, chunk)                                       # warm-up + capture + replay
+        torch.cuda.synchronize()
+        captured = {k: v - before[k] for k, v in scan_counts().items()}
+        graph_s, graph_runs, graph_counts = scan_reps(graph, rt, frames, box0, chunk)
+        graph_prof = profile_chunk(graph, rt, frames, box0, chunk)
+    launches = scan_counts()
+
+    steps = SCAN_CHUNKS * SCAN_T
+    ref_boxes, ref_scores = eager_runs[0]
+    equal = all(torch.equal(b, ref_boxes) and torch.equal(s, ref_scores)
+                for b, s in eager_runs + graph_runs)
+    diff = max((b - ref_boxes).abs().max().item() for b, _ in graph_runs)
+    inside = boxes_inside(torch.cat([b for b, _ in graph_runs]).numpy())
+    want = {"capture": {k: (SCAN_WARMUP_STEPS + SCAN_T) * n for k, n in SCAN_PER_STEP.items()},
+            "eager_run": {k: steps * n for k, n in SCAN_PER_STEP.items()},
+            "graph_run": dict.fromkeys(SCAN_PER_STEP, 0)}
+    got = {"capture": captured, "eager_run": eager_counts, "graph_run": graph_counts}
+    H, W = FRAME_HW
+    log("scan", config="deep_rgbd", dtype="bf16", B=B, T=SCAN_T, chunks=SCAN_CHUNKS,
+        reps=SCAN_REPS, frame=f"{W}x{H}",
+        eager=dict(ms_per_step=eager_s / steps * 1e3, frames_per_s=B * steps / eager_s,
+                   profile=eager_prof,
+                   idle_share_of_best_run=1 - eager_prof["device_ms_per_step"]
+                   / (eager_s / steps * 1e3)),
+        graph=dict(ms_per_step=graph_s / steps * 1e3, frames_per_s=B * steps / graph_s,
+                   profile=graph_prof,
+                   idle_share_of_best_run=1 - graph_prof["device_ms_per_step"]
+                   / (graph_s / steps * 1e3)),
+        speedup=eager_s / graph_s, bit_equal=equal, graph_vs_eager_max_abs_diff_px=diff,
+        boxes_inside=inside, launches=got, expected=want, card=card_line())
+    kernels = graph_prof["kernels_per_step"]
+    if not equal or not inside:
+        raise AssertionError(f"scan: graph vs eager bit-equal {equal} (max {diff} px), "
+                             f"boxes inside {inside}")
+    if (captured != want["capture"] or any(c != want["eager_run"] for c in eager_counts)
+            or any(c != want["graph_run"] for c in graph_counts)):
+        raise AssertionError(f"scan launches: {got}, want {want}")
+    if kernels != SCAN_KERNELS:
+        raise AssertionError(f"scan: the replayed chunk's kernels per step {kernels}")
+    return launches
 
 
 def full_forward(cfg, rt, dev, model, tracker, frames):
@@ -1061,6 +1227,8 @@ def main() -> int:
     frames = torch.from_numpy(frames).to(dev)
     model, tracker, launches = main_path(cfg, rt, dev, frames, box0)
     full_forward(cfg, rt, dev, model, tracker, frames)
+    for name, n in scan_path(rt, dev, model, frames, box0).items():
+        launches[name] += n
     del model, tracker
     torch.cuda.empty_cache()
 

@@ -41,7 +41,8 @@ _SIGNATURES = {
     "mmt_layernorm_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
     "mmt_gemm_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mmt_attention_bf16": (_P, _P, _I, _I, _I, _F, _P),
-    "mmt_crop_resize_normalize": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "mmt_crop_resize_normalize": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                                  _P),
     "mmt_depthwise_xcorr": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 

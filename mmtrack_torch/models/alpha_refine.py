@@ -147,13 +147,13 @@ class ARcmSeg:
         self.model = model.to(self.device).eval()
         self.rt = runtime or ARRuntime()
         self.kernel = None
+        self.mean = torch.from_numpy(MEAN_3CH).to(self.device)
+        self.std = torch.from_numpy(STD_3CH).to(self.device)
 
     def _crop_embed(self, frame: np.ndarray, box: torch.Tensor):
-        mean = torch.from_numpy(MEAN_3CH).to(self.device)
-        std = torch.from_numpy(STD_3CH).to(self.device)
         crop, rf = crop_resize_normalized(as_frames(frame[None], self.device),
                                           box.to(self.device), self.rt.search_factor,
-                                          self.rt.input_size, mean, std)
+                                          self.rt.input_size, self.mean, self.std)
         return self.model.embed(crop), rf
 
     @torch.inference_mode()

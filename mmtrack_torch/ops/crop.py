@@ -15,13 +15,54 @@ The plain version below performs every step as one correctly rounded f32
 operation in the kernel's order. Divisions are tensor-by-tensor on purpose:
 PyTorch's CUDA division by a Python scalar multiplies by the reciprocal,
 which would round differently from the kernel's `__fdiv_rn`.
+
+The kernel runs one block per four output rows of a sequence. It stages
+their source rows in shared memory, cut to the columns the rows can read,
+and writes each row through a shared copy of it; `crop_plan` sizes both. The wrapper copies nothing: boxes, mean and
+std must already be f32 tensors on the frames' card, so a step can be
+captured in a CUDA graph (trackers/vipt_tracker.py::make_track_scan).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from mmtrack_torch.kernels.build import load_library, stream_handle
+
+CROP_MAX_THREADS = 256                # csrc/crop.cu: __launch_bounds__(256)
+CROP_ROWS = 4                         # csrc/crop.cu: output rows per block (kRows)
+CROP_MAX_SMEM = 227 * 1024            # shared memory a block can use on Hopper
+
+
+class CropPlan(NamedTuple):
+    threads: int        # per block: one output pixel each, looping past 256
+    row_bytes: int      # staged bytes of one source row at most (a multiple of 16)
+    smem_bytes: int     # CROP_ROWS stages of two source rows + the f32 output row (S * C)
+
+
+def crop_plan(H: int, W: int, C: int, S: int) -> CropPlan:
+    """Block shape and shared memory of the crop kernel for (B, H, W, C)
+    uint8 frames and S x S crops.
+
+    A staged source row holds the aligned 16-byte chunks of the frame that
+    cover the sampled columns a row of crops can read: at most W - 1 of C
+    bytes, behind up to 15 bytes of the chunk that holds the first
+    (csrc/crop.cu). A block of CROP_ROWS output rows requests all their
+    source rows at once. Raises ValueError where one frame holds
+    2^31 bytes or more (32-bit indices) or the block would need more shared
+    memory than Hopper gives one."""
+    if min(H, W, C, S) < 1:
+        raise ValueError(f"crop needs positive sizes, got H={H} W={W} C={C} S={S}")
+    if H * W * C >= 2 ** 31:
+        raise ValueError(f"crop kernel indexes a frame with 32 bits: H*W*C={H * W * C}")
+    row_bytes = -(-(15 + (W - 1) * C) // 16) * 16
+    smem = 2 * CROP_ROWS * row_bytes + 4 * S * C
+    if smem > CROP_MAX_SMEM:
+        raise ValueError(f"crop kernel needs {smem} bytes of shared memory for W={W} C={C} "
+                         f"S={S}, more than {CROP_MAX_SMEM}")
+    return CropPlan(min(CROP_MAX_THREADS, -(-S // 32) * 32), row_bytes, smem)
 
 
 def crop_resize_normalized_plain(frames: torch.Tensor, boxes: torch.Tensor,
@@ -77,8 +118,9 @@ def crop_resize_normalized(frames: torch.Tensor, boxes: torch.Tensor,
     frames (B, H, W, C) uint8, boxes (B, 4) f32 xywh, mean/std (C,) f32.
     Returns (crops (B, out, out, C) f32, resize_factor (B,) f32).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the crop
-    kernel or raises.
+    CPU frames take the plain version. CUDA frames launch the crop kernel,
+    which needs boxes, mean and std as contiguous f32 tensors on the same
+    card (nothing is copied or converted here), or raise.
     """
     if frames.device.type == "cpu":
         return crop_resize_normalized_plain(frames, boxes, search_area_factor, out_size,
@@ -87,19 +129,20 @@ def crop_resize_normalized(frames: torch.Tensor, boxes: torch.Tensor,
     dev = frames.device
     if frames.dtype != torch.uint8 or not frames.is_contiguous():
         raise TypeError(f"crop kernel needs contiguous uint8 frames, got {frames.dtype}")
-    if boxes.shape != (B, 4):
-        raise ValueError(f"boxes must be (B, 4), got {tuple(boxes.shape)}")
-    boxes = boxes.to(device=dev, dtype=torch.float32).contiguous()
-    mean = mean.to(device=dev, dtype=torch.float32).contiguous()
-    std = std.to(device=dev, dtype=torch.float32).contiguous()
-    if mean.shape != (C,) or std.shape != (C,):
-        raise ValueError(f"mean/std must be ({C},)")
+    for name, t, shape in (("boxes", boxes, (B, 4)), ("mean", mean, (C,)), ("std", std, (C,))):
+        if t.shape != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"crop kernel needs {name} as a contiguous f32 tensor on {dev}, "
+                            f"got {t.dtype} on {t.device}")
+    plan = crop_plan(H, W, C, out_size)
     out = torch.empty((B, out_size, out_size, C), dtype=torch.float32, device=dev)
     rf = torch.empty((B,), dtype=torch.float32, device=dev)
     load_library().launch(
         "mmt_crop_resize_normalize", frames.data_ptr(), boxes.data_ptr(), mean.data_ptr(),
         std.data_ptr(), out.data_ptr(), rf.data_ptr(), B, H, W, C, out_size,
-        float(search_area_factor), stream_handle(dev))
+        float(search_area_factor), plan.threads, plan.row_bytes, plan.smem_bytes,
+        stream_handle(dev))
     crop_resize_normalized.launches += 1
     return out, rf
 

@@ -6,12 +6,21 @@ step). One step: batched search crop around the previous boxes (the crop
 kernel on CUDA), ViPTrack forward, Hann window on the centre heatmap,
 `cal_bbox` decode, map back to image coordinates and clip with a 10 px
 margin (ViPT lib/test/tracker/vipt.py:64-110).
+
+A chunk of T frames runs as `vipt_track_scan_batched` (the JAX package's
+`lax.scan` of the step): on any device a plain loop of the step, and on
+the card `make_track_scan` replays the whole chunk as one CUDA graph, the
+counterpart of the jitted scan with its state donated (bench.py:378).
+The step's constants (mean and std, the CE template mask, the Hann
+window) are made once per runtime, device and channel count and shared by
+both, so the step copies nothing from the host and can be captured.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -64,9 +73,24 @@ class ViPTRuntime:
         )
 
 
-def _stats(c: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    return (torch.from_numpy(MEAN_6CH[:c]).to(device),
-            torch.from_numpy(STD_6CH[:c]).to(device))
+# The step's constants are made once, as ordinary tensors even when the
+# first call runs under inference mode, so a later step with autograd on
+# can still use them.
+@functools.lru_cache(maxsize=None)
+def _stats(c: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The crop's mean and std for c channels on `device`."""
+    with torch.inference_mode(False):
+        return (torch.from_numpy(MEAN_6CH[:c]).to(device),
+                torch.from_numpy(STD_6CH[:c]).to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _head_constants(rt: ViPTRuntime, device: torch.device):
+    """The CE template mask and the Hann window of `rt` on `device`."""
+    with torch.inference_mode(False):
+        return (generate_ctr_mask(rt.template_size // rt.stride, rt.ce_template_range,
+                                  device=device),
+                hann2d(rt.feat_sz, rt.feat_sz, device=device))
 
 
 def vipt_init_state(rt: ViPTRuntime, frames: torch.Tensor, init_boxes: torch.Tensor) -> dict:
@@ -86,11 +110,8 @@ def vipt_step_from_crop(rt: ViPTRuntime, model: ViPTrack, template: torch.Tensor
                         resize_factor: torch.Tensor, img_h: float, img_w: float):
     """Forward + window + decode + map-back + clip from normalised search
     crops (vipt.py:71-110). Returns (boxes (B, 4), scores (B,))."""
-    dev = search.device
-    box_mask_z = generate_ctr_mask(rt.template_size // rt.stride, rt.ce_template_range,
-                                   device=dev)
+    box_mask_z, window = _head_constants(rt, search.device)
     out = model(template, search, box_mask_z, rt.ce_keep_lens)
-    window = hann2d(rt.feat_sz, rt.feat_sz, device=dev)
     bbox, score = cal_bbox(window[None] * out["score_map"], out["size_map"],
                            out["offset_map"])
 
@@ -116,6 +137,121 @@ def vipt_track_step(rt: ViPTRuntime, model: ViPTrack, state: dict, frames: torch
     boxes, scores = vipt_step_from_crop(rt, model, state["template"], state["box"], search,
                                         resize_factor, float(H), float(W))
     return {"box": boxes, "template": state["template"]}, boxes, scores
+
+
+def vipt_track_scan_batched(rt: ViPTRuntime, model: ViPTrack, state: dict,
+                            frames: torch.Tensor):
+    """Track a chunk of frames (T, B, H, W, C) uint8 for B sequences in
+    lockstep: `vipt_track_step` once per frame, on any device.
+    Returns (final_state, boxes (T, B, 4), scores (T, B)).
+
+    The loop that the JAX package's lax.scan runs; on the card
+    `make_track_scan` replays the same steps as one CUDA graph and is held
+    against this loop."""
+    boxes, scores = [], []
+    for t in range(frames.shape[0]):
+        state, box, score = vipt_track_step(rt, model, state, frames[t])
+        boxes.append(box)
+        scores.append(score)
+    return state, torch.stack(boxes), torch.stack(scores)
+
+
+def vipt_track_scan(rt: ViPTRuntime, model: ViPTrack, state: dict, frames: torch.Tensor):
+    """Track one sequence over a chunk of frames (T, H, W, C): the batched
+    scan at B=1 with the batch axis squeezed from the state, the frames and
+    the results. `state` is one sequence's ({'box' (4,), 'template'
+    (T, T, C)}). Returns (final_state, boxes (T, 4), scores (T,))."""
+    final, boxes, scores = vipt_track_scan_batched(
+        rt, model, {k: v[None] for k, v in state.items()}, frames[:, None])
+    return {k: v[0] for k, v in final.items()}, boxes[:, 0], scores[:, 0]
+
+
+SCAN_WARMUP_STEPS = 1   # eager steps before a capture (make_track_scan)
+
+
+class _ChunkGraph:
+    """One CUDA graph of T tracking steps over static buffers.
+
+    The chunk, the box and the template live in buffers allocated once;
+    every call copies into them (never reallocates them, so the addresses
+    that the graph baked in, TMA descriptors included, stay valid) and
+    replays. The outputs live in the graph's private memory pool."""
+
+    def __init__(self, rt: ViPTRuntime, model: ViPTrack, state: dict, frames: torch.Tensor,
+                 device: torch.device):
+        self.frames = torch.empty(frames.shape, dtype=torch.uint8, device=device)
+        self.box = torch.empty(state["box"].shape, dtype=torch.float32, device=device)
+        self.template = torch.empty(state["template"].shape, dtype=torch.float32,
+                                    device=device)
+        self._load(state, frames)
+        static = {"box": self.box, "template": self.template}
+        # Warm up on the capture stream first: library handles, the
+        # convolutions' algorithm choice, the kernel library's build and
+        # its one-time function attributes, and the step's constants are
+        # made here, outside the capture.
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            for _ in range(SCAN_WARMUP_STEPS):
+                vipt_track_step(rt, model, static, self.frames[0])
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            final, self.boxes, self.scores = vipt_track_scan_batched(rt, model, static,
+                                                                     self.frames)
+        self.final_box = final["box"]
+
+    def _load(self, state: dict, frames: torch.Tensor) -> None:
+        for dst, src in ((self.frames, frames), (self.box, state["box"]),
+                         (self.template, state["template"])):
+            if src.shape != dst.shape:
+                raise ValueError(f"track scan captured for {tuple(dst.shape)}, "
+                                 f"got {tuple(src.shape)}")
+            dst.copy_(src)
+
+    def __call__(self, state: dict, frames: torch.Tensor):
+        self._load(state, frames)
+        self.graph.replay()
+        return {"box": self.final_box, "template": self.template}, self.boxes, self.scores
+
+
+def make_track_scan(rt: ViPTRuntime, model: ViPTrack, device) -> Callable:
+    """`vipt_track_scan_batched` on the card as one CUDA graph per chunk
+    shape: the counterpart of jax.jit(partial(vipt_track_scan_batched, rt,
+    model), donate_argnums=(1,)) (bench.py:378).
+
+    Returns scan(state, frames) -> (final_state, boxes (T, B, 4), scores
+    (T, B)), the arguments and results of `vipt_track_scan_batched`. The
+    first call for a (T, B, H, W, C) warms up SCAN_WARMUP_STEPS eager steps
+    and captures the T steps, each reading frame t of a static chunk
+    buffer; every call copies the chunk (host or device) and the state into
+    the static buffers and replays. A failed capture raises: there is no
+    eager fallback.
+
+    Donation: the results alias buffers that the next call of the same
+    shape overwrites (passing the returned state back in is fine), as the
+    jitted scan's donated state is gone after the call; clone what must
+    outlive it. The launch counters of the kernel wrappers count at
+    capture (and warm-up), not at replay.
+
+    The CPU has no graphs: a CPU device raises (call
+    `vipt_track_scan_batched` there)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"make_track_scan captures CUDA graphs and needs a CUDA device, got "
+                         f"{device}; on the CPU call vipt_track_scan_batched")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    graphs: dict[tuple, _ChunkGraph] = {}
+
+    @torch.inference_mode()
+    def scan(state: dict, frames: torch.Tensor):
+        key = tuple(frames.shape)
+        if key not in graphs:
+            graphs[key] = _ChunkGraph(rt, model, state, frames, device)
+        return graphs[key](state, frames)
+
+    return scan
 
 
 def as_frames(frames, device) -> torch.Tensor:

@@ -201,25 +201,98 @@ def test_layernorm_kernel_rejects_width(dev, C):
         layernorm_bf16(x, torch.ones(C, device=dev), torch.zeros(C, device=dev), 1e-6)
 
 
-@pytest.mark.parametrize("H,W,S,factor", [(96, 128, 64, 4.0), (480, 640, 256, 4.0),
-                                          (31, 17, 32, 2.0)])
-def test_crop_kernel_bit_equal_to_plain(dev, H, W, S, factor):
-    g = torch.Generator().manual_seed(H)
-    B = 8
-    frames = torch.randint(0, 256, (B, H, W, 6), generator=g, dtype=torch.uint8).to(dev)
+@pytest.mark.parametrize("H,W,S,factor,C,B", [
+    (96, 128, 64, 4.0, 6, 8), (480, 640, 256, 4.0, 6, 8), (31, 17, 32, 2.0, 6, 8),
+    (480, 640, 256, 2.0, 3, 8),             # Alpha-Refine's 3-channel crop
+    (240, 320, 255, 4.0, 6, 8),             # odd S: rows that are not 16-byte aligned
+    (481, 641, 127, 4.0, 3, 5),             # odd everything
+    (240, 320, 256, 4.0, 6, 1),             # one sequence: the crop wider than 2S and W
+    (240, 320, 256, 4.0, 6, 16)])           # the main path's search crop
+def test_crop_kernel_bit_equal_to_plain(dev, H, W, S, factor, C, B):
+    g = torch.Generator().manual_seed(H + S + C + B)
+    frames = torch.randint(0, 256, (B, H, W, C), generator=g, dtype=torch.uint8).to(dev)
     boxes = torch.rand(B, 4, generator=g) * torch.tensor([W, H, W / 2, H / 2])
-    boxes[0] = torch.tensor([-3.0 * W, -2.0 * H, 10.0, 8.0])      # entirely outside
-    boxes[1] = torch.tensor([W - 0.5, H - 0.5, 1.0, 1.0])         # on the last pixel
-    boxes[2] = torch.tensor([0.25, 0.75, 0.01, 0.02])             # degenerate
+    huge = torch.tensor([-0.5 * W, -0.3 * H, 2.0 * W, 1.6 * H])   # side > 2S and > W
+    if B == 1:
+        boxes[0] = huge
+    else:
+        boxes[0] = torch.tensor([-3.0 * W, -2.0 * H, 10.0, 8.0])      # entirely outside
+        boxes[1] = torch.tensor([W - 0.5, H - 0.5, 1.0, 1.0])         # on the last pixel
+        boxes[2] = torch.tensor([0.25, 0.75, 0.01, 0.02])             # degenerate
+        boxes[3] = huge
     boxes = boxes.to(dev)
-    mean = torch.rand(6, generator=g).to(dev)
-    std = (0.1 + torch.rand(6, generator=g)).to(dev)
+    mean = torch.rand(C, generator=g).to(dev)
+    std = (0.1 + torch.rand(C, generator=g)).to(dev)
     before = crop_resize_normalized.launches
     got, rf = crop_resize_normalized(frames, boxes, factor, S, mean, std)
     assert crop_resize_normalized.launches == before + 1
     want, rf_w = crop_resize_normalized_plain(frames, boxes, factor, S, mean, std)
     assert torch.equal(rf, rf_w)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("host", ["boxes", "mean", "std"])
+def test_crop_kernel_refuses_host_arguments(dev, host):
+    """The wrapper copies nothing: boxes, mean or std on the host raise."""
+    args = {"boxes": torch.zeros(2, 4, device=dev), "mean": torch.zeros(6, device=dev),
+            "std": torch.ones(6, device=dev)}
+    args[host] = args[host].cpu()
+    before = crop_resize_normalized.launches
+    with pytest.raises(TypeError, match=host):
+        crop_resize_normalized(torch.zeros(2, 24, 32, 6, dtype=torch.uint8, device=dev),
+                               args["boxes"], 4.0, 16, args["mean"], args["std"])
+    assert crop_resize_normalized.launches == before
+
+
+def test_graphed_scan_bit_equal_to_eager_scan(dev):
+    """make_track_scan on a depth-4, full-width deep_rgbd in bf16 (CE in
+    block 3), T=4, B=2: the replayed graph gives the eager loop's boxes and
+    scores bit for bit, twice in a row from the returned state; the
+    wrappers count at capture (the warm-up steps and the T captured steps),
+    not at replay."""
+    import numpy as np
+
+    from mmtrack_torch.config import merge_overrides, vipt_experiment_config
+    from mmtrack_torch.models.vipt import build_viptrack
+    from mmtrack_torch.trackers.vipt_tracker import (
+        SCAN_WARMUP_STEPS,
+        ViPTRuntime,
+        make_track_scan,
+        vipt_init_state,
+        vipt_track_scan_batched,
+    )
+
+    cfg = merge_overrides(vipt_experiment_config("deep_rgbd"),
+                          {"MODEL": {"BACKBONE": {"DEPTH": 4, "CE_LOC": [3],
+                                                  "CE_KEEP_RATIO": [0.7]}}})
+    rt = ViPTRuntime.from_config(cfg)
+    model = build_viptrack(cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    rng = np.random.RandomState(0)
+    T, B, H, W = 4, 2, 96, 128
+    frames = torch.from_numpy(rng.randint(0, 256, (2 * T + 1, B, H, W, 6)).astype(np.uint8))
+    box0 = torch.tensor([[40.0, 30.0, 30.0, 24.0], [60.0, 40.0, 20.0, 28.0]])
+    chunks = frames[1:].to(dev).view(2, T, B, H, W, 6)
+    with torch.inference_mode():
+        state = vipt_init_state(rt, frames[0].to(dev), box0)
+        eager = [vipt_track_scan_batched(rt, model, state, chunks[0])]
+        eager.append(vipt_track_scan_batched(rt, model, eager[0][0], chunks[1]))
+        scan = make_track_scan(rt, model, dev)
+        counters = (attn_block_fused, mlp_block_fused, crop_resize_normalized)
+        before = [fn.launches for fn in counters]
+        s, boxes, scores = scan(state, chunks[0])
+        got = [(boxes.clone(), scores.clone())]
+        captured = [fn.launches - b for fn, b in zip(counters, before)]
+        s, boxes, scores = scan(s, chunks[1])
+        got.append((boxes.clone(), scores.clone()))
+        replayed = [fn.launches - b for fn, b in zip(counters, before)]
+    torch.cuda.synchronize()
+    steps = SCAN_WARMUP_STEPS + T
+    assert captured == replayed == [3 * steps, 4 * steps, steps]
+    for (_, eb, es), (gb, gs) in zip(eager, got):
+        assert torch.equal(gb, eb) and torch.equal(gs, es)
+    assert torch.equal(s["box"], eager[1][0]["box"])
+    with pytest.raises(ValueError, match="captured for"):
+        scan({"box": s["box"][:1], "template": s["template"]}, chunks[1])
 
 
 def test_kernel_argument_checks(dev):
