@@ -11,9 +11,10 @@ non-zero:
   1. build: compile the kernels of mmtrack_torch/csrc (nvcc, first use);
      every GEMM variant must contain wgmma (HGMMA) and TMA loads (UTMALDG)
      in its SASS (cuobjdump -sass) and show no spill in its ptxas report.
-  2. kernels against their plain PyTorch versions at the main path's
-     shapes: the attention and MLP half-blocks in bf16 at B=16 for every
-     token count the path gives them (L = 320, 244, 190, 153), bar two bf16
+  2. kernels against their plain PyTorch versions at the tracking paths'
+     shapes (phase 3's B=16 and phase 9's B=8): the attention and MLP
+     half-blocks in bf16 at B=16 and 8 for every token count the path
+     gives them (L = 320, 244, 190, 153), bar two bf16
      ulps of the largest |x|, |y - x| or |y| in the element's token row:
      kernel and plain sum in another f32 order, so a few bf16 roundings in
      the block flip by one ulp, and y = x + h then differs by at most one
@@ -21,13 +22,13 @@ non-zero:
      ulps but not of their row's scale); the attention kernel alone
      (through flash_mhsa_qkv) at B=16 and the same L, as phase 5 measures
      it; the GEMM alone for the four products (qkv, proj, fc1, fc2) at
-     M = 16 L and at the training block's 32 x 320, against its plain
+     M = 16 L and 8 L and at the training block's 32 x 320, against its plain
      epilogue, same bar, with device TFLOP/s, the wrapper's host time,
      torch.matmul's device time and the tile plan; the LayerNorm kernel at
-     M = 16 L against its byte bound; the batched crop at S = 128 and 256
-     on 320x240 and 640x480 frames of 6 channels, and at Alpha-Refine's
-     S = 256 on 640x480 frames of 3, bar bit equality. Times from CUDA
-     events and the profiler's device time.
+     M = 16 L and 8 L against its byte bound; the batched crop at S = 128
+     and 256 on 320x240 and 640x480 frames of 6 channels (B=16, and B=8 on
+     640x480), and at Alpha-Refine's S = 256 on 640x480 frames of 3, bar
+     bit equality. Times from CUDA events and the profiler's device time.
   3. main path: BatchedViPTTracker with deep_rgbd in bf16 on seeded random
      weights, B=16 sequences of 320x240 6-channel synthetic frames,
      initialize + 16 tracked steps. The launch counters must show 9 x 16
@@ -97,6 +98,37 @@ non-zero:
      on the card against the same model on the CPU (plain versions), same
      frame and box: probabilities within AR_PROB_BAR. Prints ms per frame
      split into read+compose, tracker step, refine and encode.
+  9. ope: the streamed OPE path (mmtrack_torch.eval.batched_ope) at the
+     JAX bench's streamed cell shape, B=8 sequences of 33 frames of 640x480
+     written as a DepthTrack layout (colour JPEG + 16-bit depth PNG, from
+     data/synthetic.py over a seeded depth base), deep_rgbd in bf16 on
+     seeded weights, one shared make_track_scan (each step a one-frame CUDA
+     graph) for three wires: host-composed frames (get_x_frame loaders),
+     the rgb + JET-index wire (the default for disk rgbcolormap) and, when
+     the native decoder loads, the raw 4:2:0 wire (MMTRACK_STREAM=yuv420);
+     the decoder, its load error and the host's cores are printed first.
+     Each wire must be the wire that ran; the rgb + index wire's boxes and
+     scores must equal the host-composed frames' bit for bit, every box
+     finite and inside its frame, the 4:2:0 wire within IoU 0.6 of the
+     rgb + index wire. Per wire: frames/s (a streamed wire best of 2
+     passes, the host-composed frames one pass, which is also the
+     reference of the bit equality) and the step split: for host-composed
+     frames host decode + compose / the rest; for a streamed wire decode
+     wait / upload + compose / replay + host read, from one more pass of
+     SplitTracker (it synchronises after the compose), under
+     torch.profiler: the card's idle share over that pass, whose kernels
+     must count 9 attention, 42 GEMM, 21 LayerNorm and 1 crop per step (+1
+     crop at init). The wrappers count the capture (warm-up + one step) and
+     one crop per init. The uploaded RGB planes against cv2's decode:
+     largest LSB difference and pixels that differ. Then the entry,
+     `python -m mmtrack_torch.eval.run_ope --config deep_rgbd.json
+     --batched 8 --analyze` in its own process (the JSON sets TRAIN.AMP,
+     so the model is bf16 and the run is named deep_rgbd): it must exit
+     0, write 8 result files and a report whose
+     SR/PR/NPR and F-score equal the analysis of the rgb + index wire's
+     files. Last, ViPTTracker(host_preproc=True) on one sequence at f32
+     against the crop kernel's tracker, on frames composed beforehand: ms
+     per frame, IoU, crop launches (none and 33).
 
 Every kernel in the `kernels` line carries bound_ms, the larger of its
 bytes over 3.35 TB/s and its operations over the peak rate of their type
@@ -123,6 +155,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 import cv2
 import numpy as np
@@ -130,10 +163,12 @@ import torch
 import torch.nn.functional as F
 
 from mmtrack_torch.config import vipt_experiment_config
+from mmtrack_torch.data.composition import get_x_frame
 from mmtrack_torch.data.datasets import SyntheticVideoDataset
 from mmtrack_torch.data.loader import BatchLoader
 from mmtrack_torch.data.processing import from_config as processing_from_config
 from mmtrack_torch.data.sampler import TrackingSampler
+from mmtrack_torch.data.synthetic import make_synthetic_sequence
 from mmtrack_torch.eval.vot import Mask, Rectangle, _decode_region, _encode_region, run_vot_exp
 from mmtrack_torch.eval.vot_entry import AR_INPUT_SIZE, refiner_factory
 from mmtrack_torch.kernels.build import load_library, sass_by_kernel
@@ -170,6 +205,7 @@ from mmtrack_torch.trackers.vipt_tracker import (
     SCAN_WARMUP_STEPS,
     STD_6CH,
     ViPTRuntime,
+    ViPTTracker,
     make_track_scan,
     vipt_init_state,
     vipt_step_from_crop,
@@ -178,6 +214,8 @@ from mmtrack_torch.trackers.vipt_tracker import (
 from mmtrack_torch.utils.device import require_cuda
 
 B = 16
+OPE_SEQS, OPE_FRAMES, OPE_HW = 8, 33, (480, 640)   # the JAX bench's streamed cell, bench.py:47-55
+BATCHES = (B, OPE_SEQS)            # the tracking batches: phase 3's and phase 9's
 TOKENS = (320, 244, 190, 153)      # 64 template + 256 / 180 / 126 / 89 search tokens
 STEPS = 16
 PROFILE_STEPS = 3                  # tracking steps under torch.profiler, after the counted run
@@ -349,7 +387,7 @@ def row_ulps(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor) -> dict:
 def compare_gemms(dev, gen) -> list[dict]:
     """The GEMM kernel alone against its plain version (its epilogue's
     rounding points), for the four products of the half-blocks at the
-    tracking path's M = 16 L and the training block's 32 x 320, bar
+    tracking paths' M = 16 L and 8 L and the training block's 32 x 320, bar
     BLOCK_ULPS of the row's scale. Times: CUDA events, the profiler's
     device time (also with the bias epilogue alone), the wrapper's host
     time, and torch.matmul(a, w.t()) in bf16 (cuBLAS) as the library call;
@@ -358,7 +396,7 @@ def compare_gemms(dev, gen) -> list[dict]:
     for name, N, K, epi in GEMM_SHAPES:
         w = (torch.randn(N, K, generator=gen) * K ** -0.5).to(dev, torch.bfloat16)
         b = (torch.randn(N, generator=gen) * 0.05).to(dev)
-        for M in [B * L for L in TOKENS] + [TRAIN_B * TOKENS[0]]:
+        for M in [b * L for b in BATCHES for L in TOKENS] + [TRAIN_B * TOKENS[0]]:
             a = torch.randn(M, K, generator=gen).to(dev, torch.bfloat16)
             res = (torch.randn(M, N, generator=gen).to(dev, torch.bfloat16)
                    if epi == EPI_BIAS_RESIDUAL else None)
@@ -397,17 +435,17 @@ def compare_gemms(dev, gen) -> list[dict]:
 
 def compare_layernorm(dev, gen) -> list[dict]:
     """The LayerNorm row kernel against its plain version at the half-blocks'
-    (16 L, 768), bar BLOCK_ULPS of the row's largest |output|; device time
+    (16 L, 768) and (8 L, 768), bar BLOCK_ULPS of the row's largest |output|; device time
     from the profiler beside the byte bound."""
     rows = []
     g = (1 + torch.randn(768, generator=gen) * 0.1).to(dev)
     b = (torch.randn(768, generator=gen) * 0.1).to(dev)
-    for L in TOKENS:
-        x = torch.randn(B * L, 768, generator=gen).to(dev, torch.bfloat16)
+    for M in [n * L for n in BATCHES for L in TOKENS]:
+        x = torch.randn(M, 768, generator=gen).to(dev, torch.bfloat16)
         got = layernorm_bf16(x, g, b, 1e-6)
         want = layer_norm_f32(x, g, b, 1e-6).to(torch.bfloat16)
         torch.cuda.synchronize()
-        row = dict(kernel="layernorm_bf16", M=B * L, C=768,
+        row = dict(kernel="layernorm_bf16", M=M, C=768,
                    **row_ulps(got, want, torch.zeros_like(want)), bar_row_ulps=BLOCK_ULPS,
                    ms=cuda_ms(lambda: layernorm_bf16(x, g, b, 1e-6)),
                    device_ms=device_ms(lambda: layernorm_bf16(x, g, b, 1e-6)),
@@ -415,7 +453,7 @@ def compare_layernorm(dev, gen) -> list[dict]:
                    **bound(nbytes(x, g, b, got), 8 * x.numel(), "f32"))
         log("kernels", **row, card=card_line())
         if row["max_row_ulps"] > BLOCK_ULPS:
-            raise AssertionError(f"layernorm L={L}: {row}")
+            raise AssertionError(f"layernorm M={M}: {row}")
         rows.append(row)
     return rows
 
@@ -431,36 +469,36 @@ def block_params(C: int, n1: int, k2: int, gen: torch.Generator, dev) -> dict:
                 w2=r(C, k2, scale=k2 ** -0.5).to(bf), b2=r(C, scale=0.05))
 
 
-def block_flops(name: str, L: int, C: int, n1: int, k2: int) -> float:
-    """Matrix-product operations of one half-block: the two GEMMs, plus
-    q k^T and p v for the attention."""
-    gemms = 2 * B * L * (C * n1 + k2 * C)
-    return gemms + (4 * B * L * L * C if name == "attn_block_fused" else 0)
+def block_flops(name: str, n: int, L: int, C: int, n1: int, k2: int) -> float:
+    """Matrix-product operations of one half-block over n sequences: the
+    two GEMMs, plus q k^T and p v for the attention."""
+    gemms = 2 * n * L * (C * n1 + k2 * C)
+    return gemms + (4 * n * L * L * C if name == "attn_block_fused" else 0)
 
 
 def compare_blocks(name, kernel, plain, C, n1, k2, extra, dev, gen) -> list[dict]:
     p = block_params(C, n1, k2, gen, dev)
     args = (p["g"], p["b"], p["w1"], p["b1"], p["w2"], p["b2"])
     rows = []
-    for L in TOKENS:
-        x = torch.randn(B, L, C, generator=gen).to(dev, torch.bfloat16)
+    for n, L in [(n, L) for n in BATCHES for L in TOKENS]:
+        x = torch.randn(n, L, C, generator=gen).to(dev, torch.bfloat16)
         got = kernel(x, *args, **extra)
         want = plain(x, *args, **extra)
         torch.cuda.synchronize()
-        row = dict(kernel=name, B=B, L=L, **row_ulps(got, want, x), bar_row_ulps=BLOCK_ULPS,
+        row = dict(kernel=name, B=n, L=L, **row_ulps(got, want, x), bar_row_ulps=BLOCK_ULPS,
                    ms=cuda_ms(lambda: kernel(x, *args, **extra)),
                    plain_ms=cuda_ms(lambda: plain(x, *args, **extra)), library_ms=None,
-                   **bound(nbytes(x, *args, got), block_flops(name, L, C, n1, k2), "bf16"))
+                   **bound(nbytes(x, *args, got), block_flops(name, n, L, C, n1, k2), "bf16"))
         log("kernels", **row)
         if row["max_row_ulps"] > BLOCK_ULPS:
-            raise AssertionError(f"{name} L={L}: {row}")
+            raise AssertionError(f"{name} B={n} L={L}: {row}")
         rows.append(row)
     return rows
 
 
-def crop_boxes(H: int, W: int, gen: torch.Generator) -> torch.Tensor:
-    """B boxes: inside the frame, across each edge, and tiny ones."""
-    u = torch.rand(B, 4, generator=gen)
+def crop_boxes(H: int, W: int, n: int, gen: torch.Generator) -> torch.Tensor:
+    """n boxes: inside the frame, across each edge, and tiny ones."""
+    u = torch.rand(n, 4, generator=gen)
     boxes = torch.stack([u[:, 0] * (W - 60) + 10, u[:, 1] * (H - 60) + 10,
                          u[:, 2] * 40 + 8, u[:, 3] * 40 + 8], dim=1)
     boxes[0] = torch.tensor([-12.3, -7.6, 40.0, 30.0])                 # top-left edge
@@ -485,11 +523,13 @@ def crop_read_bytes(boxes: torch.Tensor, factor: float, S: int, H: int, W: int,
     return total
 
 
-# (H, W, C, [(S, factor), ...]): ViPT's template and search crops on both
-# frame sizes, and Alpha-Refine's 3-channel search crop (ARRuntime)
-CROP_CASES = (((240, 320), 6, ((128, 2.0), (256, 4.0))),
-              ((480, 640), 6, ((128, 2.0), (256, 4.0))),
-              ((480, 640), 3, ((256, 2.0),)))
+# (H, W, C, [(S, factor), ...], batch): ViPT's template and search crops on
+# both frame sizes at B=16, on phase 9's 640x480 frames at its B=8, and
+# Alpha-Refine's 3-channel search crop (ARRuntime)
+CROP_CASES = (((240, 320), 6, ((128, 2.0), (256, 4.0)), B),
+              ((480, 640), 6, ((128, 2.0), (256, 4.0)), B),
+              ((480, 640), 6, ((128, 2.0), (256, 4.0)), OPE_SEQS),
+              ((480, 640), 3, ((256, 2.0),), B))
 
 
 def compare_crops(dev, gen) -> list[dict]:
@@ -497,12 +537,12 @@ def compare_crops(dev, gen) -> list[dict]:
     PyTorch call computes the crop (grid_sample would also sample the last
     row and column, which the reference never reads): library_ms is null."""
     rows = []
-    for (H, W), C, sizes in CROP_CASES:
+    for (H, W), C, sizes, n in CROP_CASES:
         mean = torch.from_numpy(MEAN_6CH[:C]).to(dev)
         std = torch.from_numpy(STD_6CH[:C]).to(dev)
-        frames = torch.randint(0, 256, (B, H, W, C), generator=gen,
+        frames = torch.randint(0, 256, (n, H, W, C), generator=gen,
                                dtype=torch.uint8).to(dev)
-        boxes = crop_boxes(H, W, gen).to(dev)
+        boxes = crop_boxes(H, W, n, gen).to(dev)
         for S, factor in sizes:
             def kernel():
                 return crop_resize_normalized(frames, boxes, factor, S, mean, std)
@@ -512,7 +552,7 @@ def compare_crops(dev, gen) -> list[dict]:
 
             (got, rf), (want, rf_w) = kernel(), plain()
             torch.cuda.synchronize()
-            row = dict(kernel="crop_resize_normalized", B=B, H=H, W=W, C=C, S=S,
+            row = dict(kernel="crop_resize_normalized", B=n, H=H, W=W, C=C, S=S,
                        max_abs_err=(got - want).abs().max().item(),
                        rf_equal=bool(torch.equal(rf, rf_w)), bar=0.0,
                        ms=cuda_ms(kernel), device_ms=device_ms(kernel),
@@ -522,7 +562,7 @@ def compare_crops(dev, gen) -> list[dict]:
                                + nbytes(boxes, mean, std, got, rf), 20 * got.numel(), "f32"))
             log("kernels", **row, card=card_line())
             if row["max_abs_err"] > 0 or not row["rf_equal"]:
-                raise AssertionError(f"crop H={H} C={C} S={S}: {row}")
+                raise AssertionError(f"crop B={n} H={H} C={C} S={S}: {row}")
             rows.append(row)
     return rows
 
@@ -556,7 +596,8 @@ def boxes_inside(boxes: np.ndarray) -> bool:
 
 def main_path(cfg, rt, dev, frames, box0):
     model = build_viptrack(cfg, dtype=torch.bfloat16, device=dev, seed=0)
-    tracker = BatchedViPTTracker(model, dev, rt)
+    # the eager step loop: a user's per-frame calls without a graph
+    tracker = BatchedViPTTracker(model, dev, rt, scan=partial(vipt_track_scan_batched, rt, model))
     # warm-up (cuDNN algorithm choice, allocator), then the counted run
     tracker.initialize(frames[0], box0)
     tracker.track(frames[1])
@@ -1190,6 +1231,338 @@ def vot_path(dev) -> dict:
     return counted
 
 
+OPE_PASSES = 2                                       # timed passes per wire, best kept
+OPE_IOU_BAR = 0.6                                    # yuv420 wire vs rgb_index wire
+OPE_KERNELS = {"attention": (ATTENTION_KERNELS, 9), "gemm": ((GEMM_KERNEL,), GEMM_CALLS_PER_STEP),
+               "layernorm": ((LAYERNORM_KERNEL,), 21), "crop": ((CROP_KERNEL,), 1)}
+OPE_COUNTERS = (attn_block_fused, mlp_block_fused, crop_resize_normalized)
+
+
+def ope_fixture(root: str) -> None:
+    """OPE_SEQS DepthTrack-layout sequences of OPE_FRAMES frames under root:
+    color/*.jpg (cv2's default quality and 4:2:0) and 16-bit depth/*.png
+    made from data/synthetic.py's frames (RGB from the first triplet; depth
+    a seeded base, nearer where the target's aux triplet is bright), and a
+    groundtruth.txt. Written by 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    H, W = OPE_HW
+    jobs = []
+    for i in range(OPE_SEQS):
+        rng = np.random.RandomState(100 + i)
+        box0 = (rng.uniform(60, W - 160), rng.uniform(50, H - 120),
+                rng.uniform(48, 96), rng.uniform(40, 72))
+        frames, gt = make_synthetic_sequence(n_frames=OPE_FRAMES, height=H, width=W,
+                                             seed=100 + i, box0=box0,
+                                             velocity=tuple(rng.uniform(-4, 4, 2)))
+        base = (2000 + 3000 * np.linspace(0, 1, H)[:, None]
+                + rng.randint(0, 300, (H, W))).astype(np.int32)
+        seq = os.path.join(root, f"seq{i:02d}")
+        for sub in ("color", "depth"):
+            os.makedirs(os.path.join(seq, sub))
+        np.savetxt(os.path.join(seq, "groundtruth.txt"), gt, delimiter=",", fmt="%.4f")
+        for t in range(OPE_FRAMES):
+            depth = (base - 6 * frames[t, :, :, 3].astype(np.int32)).clip(0, 65535)
+            jobs.append((os.path.join(seq, "color", f"{t:08d}.jpg"),
+                         cv2.cvtColor(frames[t, :, :, :3], cv2.COLOR_RGB2BGR)))
+            jobs.append((os.path.join(seq, "depth", f"{t:08d}.png"), depth.astype(np.uint16)))
+    with ThreadPoolExecutor(8) as pool:
+        if not all(pool.map(lambda job: cv2.imwrite(*job), jobs)):
+            raise IOError("could not write the OPE fixture")
+
+
+def ope_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in OPE_COUNTERS}
+
+
+def profile_pass(fn, dev) -> tuple[dict, float, float]:
+    """One call of fn() under torch.profiler: the kernels counted by
+    OPE_KERNELS, the device ms (every CUDA row), the wall ms. The window's
+    warm-up step holds one tiny kernel, so no kernel of fn() is the
+    window's first (a window that starts cold loses it)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    kept = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: kept.extend(p.key_averages())) as prof:
+        torch.zeros(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    rows = [e for e in kept if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
+    counts = {k: sum(e.count for e in rows if any(n in e.key for n in names))
+              for k, (names, _) in OPE_KERNELS.items()}
+    return counts, sum(e.self_device_time_total for e in rows) / 1e3, wall
+
+
+class SplitTracker(BatchedViPTTracker):
+    """A BatchedViPTTracker that adds each streamed step's wall time, in
+    three parts, to `split`: the wait since the previous step returned
+    ('decode_wait': the decode thread's join; before the first step, the
+    first frame's decode after the staging buffers), upload + compose
+    ('upload_compose', up to a synchronisation after the compose) and
+    replay + host read of the boxes ('replay_read'); and 'steps'. The
+    synchronisation adds no device work but idles the card between
+    compose and replay, so whole-pass times come from BatchedViPTTracker."""
+
+    def __init__(self, *args, split: dict, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.split = split
+        self._last = time.perf_counter()
+
+    def host_buffer(self, shape: tuple) -> np.ndarray:
+        buf = super().host_buffer(shape)
+        self._last = time.perf_counter()
+        return buf
+
+    def _composed_step(self, compose, *planes):
+        t0 = time.perf_counter()
+        frames = compose(*self._upload(*planes), self._lut)
+        torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        out = self._step(frames)
+        t2 = time.perf_counter()
+        for k, v in (("decode_wait", t0 - self._last), ("upload_compose", t1 - t0),
+                     ("replay_read", t2 - t1), ("steps", 1)):
+            self.split[k] = self.split.get(k, 0) + v
+        self._last = t2
+        return out
+
+
+def ope_path(dev, cfg, rt) -> dict:
+    """Phase 9: the streamed OPE path at full width. Returns the launches
+    of each kernel counted in it."""
+    from mmtrack_torch.data import native_io
+    from mmtrack_torch.eval.batched_ope import run_dataset_batched
+    from mmtrack_torch.eval.datasets import list_sequences, load_sequence
+    from mmtrack_torch.eval.analysis import analyze_fscore, analyze_ope
+    from mmtrack_torch.eval.metrics import iou_xywh
+    from mmtrack_torch.eval.ope import run_sequence
+    from mmtrack_torch.ops.compose import yuv420_to_rgb_device
+
+    H, W = OPE_HW
+    steps = OPE_FRAMES - 1
+    n_frames = OPE_SEQS * steps
+    counted = dict.fromkeys(ope_counts(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "DepthTrack")
+        t0 = time.perf_counter()
+        ope_fixture(root)
+        write_s = time.perf_counter() - t0
+        seqs = [load_sequence(d, "DepthTrack") for d in list_sequences(root, "DepthTrack")]
+        decoder, load_error = native_io.decoder(), native_io.load_error()
+        log("ope_env", decoder=decoder, decoder_error=load_error, cpu_count=os.cpu_count(),
+            sequences=len(seqs), frames=OPE_FRAMES, frame=f"{W}x{H}", fixture_write_s=write_s)
+
+        compose_s = [0.0]
+
+        def host_composed(s):
+            def load(t):
+                c0 = time.perf_counter()
+                frame = get_x_frame(s.rgb_frames[t], s.x_frames[t], s.dtype, s.depth_clip)
+                compose_s[0] += time.perf_counter() - c0
+                return frame
+            return load
+
+        loaders = {s.name: host_composed(s) for s in seqs}
+        model = build_viptrack(cfg, dtype=torch.bfloat16, device=dev, seed=0)
+        scan = make_track_scan(rt, model, dev)
+        runs = [0]
+
+        def run(wire: str, split=None):
+            """One pass over the fixture on `wire` (of SplitTracker when
+            `split` is a dict); (results, seconds, results root)."""
+            os.environ.pop("MMTRACK_STREAM", None)
+            if wire == "yuv420":
+                os.environ["MMTRACK_STREAM"] = "yuv420"
+            runs[0] += 1
+            res_root = os.path.join(tmp, f"results_{runs[0]}")
+            t0 = time.perf_counter()
+            try:
+                out = run_dataset_batched(
+                    lambda: (BatchedViPTTracker(model, dev, rt, scan=scan) if split is None
+                             else SplitTracker(model, dev, rt, scan=scan, split=split)),
+                    seqs, res_root, "DepthTrack", "phase9", batch_size=OPE_SEQS,
+                    loaders=loaders if wire == "frames" else None, verbose=False)
+            finally:
+                os.environ.pop("MMTRACK_STREAM", None)
+            seconds = time.perf_counter() - t0
+            ran = {r["wire"] for r in out}
+            if ran != {wire} or len(out) != OPE_SEQS:
+                raise AssertionError(f"ope: asked for the {wire} wire, ran {ran} "
+                                     f"({len(out)} results)")
+            return out, seconds, res_root
+
+        wires = ["frames", "rgb_index"] + (["yuv420"] if decoder == "native" else [])
+        for fn in OPE_COUNTERS:
+            fn.launches = 0
+        results, roots, report = {}, {}, {}
+        for wire in wires:
+            passes = []
+            for _ in range(1 if wire == "frames" else OPE_PASSES):
+                compose_s[0] = 0.0
+                out, seconds, res_root = run(wire)
+                passes.append((seconds, compose_s[0], out, res_root))
+            best = min(passes, key=lambda p: p[0])
+            for (_, _, out, _) in passes[1:]:
+                for a, b in zip(passes[0][2], out):
+                    if not (np.array_equal(a["boxes"], b["boxes"])
+                            and np.array_equal(a["confidences"], b["confidences"])):
+                        raise AssertionError(f"ope {wire}: two passes differ")
+            results[wire], roots[wire] = passes[0][2], passes[0][3]
+            report[wire] = dict(frames_per_s=n_frames / best[0], best_pass_s=best[0],
+                                pass_s=[p[0] for p in passes], ms_per_step=best[0] / steps * 1e3)
+            if wire == "frames":
+                report[wire]["split_ms_per_step"] = {
+                    "host_decode_compose": best[1] / steps * 1e3,
+                    "rest": (best[0] - best[1]) / steps * 1e3}
+                continue
+            # one more pass, split and profiled: the split's synchronisation
+            # after the compose adds no device work
+            want = {k: n * steps + (k == "crop") for k, (_, n) in OPE_KERNELS.items()}
+            for attempt in range(3):   # a window now and then loses a kernel's event
+                split = {}
+                kernels, dev_ms, wall_ms = profile_pass(lambda: run(wire, split), dev)
+                if kernels == want:
+                    break
+            report[wire].update(
+                split_ms_per_step={k: split[k] / split["steps"] * 1e3
+                                   for k in ("decode_wait", "upload_compose", "replay_read")},
+                kernels_in_profiled_pass=kernels, kernels_expected=want,
+                device_ms_per_step=dev_ms / steps, idle_share=1 - dev_ms / wall_ms,
+                profiled_pass_wall_ms=wall_ms)
+            if kernels != want:
+                raise AssertionError(f"ope {wire}: kernels in a profiled pass {kernels}, "
+                                     f"want {want}")
+        launches = ope_counts()
+        n_runs = runs[0]
+        capture = SCAN_WARMUP_STEPS + 1
+        expected = {"attn_block_fused": 9 * capture, "mlp_block_fused": 12 * capture,
+                    "crop_resize_normalized": capture + n_runs}
+
+        exact = all(np.array_equal(a["boxes"], b["boxes"])
+                    and np.array_equal(a["confidences"], b["confidences"])
+                    for a, b in zip(results["frames"], results["rgb_index"]))
+        boxes = np.stack([r["boxes"] for r in results["rgb_index"]])
+        inside = bool(np.isfinite(boxes).all() and (boxes[..., :2] >= 0).all()
+                      and (boxes[..., 0] + boxes[..., 2] <= W + 1e-3).all()
+                      and (boxes[..., 1] + boxes[..., 3] <= H + 1e-3).all())
+        ious = None
+        if "yuv420" in results:
+            ious = np.concatenate([iou_xywh(a["boxes"][1:], b["boxes"][1:])
+                                   for a, b in zip(results["rgb_index"], results["yuv420"])])
+
+        # the RGB planes each streamed wire uploads, against cv2's decode
+        def tally(acc, got, ref):
+            d = np.abs(got.astype(int) - ref).max(-1)
+            acc["max_lsb"] = max(acc["max_lsb"], int(d.max()))
+            acc["pixels_differ"] += int((d > 0).sum())
+            acc["frames"] += 1
+
+        rgb_diff = {"max_lsb": 0, "pixels_differ": 0, "frames": 0}
+        yuv_diff = dict(rgb_diff) if ious is not None else None
+        for s in seqs:
+            for t in (1, steps // 2, steps):
+                ref = cv2.cvtColor(cv2.imread(s.rgb_frames[t]), cv2.COLOR_BGR2RGB).astype(int)
+                rgb, idx = np.zeros((H, W, 3), np.uint8), np.zeros((H, W), np.uint8)
+                native_io.decode_pair_rgb_index(s.rgb_frames[t], s.x_frames[t], rgb, idx)
+                tally(rgb_diff, rgb, ref)
+                if yuv_diff is not None:
+                    y, cb, cr = (np.zeros((H, W), np.uint8), np.zeros((H // 2, W // 2), np.uint8),
+                                 np.zeros((H // 2, W // 2), np.uint8))
+                    native_io.decode_pair_yuv_index(s.rgb_frames[t], s.x_frames[t], y, cb, cr,
+                                                    idx)
+                    planes = (torch.from_numpy(p).to(dev) for p in (y, cb, cr))
+                    tally(yuv_diff, yuv420_to_rgb_device(*planes).cpu().numpy(), ref)
+
+        log("ope", config="deep_rgbd", dtype="bf16", B=OPE_SEQS, frames=OPE_FRAMES,
+            frame=f"{W}x{H}", decoder=decoder, wires=report,
+            rgb_index_bit_equal_to_frames=exact, boxes_inside=inside,
+            yuv_iou_vs_rgb_index=None if ious is None else
+            {"min": float(ious.min()), "mean": float(ious.mean()), "bar": OPE_IOU_BAR},
+            yuv_skipped=None if ious is not None else f"decoder {decoder}: {load_error}",
+            rgb_planes_vs_cv2=rgb_diff, yuv_planes_vs_cv2=yuv_diff,
+            launches=launches, expected=expected, card=card_line())
+        if not exact or not inside:
+            raise AssertionError(f"ope: rgb_index bit-equal to frames {exact}, "
+                                 f"boxes inside {inside}")
+        if ious is not None and not ious.min() > OPE_IOU_BAR:
+            raise AssertionError(f"ope: yuv420 IoU vs rgb_index {ious.min()}")
+        if launches != expected:
+            raise AssertionError(f"ope launches {launches}, want {expected}")
+        for k, n in launches.items():
+            counted[k] += n
+
+        # the entry, as a user runs it, in its own process
+        entry_root = os.path.join(tmp, "entry")
+        env = {k: v for k, v in os.environ.items() if k != "MMTRACK_STREAM"}
+        here = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+        # deep_rgbd with bf16 compute: the precision comes from the config
+        entry_cfg = os.path.join(tmp, "deep_rgbd.json")
+        with open(entry_cfg, "w") as f:
+            json.dump({"TRAIN": {"AMP": True}}, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "mmtrack_torch.eval.run_ope",
+                               "--dataset", "DepthTrack", "--dataset_root", root,
+                               "--config", entry_cfg, "--batched", str(OPE_SEQS),
+                               "--analyze", "--results_root", entry_root],
+                              cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        entry_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"ope entry exited {proc.returncode}: {proc.stderr[-3000:]}")
+        run_dir = os.path.join(entry_root, "DepthTrack", "deep_rgbd")
+        written = sorted(f for f in os.listdir(run_dir) if f.endswith(".txt"))
+        with open(os.path.join(entry_root, "DepthTrack", "deep_rgbd_report.json")) as f:
+            entry_report = json.load(f)
+        ope_in = analyze_ope(seqs, roots["rgb_index"], "DepthTrack", "phase9")["overall"]
+        fs_in = analyze_fscore(seqs, roots["rgb_index"], "DepthTrack", "phase9")
+        keys = ("success_auc", "precision_20px", "norm_precision_auc")
+        same = (all(entry_report["ope"][k] == ope_in[k] for k in keys)
+                and entry_report["fscore"] == fs_in)
+        box_diff = max(float(np.abs(
+            np.loadtxt(os.path.join(run_dir, f"{s.name}.txt"), delimiter=",")
+            - np.loadtxt(os.path.join(roots["rgb_index"], "DepthTrack", "phase9",
+                                      f"{s.name}.txt"), delimiter=",")).max()) for s in seqs)
+        log("ope_entry", seconds=entry_s, results=len(written), stdout=proc.stdout.splitlines(),
+            report_ope={k: entry_report["ope"][k] for k in keys},
+            in_process_ope={k: ope_in[k] for k in keys}, report_equal=same,
+            boxes_max_abs_diff_vs_rgb_index_files_px=box_diff)
+        if len(written) != OPE_SEQS or not same:
+            raise AssertionError(f"ope entry: {len(written)} result files, report equal {same}")
+
+        # the bit-exact host crop against the crop kernel, one sequence at
+        # f32, on frames composed once beforehand (ms per frame leaves the
+        # decode out)
+        model32 = build_viptrack(cfg, dtype=torch.float32, device=dev, seed=0)
+        seq = seqs[0]
+        frames = [get_x_frame(seq.rgb_frames[t], seq.x_frames[t], seq.dtype, seq.depth_clip)
+                  for t in range(OPE_FRAMES)]
+        out = {}
+        for name, host in (("host_crop", True), ("device_crop", False)):
+            crop_resize_normalized.launches = 0
+            res = run_sequence(ViPTTracker(model32, dev, rt, host_preproc=host), seq,
+                               frame_loader=frames.__getitem__)
+            out[name] = (res, crop_resize_normalized.launches)
+        ious = iou_xywh(out["host_crop"][0]["boxes"][1:], out["device_crop"][0]["boxes"][1:])
+        crops = {k: n for k, (_, n) in out.items()}
+        log("ope_host_crop", dtype="f32", frames=OPE_FRAMES, frame=f"{W}x{H}",
+            ms_per_frame={k: 1e3 / r["fps"] for k, (r, _) in out.items()},
+            iou_vs_device_crop={"min": float(ious.min()), "mean": float(ious.mean())},
+            crop_launches=crops, card=card_line())
+        if crops != {"host_crop": 0, "device_crop": OPE_FRAMES} or not all(
+                np.isfinite(r["boxes"]).all() for r, _ in out.values()):
+            raise AssertionError(f"ope host crop: crop launches {crops}")
+        counted["crop_resize_normalized"] += OPE_FRAMES
+    return counted
+
+
 def main() -> int:
     dev = require_cuda()
     card = card_line()
@@ -1239,6 +1612,8 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     train_kernels_vs_plain(cfg, dev)
     for name, n in vot_path(dev).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in ope_path(dev, cfg, rt).items():
         launches[name] = launches.get(name, 0) + n
 
     def entry(name, source, replaces, rows):

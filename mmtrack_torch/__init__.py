@@ -6,17 +6,23 @@ every Pallas kernel of the JAX package on the ported path is a CUDA C++
 kernel in `csrc/`, built at first use by `kernels/build.py`.
 
 Ported so far (ViPT batched tracking, ViPT prompt-tuning training, the
-VOT entry with Alpha-Refine):
+VOT entry with Alpha-Refine, the OPE entry with the streamed wire):
   ops/       crop (batched crop kernel), flash_attn, mlp_fuse (half-block
-             kernels), xcorr (depthwise correlation kernel), ce, window,
-             box, heatmap, losses, prroi, plain_grad
+             kernels), xcorr (depthwise correlation kernel), compose
+             (device compose of the streamed wire), ce, window, box,
+             heatmap, losses, prroi, plain_grad
   models/    layers, heads (centre, corner), vipt, resnet, alpha_refine,
              convert (flax -> torch bridge)
   trackers/  vipt_tracker
-  parallel/  batched_eval (single device)
-  data/      synthetic data, sampler, processing, loader, composition
+  parallel/  batched_eval (single device; composed frames, rgb + index
+             and 4:2:0 planes)
+  data/      synthetic data, sampler, processing, loader, composition,
+             native_io (the C decoder of native/, cv2 fallback)
   train/     actor, optim, train_step, trainer, run (entry point)
-  eval/      vot (TraX server, run_vot_exp), vot_entry (entry point)
+  eval/      vot (TraX server, run_vot_exp), vot_entry (entry point),
+             datasets, metrics, analysis, ope, batched_ope, run_ope
+             (the OPE entry point)
+  utils/     device, logging, env (dataset roots)
   registry   the ViPT recipes
 
 Kernel wrappers take the plain PyTorch version for a tensor on the CPU and

@@ -2,10 +2,11 @@
 
 A copy of mmtrack_tpu/data/composition.py (ViPT
 lib/train/dataset/depth_utils.py:71-132): the port imports nothing of the
-JAX package, and the VOT entry (eval/vot.py) composes its frames here.
-tests/test_torch_vot.py holds it bit-equal to the JAX module. Decoding and
-composition stay on the host; the composed uint8 frame is the one
-host-to-device transfer per tracked frame.
+JAX package, and the VOT entry (eval/vot.py) and the OPE drivers
+(eval/ope.py, eval/batched_ope.py) compose their frames here.
+tests/test_torch_vot.py holds it bit-equal to the JAX module. The streamed
+wire of eval/batched_ope.py ships the RGB and `depth_index_u8`'s plane
+instead of the composed frame and composes on the card (ops/compose.py).
 """
 
 from __future__ import annotations
@@ -50,8 +51,8 @@ def depth_index_u8(xmap: np.ndarray, x_clip: bool = True) -> np.ndarray:
 
     Serving hosts upload this 1-byte plane instead of the 3-byte colormap
     (4 B/px total vs 6) and gather the LUT on device
-    (mmtrack_tpu/ops/compose.py::compose_rgb_index_device, not ported
-    yet) — bit-identical output for 2/3 of the transfer bytes."""
+    (mmtrack_torch/ops/compose.py::compose_rgb_index_device) —
+    bit-identical output for 2/3 of the transfer bytes."""
     if x_clip:
         xmap = xmap.copy()
         max_depth = min(_median(xmap) * 3, 10000)

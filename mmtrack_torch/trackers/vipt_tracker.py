@@ -25,6 +25,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from mmtrack_torch.data.processing import sample_target_np
 from mmtrack_torch.models.heads import cal_bbox
 from mmtrack_torch.models.vipt import ViPTrack, ce_keep_schedule, generate_ctr_mask
 from mmtrack_torch.ops.box import clip_box
@@ -264,22 +265,56 @@ def as_frames(frames, device) -> torch.Tensor:
 class ViPTTracker:
     """Single-sequence facade with the reference BaseTracker API
     (initialize/track). `model` must already hold its weights; it is moved
-    to `device`."""
+    to `device`.
 
-    def __init__(self, model: ViPTrack, device, runtime: Optional[ViPTRuntime] = None):
+    host_preproc=True swaps the crop kernel for the bit-exact host cv2
+    twin (data/processing.py::sample_target_np, byte-identical to the
+    reference's sample_target incl. cv2's fixed-point uint8 resize),
+    normalised in numpy f32, and uploads the normalised crop instead of
+    the frame (mmtrack_tpu/trackers/vipt_tracker.py:174-236). Use it for
+    parity-critical evaluation; the device crop is about one intensity
+    level off cv2's fixed-point rounding."""
+
+    def __init__(self, model: ViPTrack, device, runtime: Optional[ViPTRuntime] = None,
+                 host_preproc: bool = False):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.rt = runtime or ViPTRuntime()
+        self.host_preproc = host_preproc
         self.state = None
+
+    def _host_crop(self, image: np.ndarray, box, factor: float, size: int):
+        """(1, S, S, C) normalised f32 crop on the device and its resize
+        factor."""
+        crop, rf, _ = sample_target_np(np.asarray(image), np.asarray(box, np.float64),
+                                       factor, size)
+        c = crop.shape[-1]
+        normalized = (crop.astype(np.float32) / 255.0 - MEAN_6CH[:c]) / STD_6CH[:c]
+        return torch.from_numpy(normalized[None]).to(self.device), rf
 
     @torch.inference_mode()
     def initialize(self, image: np.ndarray, info: dict) -> None:
         box = torch.tensor(np.asarray(info["init_bbox"], np.float32)[None])
-        self.state = vipt_init_state(self.rt, as_frames(image[None], self.device), box)
+        if self.host_preproc:
+            template, _ = self._host_crop(image, info["init_bbox"], self.rt.template_factor,
+                                          self.rt.template_size)
+            self.state = {"box": box.to(self.device), "template": template}
+        else:
+            self.state = vipt_init_state(self.rt, as_frames(image[None], self.device), box)
 
     @torch.inference_mode()
     def track(self, image: np.ndarray, info: dict | None = None) -> dict:
-        self.state, box, score = vipt_track_step(self.rt, self.model, self.state,
-                                                 as_frames(image[None], self.device))
+        if self.host_preproc:
+            H, W = image.shape[0], image.shape[1]
+            prev = self.state["box"][0].cpu().numpy().astype(np.float64)
+            search, rf = self._host_crop(image, prev, self.rt.search_factor,
+                                         self.rt.search_size)
+            rf = torch.tensor([rf], dtype=torch.float32, device=self.device)
+            box, score = vipt_step_from_crop(self.rt, self.model, self.state["template"],
+                                             self.state["box"], search, rf, float(H), float(W))
+            self.state = {"box": box, "template": self.state["template"]}
+        else:
+            self.state, box, score = vipt_track_step(self.rt, self.model, self.state,
+                                                     as_frames(image[None], self.device))
         return {"target_bbox": box[0].cpu().numpy().tolist(),
                 "best_score": float(score[0])}

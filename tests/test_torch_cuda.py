@@ -23,6 +23,13 @@ one ulp of h plus one of y);
 the crop and the depthwise correlation bit for bit; flash_mhsa_qkv within
 two bf16 ulps of the row's largest |output|.
 
+The streamed OPE step (parallel/batched_eval.py) on the card: track_split
+(rgb + JET-index planes from pinned memory, composed on the card) gives
+the host-composed frames' boxes and scores bit for bit through the
+one-frame graph, and both give the eager step loop's; one scan shared by
+two interleaved trackers captures once per frame shape and keeps each
+tracker's state; the device compose on CUDA tensors gives the CPU's bytes.
+
 Under autograd (grad mode, an input that needs a gradient) each kernel
 runs inside a torch.autograd.Function whose backward is the gradient of
 the plain version recomputed from the saved inputs, so its gradients must
@@ -439,3 +446,135 @@ def _grad_pair(fn, z, x):
     out = fn(z, x, pad=1)
     g_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(out.device)
     return out, torch.autograd.grad(out, [z, x], g_out)
+
+
+def _depth4_model(dev):
+    """deep_rgbd at full width, depth 4 (CE in block 3), bf16, seed 0."""
+    from mmtrack_torch.config import merge_overrides, vipt_experiment_config
+    from mmtrack_torch.models.vipt import build_viptrack
+    from mmtrack_torch.trackers.vipt_tracker import ViPTRuntime
+
+    cfg = merge_overrides(vipt_experiment_config("deep_rgbd"),
+                          {"MODEL": {"BACKBONE": {"DEPTH": 4, "CE_LOC": [3],
+                                                  "CE_KEEP_RATIO": [0.7]}}})
+    return ViPTRuntime.from_config(cfg), build_viptrack(cfg, dtype=torch.bfloat16, device=dev,
+                                                        seed=0)
+
+
+def _streamed_planes(T, B, H, W, seed):
+    """T frames of B sequences as host-composed rgbcolormap frames and as
+    the rgb + JET-index planes of the streamed wire."""
+    import numpy as np
+
+    from mmtrack_torch.data.composition import compose_x, depth_index_u8
+
+    rng = np.random.RandomState(seed)
+    rgb = rng.randint(0, 256, (T, B, H, W, 3)).astype(np.uint8)
+    depth = (rng.randint(500, 4000, (B, H, W))[None] + 11 * np.arange(T)[:, None, None, None])
+    depth = depth.astype(np.uint16)
+    frames = np.stack([[compose_x(rgb[t, b], depth[t, b], "rgbcolormap", x_clip=True)
+                        for b in range(B)] for t in range(T)])
+    idx = np.stack([[depth_index_u8(depth[t, b]) for b in range(B)] for t in range(T)])
+    return frames, rgb, idx
+
+
+def test_track_split_bit_equal_to_track_through_the_graph(dev):
+    """BatchedViPTTracker on the card: track_split (upload of rgb + index,
+    compose on the card, one-frame graph) gives track(get_x_frame-style
+    frames)'s boxes and scores bit for bit, and both give the eager step
+    loop's."""
+    from functools import partial
+
+    from mmtrack_torch.parallel.batched_eval import BatchedViPTTracker
+    from mmtrack_torch.trackers.vipt_tracker import vipt_track_scan_batched
+
+    rt, model = _depth4_model(dev)
+    frames, rgb, idx = _streamed_planes(5, 2, 96, 128, seed=1)
+    box0 = [[40.0, 30.0, 30.0, 24.0], [60.0, 40.0, 20.0, 28.0]]
+    composed = BatchedViPTTracker(model, dev, rt)
+    split = BatchedViPTTracker(model, dev, rt, scan=composed.scan)
+    eager = BatchedViPTTracker(model, dev, rt, scan=partial(vipt_track_scan_batched, rt, model))
+    rgb_buf, idx_buf = split.host_buffer(rgb.shape[1:]), split.host_buffer(idx.shape[1:])
+    assert rgb_buf.dtype == idx_buf.dtype and torch.from_numpy(rgb_buf).is_pinned()
+    for tr in (composed, split, eager):
+        tr.initialize(frames[0], box0)
+    for t in range(1, 5):
+        rgb_buf[...], idx_buf[...] = rgb[t], idx[t]
+        a, b, c = composed.track(frames[t]), split.track_split(rgb_buf, idx_buf), \
+            eager.track(frames[t])
+        for u, v in zip(a, b):
+            assert (u == v).all(), t
+        for u, v in zip(a, c):
+            assert (u == v).all(), t
+
+
+def test_shared_scan_captures_once_per_shape(dev):
+    """Two trackers sharing one scan: the first step of a shape warms up
+    and captures (the wrappers count then), every later step of that shape,
+    by either tracker, replays and counts nothing; a new B captures again.
+    Interleaved trackers keep their own state."""
+    from mmtrack_torch.parallel.batched_eval import BatchedViPTTracker
+    from mmtrack_torch.trackers.vipt_tracker import SCAN_WARMUP_STEPS, make_track_scan
+
+    rt, model = _depth4_model(dev)
+    frames, _, _ = _streamed_planes(4, 2, 96, 128, seed=2)
+    box0 = [[40.0, 30.0, 30.0, 24.0], [60.0, 40.0, 20.0, 28.0]]
+    scan = make_track_scan(rt, model, dev)
+    a, b = (BatchedViPTTracker(model, dev, rt, scan=scan) for _ in range(2))
+    alone = BatchedViPTTracker(model, dev, rt)
+    counters = (attn_block_fused, mlp_block_fused, crop_resize_normalized)
+
+    def counts():
+        return [fn.launches for fn in counters]
+
+    for tr in (a, b, alone):
+        tr.initialize(frames[0], box0)
+    b.initialize(frames[0][::-1].copy(), box0[::-1])
+    before = counts()
+    a_out = [a.track(frames[1])]
+    captured = [n - m for n, m in zip(counts(), before)]
+    assert captured == [3 * (SCAN_WARMUP_STEPS + 1), 4 * (SCAN_WARMUP_STEPS + 1),
+                        SCAN_WARMUP_STEPS + 1]
+    before = counts()
+    b_out = []
+    for t in (1, 2, 3):
+        b_out.append(b.track(frames[t][::-1].copy()))
+        if t < 3:
+            a_out.append(a.track(frames[t + 1]))
+    assert counts() == before
+    alone_out = [alone.track(frames[t]) for t in (1, 2, 3)]
+    for (ab, asc), (lb, lsc) in zip(a_out, alone_out):
+        assert (ab == lb).all() and (asc == lsc).all()
+    for (bb, bsc), (lb, lsc) in zip(b_out, alone_out):
+        assert (bb[::-1] == lb).all() and (bsc[::-1] == lsc).all()
+    one = BatchedViPTTracker(model, dev, rt, scan=scan)
+    one.initialize(frames[0][:1], box0[:1])
+    before = counts()
+    one.track(frames[1][:1])
+    assert [n - m for n, m in zip(counts(), before)] == captured
+
+
+def test_device_compose_on_the_card_bit_equal_to_the_cpu(dev):
+    """ops/compose.py on CUDA tensors (plain PyTorch, one rounding per
+    operation) gives the CPU's bytes."""
+    import numpy as np
+
+    from mmtrack_torch.ops.compose import (
+        compose_rgb_index_device,
+        compose_yuv_index_device,
+        jet_lut,
+    )
+
+    rng = np.random.RandomState(4)
+    c = np.arange(256, dtype=np.uint8)
+    cb, cr = (a.reshape(128, 512) for a in np.meshgrid(c, c, indexing="ij"))
+    planes = [torch.from_numpy(a) for a in (
+        rng.randint(0, 256, (256, 1024)).astype(np.uint8), cb, cr,
+        rng.randint(0, 256, (256, 1024)).astype(np.uint8), jet_lut(),
+        rng.randint(0, 256, (256, 1024, 3)).astype(np.uint8))]
+    y, cb, cr, idx, lut, rgb = planes
+    for fn, args in ((compose_yuv_index_device, (y, cb, cr, idx, lut)),
+                     (compose_rgb_index_device, (rgb, idx, lut))):
+        want = fn(*args)
+        got = fn(*(a.to(dev) for a in args))
+        assert got.is_cuda and torch.equal(got.cpu(), want)
