@@ -93,7 +93,9 @@ non-zero:
      protocol and then the rectangle protocol, after one short warm-up
      session. Launch counts must be exact: per mask session 2 x 20 crops
      (ViPT template + 19 searches, Alpha-Refine template + 19 searches) and
-     19 correlations; per rectangle session 20 crops and none. Every state
+     19 correlations; per rectangle session 20 crops and none. Then one
+     rectangle session each of ostrack_online (colour frames; 20 crops +
+     one per template refresh) and spt (20 crops) from the registry. Every state
      must decode to a frame-sized mask (or a finite rectangle). One refine
      on the card against the same model on the CPU (plain versions), same
      frame and box: probabilities within AR_PROB_BAR. Prints ms per frame
@@ -129,6 +131,23 @@ non-zero:
      files. Last, ViPTTracker(host_preproc=True) on one sequence at f32
      against the crop kernel's tracker, on frames composed beforehand: ms
      per frame, IoU, crop launches (none and 33).
+ 10. zoo: the six recipes the port added beside ViPT (ostrack,
+     ostrack_online, stark_s, stark_st, spt, siamfc), each from the
+     registry at f32 on seeded weights, through eval/ope.py::run_sequence
+     over one 33-frame 640x480 sequence of phase 9's fixture composed as
+     the recipe asks. Every box finite and inside its frame (SiamFC, which
+     does not clip its box, its centre); crop launches exactly 33 + the
+     template refreshes the tracker reported (none for SiamFC, whose
+     pyramid is plain PyTorch); median ms per frame after 3 warm-up
+     frames. OSTrack-online at bf16 (build_ostrack's dtype): one
+     dual-template forward with the kernels against use_kernels=False,
+     phase 4's bars without CE and the CE agreement printed; a run over
+     the sequence with 9 attention and 12 MLP half-blocks per frame; 3
+     profiled frames that must run the attention kernel's streaming branch
+     5 times a frame (L = 464, 344) and its resident branch 4 times. Last, `python
+     -m mmtrack_torch.eval.run_ope --tracker spt --analyze` in its own
+     process on that sequence: exit 0, a result file, and a report equal
+     to the analysis of the in-process spt run's results.
 
 Every kernel in the `kernels` line carries bound_ms, the larger of its
 bytes over 3.35 TB/s and its operations over the peak rate of their type
@@ -173,7 +192,14 @@ from mmtrack_torch.eval.vot import Mask, Rectangle, _decode_region, _encode_regi
 from mmtrack_torch.eval.vot_entry import AR_INPUT_SIZE, refiner_factory
 from mmtrack_torch.kernels.build import load_library, sass_by_kernel
 from mmtrack_torch.models.heads import cal_bbox
-from mmtrack_torch.models.vipt import build_viptrack, ce_keep_schedule, generate_ctr_mask
+from mmtrack_torch.models.vipt import (
+    ScoreTransformer,
+    build_ostrack,
+    build_viptrack,
+    ce_keep_schedule,
+    generate_ctr_mask,
+)
+from mmtrack_torch.models.vipt import init_weights as init_vipt_weights
 from mmtrack_torch.ops.crop import crop_resize_normalized, crop_resize_normalized_plain
 from mmtrack_torch.ops.flash_attn import (
     attn_block_fused,
@@ -196,7 +222,8 @@ from mmtrack_torch.ops.mlp_fuse import (
 )
 from mmtrack_torch.ops.xcorr import depthwise_xcorr, depthwise_xcorr_plain
 from mmtrack_torch.parallel.batched_eval import BatchedViPTTracker
-from mmtrack_torch.registry import build_tracker
+from mmtrack_torch.registry import TRACKER_REGISTRY, build_tracker
+from mmtrack_torch.trackers.ostrack_online import OSTrackOnlineRuntime, OSTrackOnlineTracker
 from mmtrack_torch.train.actor import vipt_loss
 from mmtrack_torch.train.optim import build_optimizer, prompt_only_mask
 from mmtrack_torch.train.train_step import TrainState, drop_path_generator, make_train_step
@@ -217,6 +244,11 @@ B = 16
 OPE_SEQS, OPE_FRAMES, OPE_HW = 8, 33, (480, 640)   # the JAX bench's streamed cell, bench.py:47-55
 BATCHES = (B, OPE_SEQS)            # the tracking batches: phase 3's and phase 9's
 TOKENS = (320, 244, 190, 153)      # 64 template + 256 / 180 / 126 / 89 search tokens
+OO_B = 2                           # OSTrack-online's template batch
+OO_TOKENS = (464, 344, 260, 202)   # 64 template + 400 / 280 / 196 / 138 search tokens
+# the phase-2 rows: OSTrack-online's four widths and, for the resident
+# branch's time beside the streaming one's, L = 320 at the same batch
+OO_SHAPES = tuple((OO_B, L) for L in (464, 344, 320, 260, 202))
 STEPS = 16
 PROFILE_STEPS = 3                  # tracking steps under torch.profiler, after the counted run
 ATTENTION_KERNELS = ("attention_resident_kernel", "attention_streaming_kernel")
@@ -282,13 +314,37 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+WINDOW_HEAD = 64                   # marker kernels that open every profiled window
+HEAD_MARKER = "bitwise_not"
+
+
+def window_head() -> None:
+    """Open a profiled window with WINDOW_HEAD tiny kernels (an in-place
+    bitwise not of one byte, which no path of the port runs) and a
+    synchronize. On the card's machine a window now and then comes back
+    without the records of its first kernels (a chunk's crop, a frame's
+    first attention blocks, a pass's init crop); those are then markers.
+    `device_rows` leaves them out."""
+    head = torch.zeros(1, dtype=torch.uint8, device="cuda")
+    for _ in range(WINDOW_HEAD):
+        head.bitwise_not_()
+    torch.cuda.synchronize()
+
+
+def device_rows(kept) -> list:
+    """The kernels of key_averages rows: CUDA rows without the step's own
+    annotation (ProfilerStep#, a device-side span of the whole window) and
+    without the window's head."""
+    return [e for e in kept if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep") and HEAD_MARKER not in e.key]
+
+
 def profile_window(fn, iters: int) -> tuple[list, float]:
     """The CUDA rows of torch.profiler's key_averages over `iters` calls of
     fn(), largest device time first, and the window's wall seconds (host
     clock, ending in a synchronize). One call runs before the window and
-    one in the profiler's warm-up step, whose events are dropped: a window
-    that starts cold has lost its first kernel. The step's own annotation
-    (ProfilerStep#, a device-side span of the whole window) is no kernel."""
+    one in the profiler's warm-up step, whose events are dropped, and the
+    window opens with `window_head`."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
@@ -301,14 +357,14 @@ def profile_window(fn, iters: int) -> tuple[list, float]:
             fn()
             torch.cuda.synchronize()
             prof.step()
+            window_head()
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             prof.step()
-        rows = [e for e in kept if e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.key.startswith("ProfilerStep")]
+        rows = device_rows(kept)
         if rows:
             return sorted(rows, key=lambda e: -e.self_device_time_total), wall
     raise RuntimeError("torch.profiler recorded no device time")
@@ -387,7 +443,8 @@ def row_ulps(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor) -> dict:
 def compare_gemms(dev, gen) -> list[dict]:
     """The GEMM kernel alone against its plain version (its epilogue's
     rounding points), for the four products of the half-blocks at the
-    tracking paths' M = 16 L and 8 L and the training block's 32 x 320, bar
+    tracking paths' M = 16 L and 8 L, the training block's 32 x 320 and
+    OSTrack-online's M = 2 L (L = 464, 344, 260, 202), bar
     BLOCK_ULPS of the row's scale. Times: CUDA events, the profiler's
     device time (also with the bias epilogue alone), the wrapper's host
     time, and torch.matmul(a, w.t()) in bf16 (cuBLAS) as the library call;
@@ -396,7 +453,8 @@ def compare_gemms(dev, gen) -> list[dict]:
     for name, N, K, epi in GEMM_SHAPES:
         w = (torch.randn(N, K, generator=gen) * K ** -0.5).to(dev, torch.bfloat16)
         b = (torch.randn(N, generator=gen) * 0.05).to(dev)
-        for M in [b * L for b in BATCHES for L in TOKENS] + [TRAIN_B * TOKENS[0]]:
+        for M in ([b * L for b in BATCHES for L in TOKENS] + [TRAIN_B * TOKENS[0]]
+                  + [n * L for n, L in OO_SHAPES]):
             a = torch.randn(M, K, generator=gen).to(dev, torch.bfloat16)
             res = (torch.randn(M, N, generator=gen).to(dev, torch.bfloat16)
                    if epi == EPI_BIAS_RESIDUAL else None)
@@ -476,17 +534,19 @@ def block_flops(name: str, n: int, L: int, C: int, n1: int, k2: int) -> float:
     return gemms + (4 * n * L * L * C if name == "attn_block_fused" else 0)
 
 
-def compare_blocks(name, kernel, plain, C, n1, k2, extra, dev, gen) -> list[dict]:
+def compare_blocks(name, kernel, plain, C, n1, k2, extra, dev, gen,
+                   shapes=tuple((n, L) for n in BATCHES for L in TOKENS)) -> list[dict]:
     p = block_params(C, n1, k2, gen, dev)
     args = (p["g"], p["b"], p["w1"], p["b1"], p["w2"], p["b2"])
     rows = []
-    for n, L in [(n, L) for n in BATCHES for L in TOKENS]:
+    for n, L in shapes:
         x = torch.randn(n, L, C, generator=gen).to(dev, torch.bfloat16)
         got = kernel(x, *args, **extra)
         want = plain(x, *args, **extra)
         torch.cuda.synchronize()
         row = dict(kernel=name, B=n, L=L, **row_ulps(got, want, x), bar_row_ulps=BLOCK_ULPS,
                    ms=cuda_ms(lambda: kernel(x, *args, **extra)),
+                   device_ms=device_ms(lambda: kernel(x, *args, **extra)),
                    plain_ms=cuda_ms(lambda: plain(x, *args, **extra)), library_ms=None,
                    **bound(nbytes(x, *args, got), block_flops(name, n, L, C, n1, k2), "bf16"))
         log("kernels", **row)
@@ -524,12 +584,16 @@ def crop_read_bytes(boxes: torch.Tensor, factor: float, S: int, H: int, W: int,
 
 
 # (H, W, C, [(S, factor), ...], batch): ViPT's template and search crops on
-# both frame sizes at B=16, on phase 9's 640x480 frames at its B=8, and
-# Alpha-Refine's 3-channel search crop (ARRuntime)
+# both frame sizes at B=16, on phase 9's 640x480 frames at its B=8,
+# Alpha-Refine's 3-channel search crop (ARRuntime), and the zoo's S = 320
+# search crops (OSTrack-online on 3 channels, STARK / SPT on 6; four boxes,
+# the edge cases of crop_boxes)
 CROP_CASES = (((240, 320), 6, ((128, 2.0), (256, 4.0)), B),
               ((480, 640), 6, ((128, 2.0), (256, 4.0)), B),
               ((480, 640), 6, ((128, 2.0), (256, 4.0)), OPE_SEQS),
-              ((480, 640), 3, ((256, 2.0),), B))
+              ((480, 640), 3, ((256, 2.0),), B),
+              ((480, 640), 3, ((320, 5.0),), 4),
+              ((480, 640), 6, ((320, 5.0),), 4))
 
 
 def compare_crops(dev, gen) -> list[dict]:
@@ -1168,9 +1232,10 @@ def vot_path(dev) -> dict:
         regions = {"mask": _encode_region(Mask(int(x), int(y), init_mask)),
                    "rectangle": _encode_region(Rectangle(x, y, w, h))}
 
-        def session(protocol: str, n: int, timings=None) -> list:
+        def session(protocol: str, n: int, timings=None, trk=tracker,
+                    dtype="rgbcolormap") -> list:
             fout = io.StringIO()
-            run_vot_exp(lambda: tracker, channels="rgbd", dtype="rgbcolormap",
+            run_vot_exp(lambda: trk, channels="rgbd", dtype=dtype,
                         fin=io.StringIO(trax_script(colors[:n], depths[:n], regions[protocol])),
                         fout=fout, mask=protocol == "mask", refine_factory=lambda: refiner,
                         timings=timings)
@@ -1213,6 +1278,28 @@ def vot_path(dev) -> dict:
             for name, k in launches.items():
                 counted[name] += k
 
+        # the zoo's VOT22 RGB-D entries, rectangle protocol, from the registry
+        for name in ("ostrack_online", "spt"):
+            recipe = TRACKER_REGISTRY[name]
+            zoo = FrameRecorder(recipe.build(device=dev))
+            crop_resize_normalized.launches = 0
+            t0 = time.perf_counter()
+            states = session("rectangle", VOT_FRAMES, trk=zoo, dtype=recipe.composition)
+            elapsed = time.perf_counter() - t0
+            crops = crop_resize_normalized.launches
+            want = VOT_FRAMES + zoo.updates
+            ok = len(states) == VOT_FRAMES and all(
+                isinstance(st, Rectangle) and np.isfinite(list(st)).all() for st in states[1:])
+            log("vot", protocol="rectangle", tracker=name, dtype="f32",
+                composition=recipe.composition, frames=VOT_FRAMES, frame=f"{W}x{H}",
+                states=len(states), states_ok=ok, template_updates=zoo.updates,
+                crop_launches=crops, expected=want,
+                ms_per_frame=elapsed / VOT_FRAMES * 1e3, card=card_line())
+            if not ok or crops != want:
+                raise AssertionError(f"vot {name}: states ok {ok}, crops {crops} (want {want})")
+            counted["crop_resize_normalized"] += crops
+            del zoo
+
         # one refine on the card against the same model on the CPU
         frame = cv2.cvtColor(cv2.imread(colors[1]), cv2.COLOR_BGR2RGB)
         box = [x + 2.0, y + 1.0, w + 3.0, h - 2.0]
@@ -1238,8 +1325,8 @@ OPE_KERNELS = {"attention": (ATTENTION_KERNELS, 9), "gemm": ((GEMM_KERNEL,), GEM
 OPE_COUNTERS = (attn_block_fused, mlp_block_fused, crop_resize_normalized)
 
 
-def ope_fixture(root: str) -> None:
-    """OPE_SEQS DepthTrack-layout sequences of OPE_FRAMES frames under root:
+def ope_fixture(root: str, n_seqs: int = OPE_SEQS) -> None:
+    """n_seqs DepthTrack-layout sequences of OPE_FRAMES frames under root:
     color/*.jpg (cv2's default quality and 4:2:0) and 16-bit depth/*.png
     made from data/synthetic.py's frames (RGB from the first triplet; depth
     a seeded base, nearer where the target's aux triplet is bright), and a
@@ -1248,7 +1335,7 @@ def ope_fixture(root: str) -> None:
 
     H, W = OPE_HW
     jobs = []
-    for i in range(OPE_SEQS):
+    for i in range(n_seqs):
         rng = np.random.RandomState(100 + i)
         box0 = (rng.uniform(60, W - 160), rng.uniform(50, H - 120),
                 rng.uniform(48, 96), rng.uniform(40, 72))
@@ -1275,11 +1362,12 @@ def ope_counts() -> dict:
     return {fn.__name__: fn.launches for fn in OPE_COUNTERS}
 
 
-def profile_pass(fn, dev) -> tuple[dict, float, float]:
-    """One call of fn() under torch.profiler: the kernels counted by
-    OPE_KERNELS, the device ms (every CUDA row), the wall ms. The window's
-    warm-up step holds one tiny kernel, so no kernel of fn() is the
-    window's first (a window that starts cold loses it)."""
+def profile_pass(fn, dev, kernels=OPE_KERNELS) -> tuple[dict, float, float]:
+    """One call of fn() under torch.profiler: the calls of the kernels of
+    `kernels` (name -> (kernel names, calls per step)), the device ms
+    (every CUDA row), the wall ms. The window's
+    warm-up step holds one tiny kernel, and the window opens with
+    `window_head`, so no kernel of fn() is among the window's first."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     kept = []
@@ -1289,15 +1377,15 @@ def profile_pass(fn, dev) -> tuple[dict, float, float]:
         torch.zeros(1, device=dev).add_(1)
         torch.cuda.synchronize()
         prof.step()
+        window_head()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         prof.step()
-    rows = [e for e in kept if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith("ProfilerStep")]
+    rows = device_rows(kept)
     counts = {k: sum(e.count for e in rows if any(n in e.key for n in names))
-              for k, (names, _) in OPE_KERNELS.items()}
+              for k, (names, _) in kernels.items()}
     return counts, sum(e.self_device_time_total for e in rows) / 1e3, wall
 
 
@@ -1563,6 +1651,219 @@ def ope_path(dev, cfg, rt) -> dict:
     return counted
 
 
+class FrameRecorder:
+    """A tracker behind its own API that times each track() (the zoo's
+    trackers read their box on the host, so a call ends when its device
+    work does) and counts the template refreshes it reports."""
+
+    def __init__(self, tracker):
+        self.tracker, self.updates, self.ms = tracker, 0, []
+
+    def initialize(self, image, info):
+        self.tracker.initialize(image, info)
+
+    def track(self, image, info=None):
+        t0 = time.perf_counter()
+        out = self.tracker.track(image, info)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.updates += int(out.get("update_flag", False))
+        return out
+
+
+ZOO = ("ostrack", "ostrack_online", "stark_s", "stark_st", "spt", "siamfc")
+ZOO_WARMUP = 3                      # frames left out of the median ms per frame
+# OSTrack-online's attention half-blocks per frame: blocks 0-2 at L = 464
+# and 4-5 at 344 take the streaming branch, 7-8 at 260 and 10-11 at 202 the
+# resident one (the CE blocks 3, 6, 9 run unfused)
+OO_ATTENTION = {k: ((k,), n) for k, n in (("attention_streaming_kernel", 5),
+                                          ("attention_resident_kernel", 4))}
+OO_PROFILE_FRAMES = 3
+
+
+def zoo_boxes_ok(name: str, boxes: np.ndarray, H: int, W: int) -> bool:
+    """Every box finite and inside the H x W frame; SiamFC's protocol does
+    not clip its box (siamfc_tracker.py:125-146), so its centre."""
+    if not np.isfinite(boxes).all():
+        return False
+    if name == "siamfc":
+        cx, cy = boxes[:, 0] + boxes[:, 2] / 2, boxes[:, 1] + boxes[:, 3] / 2
+        return bool(((cx >= 0) & (cx <= W) & (cy >= 0) & (cy <= H)).all())
+    return bool((boxes[:, :2] >= 0).all() and (boxes[:, 0] + boxes[:, 2] <= W + 1e-3).all()
+                and (boxes[:, 1] + boxes[:, 3] <= H + 1e-3).all())
+
+
+def oo_forward(dev, model, plain, templates, searches, rt) -> None:
+    """OSTrack-online's dual-template forward at bf16 with the kernels and
+    on the plain versions: without CE within phase 4's bars, with CE (the
+    path) the kept-set agreement and map differences printed."""
+    mask = generate_ctr_mask(rt.template_size // rt.stride, rt.ce_template_range, dev)
+
+    def run(m, keep):
+        kept = {}
+        hooks = [m.backbone.blocks[i].register_forward_hook(
+            lambda mod, inp, out, i=i: kept.__setitem__(i, out[2].sort(1).values))
+            for i in rt.ce_loc]
+        with torch.inference_mode():
+            out = m(templates, searches, mask, keep)
+        for h in hooks:
+            h.remove()
+        return out, kept
+
+    def diffs(a, b):
+        d = {k: (a[k] - b[k]).abs().max().item() for k in ("score_map", "size_map")}
+        d["offset_map_rel"] = ((a["offset_map"] - b["offset_map"]).abs().max()
+                               / b["offset_map"].abs().max()).item()
+        return d
+
+    (ok_, _), (op, _) = run(model, None), run(plain, None)
+    no_ce = diffs(ok_, op)
+    (ck, kk), (cp, kp) = run(model, rt.ce_keep_lens), run(plain, rt.ce_keep_lens)
+    log("zoo_oo_forward", dtype="bf16", B=OO_B, tokens=OO_TOKENS[0], max_diff_without_ce=no_ce,
+        map_bar=MAP_BAR, offset_rel_bar=OFFSET_REL_BAR, max_diff_with_ce=diffs(ck, cp),
+        ce_sets_identical=[int((kk[i] == kp[i]).all(1).sum()) for i in rt.ce_loc], of=OO_B)
+    if (no_ce["score_map"] > MAP_BAR or no_ce["size_map"] > MAP_BAR
+            or no_ce["offset_map_rel"] > OFFSET_REL_BAR):
+        raise AssertionError(f"OSTrack-online forward: kernels vs plain beyond bar: {no_ce}")
+
+
+def zoo_path(dev) -> dict:
+    """Phase 10: the zoo's six recipes, OSTrack-online at bf16 and the spt
+    entry. Returns the launches of each kernel counted in it."""
+    from mmtrack_torch.eval.analysis import analyze_fscore, analyze_ope
+    from mmtrack_torch.eval.datasets import list_sequences, load_sequence
+    from mmtrack_torch.eval.ope import result_path, run_sequence, save_result
+
+    H, W = OPE_HW
+    counted = dict.fromkeys(ope_counts(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "DepthTrack")
+        ope_fixture(root, n_seqs=1)
+        seq_dir = list_sequences(root, "DepthTrack")[0]
+        res_in = os.path.join(tmp, "in_process")
+        for name in ZOO:
+            recipe = TRACKER_REGISTRY[name]
+            seq = load_sequence(seq_dir, "DepthTrack")
+            seq.dtype = recipe.composition
+            tracker = FrameRecorder(recipe.build(device=dev))
+            for fn in OPE_COUNTERS:
+                fn.launches = 0
+            res = run_sequence(tracker, seq)
+            launches = ope_counts()
+            want = {"attn_block_fused": 0, "mlp_block_fused": 0,   # f32: the plain blocks
+                    "crop_resize_normalized": 0 if name == "siamfc"
+                    else OPE_FRAMES + tracker.updates}
+            ok = zoo_boxes_ok(name, res["boxes"], H, W)
+            log("zoo", tracker=name, family=recipe.family, modality=recipe.modality,
+                composition=recipe.composition, dtype="f32", frames=OPE_FRAMES,
+                frame=f"{W}x{H}", boxes_ok=ok, template_updates=tracker.updates,
+                launches=launches, expected=want,
+                median_ms_per_frame=float(np.median(tracker.ms[ZOO_WARMUP:])),
+                first_frame_ms=tracker.ms[0], card=card_line())
+            if not ok or launches != want:
+                raise AssertionError(f"zoo {name}: boxes ok {ok}, launches {launches} "
+                                     f"(want {want})")
+            for k, n in launches.items():
+                counted[k] += n
+            if name == "spt":
+                save_result(result_path(res_in, "DepthTrack", "spt", seq.name), res,
+                            fmt=seq.save_fmt, delimiter=seq.save_delimiter,
+                            time_style=seq.time_style)
+            del tracker
+            torch.cuda.empty_cache()
+
+        # OSTrack-online at bf16 through build_ostrack's dtype: the half-blocks
+        # at B=2 and L = 464 / 344 / 260 / 202
+        seq = load_sequence(seq_dir, "DepthTrack")
+        seq.dtype = "color"
+        frames = [get_x_frame(seq.rgb_frames[t], seq.x_frames[t], "color", seq.depth_clip)
+                  for t in range(OPE_FRAMES)]
+        rt = OSTrackOnlineRuntime()
+        model = build_ostrack(template_size=128, search_size=320, dtype=torch.bfloat16,
+                              device=dev, seed=0)
+        plain = build_ostrack(template_size=128, search_size=320, dtype=torch.bfloat16,
+                              device=dev, seed=0, use_kernels=False)
+        cls = init_vipt_weights(ScoreTransformer(d_model=768, n_layers=rt.cls_attn_layers,
+                                                 n_mlp_layers=rt.cls_mlp_layers), 1)
+        mean, std = torch.from_numpy(MEAN_6CH[:3]).to(dev), torch.from_numpy(STD_6CH[:3]).to(dev)
+        box = torch.tensor(seq.gt[:1], dtype=torch.float32, device=dev)
+        f0, f1 = (torch.from_numpy(frames[t][None]).to(dev) for t in (0, 1))
+        with torch.inference_mode():
+            templates = torch.cat([crop_resize_normalized_plain(f, box, rt.template_factor,
+                                                                rt.template_size, mean, std)[0]
+                                   for f in (f0, f1)])
+            search = crop_resize_normalized_plain(f1, box, rt.search_factor, rt.search_size,
+                                                  mean, std)[0]
+        oo_forward(dev, model, plain, templates, search.expand(OO_B, -1, -1, -1), rt)
+        del plain
+        tracker = FrameRecorder(OSTrackOnlineTracker(model, cls, dev, rt))
+        run_sequence(tracker, seq, frame_loader=frames.__getitem__)   # warm-up pass
+        for fn in OPE_COUNTERS:
+            fn.launches = 0
+        tracker.updates, tracker.ms = 0, []
+        res = run_sequence(tracker, seq, frame_loader=frames.__getitem__)
+        launches = ope_counts()
+        steps = OPE_FRAMES - 1
+        want = {"attn_block_fused": 9 * steps, "mlp_block_fused": 12 * steps,
+                "crop_resize_normalized": OPE_FRAMES + tracker.updates}
+        # the branches over OO_PROFILE_FRAMES profiled frames; a window now
+        # and then loses an event, so up to three windows
+        want_branches = {k: n * OO_PROFILE_FRAMES for k, (_, n) in OO_ATTENTION.items()}
+        for _ in range(3):
+            branches, dev_ms, _ = profile_pass(
+                lambda: [tracker.track(frames[-1]) for _ in range(OO_PROFILE_FRAMES)], dev,
+                OO_ATTENTION)
+            if branches == want_branches:
+                break
+        ok = zoo_boxes_ok("ostrack_online", res["boxes"], H, W)
+        log("zoo_oo_bf16", tracker="ostrack_online", dtype="bf16", frames=OPE_FRAMES,
+            frame=f"{W}x{H}", boxes_ok=ok, template_updates=tracker.updates,
+            launches=launches, expected=want, profiled_frames=OO_PROFILE_FRAMES,
+            attention_branches=branches, expected_branches=want_branches,
+            median_ms_per_frame=float(np.median(tracker.ms[ZOO_WARMUP:])),
+            device_ms_per_frame=dev_ms / OO_PROFILE_FRAMES, card=card_line())
+        if not ok or launches != want or branches != want_branches:
+            raise AssertionError(f"zoo ostrack_online bf16: boxes ok {ok}, launches {launches} "
+                                 f"(want {want}), attention branches {branches}")
+        for k, n in launches.items():
+            counted[k] += n
+        del model, tracker
+        torch.cuda.empty_cache()
+
+        # the entry, as a user runs it, in its own process
+        entry_root = os.path.join(tmp, "entry")
+        env = dict(os.environ)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "mmtrack_torch.eval.run_ope",
+                               "--tracker", "spt", "--dataset", "DepthTrack",
+                               "--dataset_root", root, "--analyze",
+                               "--results_root", entry_root],
+                              cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        entry_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"spt entry exited {proc.returncode}: {proc.stderr[-3000:]}")
+        seqs = [load_sequence(seq_dir, "DepthTrack")]
+        written = os.path.exists(result_path(entry_root, "DepthTrack", "spt", seqs[0].name))
+        with open(os.path.join(entry_root, "DepthTrack", "spt_report.json")) as f:
+            report = json.load(f)
+        ope_in = analyze_ope(seqs, res_in, "DepthTrack", "spt")["overall"]
+        want = {"ope": {k: v for k, v in ope_in.items() if np.isscalar(v)},
+                "fscore": analyze_fscore(seqs, res_in, "DepthTrack", "spt")}
+        same = report == json.loads(json.dumps(want))
+        box_diff = float(np.abs(
+            np.loadtxt(result_path(entry_root, "DepthTrack", "spt", seqs[0].name), delimiter=",")
+            - np.loadtxt(result_path(res_in, "DepthTrack", "spt", seqs[0].name),
+                         delimiter=",")).max())
+        log("zoo_entry", tracker="spt", seconds=entry_s, result_file=written,
+            stdout=proc.stdout.splitlines()[-6:], report_equal=same,
+            boxes_max_abs_diff_vs_in_process_px=box_diff)
+        if not written or not same:
+            raise AssertionError(f"spt entry: result file {written}, report equal {same}: "
+                                 f"{report} vs {want}")
+    return counted
+
+
 def main() -> int:
     dev = require_cuda()
     card = card_line()
@@ -1588,6 +1889,13 @@ def main() -> int:
                                    dict(num_heads=12, scale=64 ** -0.5), dev, gen)
         mlp_rows = compare_blocks("mlp_block_fused", mlp_block_fused, mlp_block_fused_plain,
                                   768, 4 * 768, 4 * 768, {}, dev, gen)
+        zoo_rows = {
+            "attn_block_fused": compare_blocks(
+                "attn_block_fused", attn_block_fused, attn_block_fused_plain, 768, 3 * 768, 768,
+                dict(num_heads=12, scale=64 ** -0.5), dev, gen, shapes=OO_SHAPES),
+            "mlp_block_fused": compare_blocks(
+                "mlp_block_fused", mlp_block_fused, mlp_block_fused_plain, 768, 4 * 768,
+                4 * 768, {}, dev, gen, shapes=OO_SHAPES)}
         compare_mhsa(dev, gen, B)
         compare_gemms(dev, gen)
         compare_layernorm(dev, gen)
@@ -1615,17 +1923,28 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     for name, n in ope_path(dev, cfg, rt).items():
         launches[name] = launches.get(name, 0) + n
+    for name, n in zoo_path(dev).items():
+        launches[name] = launches.get(name, 0) + n
+
+    zoo_rows["crop_resize_normalized"] = [r for r in crop_rows if r["S"] == 320]
 
     def entry(name, source, replaces, rows):
         # the first row is the main path's shape: L=320 for the attention,
-        # S=256 on 320x240 frames for the crop, Alpha-Refine's N=1 for xcorr
+        # S=256 on 320x240 frames for the crop, Alpha-Refine's N=1 for xcorr;
+        # the zoo's shapes (phase 10) follow as rows of their own
         first = rows[0]
+        zoo = zoo_rows.get(name, [])
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[name],
-                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "max_abs_err": max(r["max_abs_err"] for r in rows + zoo),
                 "ms": first["ms"], "plain_ms": first["plain_ms"],
                 "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-                "library_ms": first["library_ms"]}
+                "library_ms": first["library_ms"],
+                **({"zoo_rows": [{k: r[k] for k in ("B", "L", "C", "S", "ms", "device_ms",
+                                                    "plain_ms", "bound_ms", "bound_by",
+                                                    "library_ms", "max_abs_err") if k in r}
+                                 for r in zoo]}
+                   if zoo else {})}
 
     search_row = next(r for r in crop_rows if r["H"] == FRAME_HW[0] and r["S"] == 256)
     print(card_line(), flush=True)

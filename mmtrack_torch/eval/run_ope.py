@@ -13,12 +13,16 @@ config, as in training: bf16 weights and compute when TRAIN.AMP is set
 (`{"TRAIN": {"AMP": true}}`), which runs the attention and MLP
 half-block kernels; f32 otherwise, as the experiments ship and as the
 JAX entry evaluates, which runs the crop kernel and plain PyTorch for the
-blocks. Seeded weights are the same values at either precision. --checkpoint is
-the port trainer's file (its "model" state_dict) or a flax params file
-(`np.savez(path, params=params)`, models/convert.py::load_flax_npz); an
-orbax directory is refused. --tracker takes a recipe of
-mmtrack_torch/registry.py. Without --dataset_root the root comes from
-~/.mmtrack_tpu/local.yaml (utils/env.py).
+blocks. On the card TF32 is off, so f32 products and convolutions are
+full f32 (as in the VOT entry). Seeded weights are the same values at
+either precision. --checkpoint is the port trainer's file (its "model"
+state_dict) or a flax params file (`np.savez(path, params=params)`,
+models/convert.py::load_flax_npz), read through the weight bridge of the
+model's family (`FLAX_BRIDGES`; OSTrack-online's file also holds the
+score head's tree as `cls_params`); an orbax directory and a family
+without a bridge are refused. --tracker takes any of the twelve recipes
+of mmtrack_torch/registry.py (`list_trackers()`). Without --dataset_root
+the root comes from ~/.mmtrack_tpu/local.yaml (utils/env.py).
 
 --batched B advances B sequences in lockstep (eval/batched_ope.py). Disk
 'rgbcolormap' batches (DepthTrack, CDTB) stream RGB + the JET-index plane
@@ -54,17 +58,39 @@ def load_config(name: str):
     return vipt_experiment_config(name), name
 
 
-def load_checkpoint(path: str) -> dict:
-    """A ViPTrack state_dict from the port trainer's checkpoint or a flax
-    params file."""
+# family -> the models/convert.py function that turns its flax params tree
+# into the port's state_dict
+FLAX_BRIDGES = {"vipt": "vipt_state_dict_from_flax", "ostrack": "vipt_state_dict_from_flax",
+                "stark": "stark_state_dict_from_flax", "siamfc": "siamfc_state_dict_from_flax"}
+
+
+def flax_state_dict(path: str, family: str) -> dict:
+    """The port state_dict of a flax params .npz of a `family` model. For
+    OSTrack a `cls_params` collection (OSTrack-online's ScoreTransformer)
+    joins it under the reference's `cls_head.` prefix."""
+    from mmtrack_torch.models import convert
+
+    if family not in FLAX_BRIDGES:
+        raise ValueError(f"no flax weight bridge for the '{family}' family "
+                         f"(models/convert.py has {sorted(FLAX_BRIDGES)}); pass the port's "
+                         ".pt state_dict instead")
+    trees = convert.load_flax_collections(path)
+    sd = getattr(convert, FLAX_BRIDGES[family])(trees["params"])
+    if family == "ostrack" and "cls_params" in trees:
+        head = convert.score_head_state_dict_from_flax(trees["cls_params"])
+        sd.update({f"cls_head.{k}": v for k, v in head.items()})
+    return sd
+
+
+def load_checkpoint(path: str, family: str = "vipt") -> dict:
+    """A state_dict of a `family` model from the port trainer's checkpoint
+    or a flax params file."""
     if os.path.isdir(path):
         raise ValueError(f"{path} is a directory (an orbax checkpoint?): the port reads the "
                          "trainer's .pt file (mmtrack_torch.train) or a flax params .npz "
                          "written with np.savez(path, params=params)")
     if path.endswith(".npz"):
-        from mmtrack_torch.models.convert import load_flax_npz, vipt_state_dict_from_flax
-
-        return vipt_state_dict_from_flax(load_flax_npz(path))
+        return flax_state_dict(path, family)
     payload = torch.load(path, map_location="cpu", weights_only=True)
     return payload["model"] if "model" in payload else payload
 
@@ -102,12 +128,13 @@ def main(argv=None) -> int:
     from mmtrack_torch.models.vipt import build_viptrack
     from mmtrack_torch.registry import TRACKER_REGISTRY, build_tracker
     from mmtrack_torch.trackers.vipt_tracker import ViPTRuntime, ViPTTracker, make_track_scan
-    from mmtrack_torch.utils.device import require_cuda
+    from mmtrack_torch.utils.device import require_cuda, set_f32_precision
     from mmtrack_torch.utils.env import load_env_settings
 
     device = torch.device(args.device)
     if device.type == "cuda":
         require_cuda()
+        set_f32_precision()
 
     if args.tracker and args.tracker not in TRACKER_REGISTRY:
         p.error(f"unknown tracker '{args.tracker}'; options: {sorted(TRACKER_REGISTRY)}")
@@ -116,7 +143,8 @@ def main(argv=None) -> int:
 
     params = None
     if args.checkpoint:
-        params = load_checkpoint(args.checkpoint)
+        family = TRACKER_REGISTRY[args.tracker].family if args.tracker else "vipt"
+        params = load_checkpoint(args.checkpoint, family)
     else:
         print("WARNING: no checkpoint given; using random init (pipeline check)")
 

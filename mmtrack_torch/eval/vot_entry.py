@@ -4,7 +4,8 @@ protocol=traxpython. It speaks TraX over stdin/stdout.
 
 Environment (the same variables as tools/run_vot_entry.py, plus the device):
 
-  MMTRACK_TRACKER   recipe of mmtrack_torch/registry.py (default vipt_deep_rgbd)
+  MMTRACK_TRACKER   recipe of mmtrack_torch/registry.py, any of
+                    list_trackers() (default vipt_deep_rgbd)
   MMTRACK_DTYPE     frame composition (default: the recipe's, rgbcolormap)
   MMTRACK_CHANNELS  TraX image channels: rgbd (colour, depth) or rgbt
                     (colour, ir); default rgbd
@@ -30,15 +31,9 @@ from mmtrack_torch.eval.vot import run_vot_exp
 from mmtrack_torch.models.alpha_refine import ARcmSeg, ARRuntime, build_alpha_refine
 from mmtrack_torch.models.convert import alpha_refine_state_dict_from_flax, load_flax_npz
 from mmtrack_torch.registry import TRACKER_REGISTRY, build_tracker
-from mmtrack_torch.utils.device import require_cuda
+from mmtrack_torch.utils.device import require_cuda, set_f32_precision
 
 AR_INPUT_SIZE = 256
-
-
-def set_f32_precision() -> None:
-    """Full f32 for matrix products and convolutions (no TF32)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def refiner_factory(device, ckpt: str | None = None, seed: int = 0):

@@ -12,7 +12,18 @@ that converter reads, so the bridge only relabels and re-lays out:
 
 `alpha_refine_state_dict_from_flax` does the same for Alpha-Refine
 (mmtrack_tpu/models/alpha_refine.py), with torchvision's ResNet names, and
-`load_flax_npz` reads a flax variables file for it.
+`load_flax_npz` reads a flax variables file for it. The zoo's families:
+
+  OSTrack           `vipt_state_dict_from_flax` (a prompt-free tree has no
+                    prompt leaves; a 3-channel one no patch_embed_prompt)
+  ScoreTransformer  `score_head_state_dict_from_flax`, the inverse of
+                    convert_score_head_checkpoint without its `cls_head.`
+                    prefix
+  STARK / SPT       `stark_state_dict_from_flax`, the inverse of
+                    convert_stark_checkpoint (q, k, v Dense leaves are
+                    stacked into nn.MultiheadAttention's in_proj)
+  SiamFC            `siamfc_state_dict_from_flax` (the port keeps the flax
+                    names; the JAX package has no torch converter for it)
 
 Works on numpy arrays; no jax or flax import.
 """
@@ -133,9 +144,150 @@ def alpha_refine_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-def load_flax_npz(path: str) -> dict:
-    """The `params` tree of a flax variables file written with
-    `np.savez(path, **variables)`: each top-level collection is one
-    pickled tree."""
+def _tensors(pairs) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in pairs}
+
+
+def _dense(prefix: str, leaf: str, value: np.ndarray):
+    """(name, value) of a flax Dense leaf as a torch Linear's."""
+    return (f"{prefix}.weight", value.T) if leaf == "kernel" else (f"{prefix}.bias", value)
+
+
+def _norm(prefix: str, leaf: str, value: np.ndarray):
+    """(name, value) of a flax LayerNorm or FrozenBatchNorm leaf."""
+    return f"{prefix}.{_BN[leaf]}", value
+
+
+def _conv(prefix: str, leaf: str, value: np.ndarray):
+    """(name, value) of a flax Conv leaf: kernel (kh, kw, I, O) -> (O, I, kh, kw)."""
+    if leaf == "kernel":
+        return f"{prefix}.weight", value.transpose(3, 2, 0, 1)
+    return f"{prefix}.bias", value
+
+
+def _score_head_leaf(p: str, value: np.ndarray):
+    if m := re.fullmatch(r"cls_proj/(kernel|bias)", p):
+        return _dense("cls_proj", m.group(1), value)
+    if m := re.fullmatch(r"norm/(scale|bias)", p):
+        return _norm("norm", m.group(1), value)
+    if m := re.fullmatch(r"score_head_(\d+)/(kernel|bias)", p):
+        return _dense(f"score_head.layers.{m.group(1)}", m.group(2), value)
+    if m := re.fullmatch(r"blocks_(\d+)/(norm[12])/(scale|bias)", p):
+        return _norm(f"blocks.{m.group(1)}.{m.group(2)}", m.group(3), value)
+    if m := re.fullmatch(r"blocks_(\d+)/(qkv|proj|fc1|fc2)/(kernel|bias)", p):
+        i, mod, leaf = m.groups()
+        return _dense(f"blocks.{i}.{'attn' if mod in ('qkv', 'proj') else 'mlp'}.{mod}", leaf,
+                      value)
+    raise KeyError(f"no port counterpart for flax leaf {p}")
+
+
+def score_head_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax `params['params']` tree of a ScoreTransformer -> the port's
+    ScoreTransformer state_dict (the reference's `cls_head.` names without
+    the prefix; f32 CPU tensors)."""
+    return _tensors(_score_head_leaf("/".join(path), v) for path, v in _flatten(params).items())
+
+
+def _resnet_leaf(body: str, rest: str, value: np.ndarray):
+    """A JAX ResNet leaf under a backbone -> torchvision's name under `body`."""
+    rest = re.sub(r"^layer(\d)_(\d+)/", r"layer\1.\2.", rest)
+    rest = rest.replace("downsample_conv/", "downsample.0.").replace("downsample_bn/",
+                                                                     "downsample.1.")
+    *mod, leaf = rest.replace("/", ".").split(".")
+    mod = f"{body}.{'.'.join(mod)}"
+    return _conv(mod, leaf, value) if leaf == "kernel" else _norm(mod, leaf, value)
+
+
+def _corner_head_leaf(p: str, value: np.ndarray):
+    m = re.fullmatch(r"box_head/(tl|br)/conv(\d)/(?:(conv|bn)/)?(\w+)", p)
+    if not m:
+        return None
+    branch, k, mod, leaf = m.groups()
+    base = f"box_head.conv{k}_{branch}"
+    if mod is None:                                        # conv5: a bare conv
+        return _conv(base, leaf, value)
+    return _conv(f"{base}.0", leaf, value) if mod == "conv" else _norm(f"{base}.1", leaf, value)
+
+
+def stark_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax `params['params']` tree of a STARK (S, ST or SPT) -> the port's
+    STARK state_dict, named as the reference's (f32 CPU tensors). A tree
+    with `backbone_x` is SPT: its trunks become `backbone_color` /
+    `backbone_depth` and its encoders `encoder_color` / `encoder_depth` /
+    `fusion`."""
+    flat = {"/".join(k): v for k, v in _flatten(params).items()}
+    spt = any(k.startswith("backbone_x/") for k in flat)
+    suffix = "_color" if spt else ""
+    backbones = {"backbone": f"backbone{suffix}.0.body", "backbone_x": "backbone_depth.0.body"}
+    bottlenecks = {"bottleneck": f"bottleneck{suffix}", "bottleneck_x": "bottleneck_depth"}
+    encoders = {"enc": f"transformer.encoder{suffix}.layers",
+                "enc_d": "transformer.encoder_depth.layers",
+                "fus": "transformer.fusion.layers", "dec": "transformer.decoder.layers"}
+    out, qkv = [], {}
+    for p, value in flat.items():
+        top, _, rest = p.partition("/")
+        if top in backbones:
+            out.append(_resnet_leaf(backbones[top], rest, value))
+        elif top in bottlenecks:
+            out.append(_conv(bottlenecks[top], rest, value))
+        elif top == "query_embed":
+            out.append(("query_embed.weight", value))
+        elif top == "neck":
+            out.append(("transformer.neck.weight", value.T[:, :, None]) if rest == "kernel"
+                       else ("transformer.neck.bias", value))
+        elif top == "dec_norm":
+            out.append(_norm("transformer.decoder.norm", rest, value))
+        elif m := re.fullmatch(r"cls_(\d)", top):
+            out.append(_dense(f"cls_head.layers.{m.group(1)}", rest, value))
+        elif top == "box_head" and (item := _corner_head_leaf(p, value)) is not None:
+            out.append(item)
+        elif m := re.fullmatch(r"(enc_d|enc|fus|dec)_(\d+)", top):
+            base = f"{encoders[m.group(1)]}.{m.group(2)}"
+            if m2 := re.fullmatch(r"(self_attn|cross_attn)/(q|k|v|proj)/(kernel|bias)", rest):
+                attn, part, leaf = m2.groups()
+                attn = f"{base}.{'multihead_attn' if attn == 'cross_attn' else 'self_attn'}"
+                if part == "proj":
+                    out.append(_dense(f"{attn}.out_proj", leaf, value))
+                else:
+                    qkv.setdefault((attn, leaf), {})[part] = value.T if leaf == "kernel" else value
+            elif m2 := re.fullmatch(r"(linear[12])/(kernel|bias)", rest):
+                out.append(_dense(f"{base}.{m2.group(1)}", m2.group(2), value))
+            elif m2 := re.fullmatch(r"(norm[123])/(scale|bias)", rest):
+                out.append(_norm(f"{base}.{m2.group(1)}", m2.group(2), value))
+            else:
+                raise KeyError(f"no port counterpart for flax leaf {p}")
+        else:
+            raise KeyError(f"no port counterpart for flax leaf {p}")
+    for (attn, leaf), parts in qkv.items():
+        name = f"{attn}.in_proj_{'weight' if leaf == 'kernel' else 'bias'}"
+        out.append((name, np.concatenate([parts["q"], parts["k"], parts["v"]], axis=0)))
+    return _tensors(out)
+
+
+def siamfc_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax `params['params']` tree of a SiamFC -> the port's SiamFC
+    state_dict (the flax names, f32 CPU tensors)."""
+    out = []
+    for path, value in _flatten(params).items():
+        p = "/".join(path)
+        if p in ("response_scale", "response_bias"):
+            out.append((p, value))
+        elif m := re.fullmatch(r"embedding/(conv\d_conv)/(kernel|bias)", p):
+            out.append(_conv(f"embedding.{m.group(1)}", m.group(2), value))
+        elif m := re.fullmatch(r"embedding/(conv\d_bn)/(scale|bias|mean|var)", p):
+            out.append(_norm(f"embedding.{m.group(1)}", m.group(2), value))
+        else:
+            raise KeyError(f"no port counterpart for flax leaf {p}")
+    return _tensors(out)
+
+
+def load_flax_collections(path: str) -> dict:
+    """Every collection of a flax variables file written with
+    `np.savez(path, **variables)`, by name: each one is a pickled tree."""
     with np.load(path, allow_pickle=True) as f:
-        return f["params"].item()
+        return {k: f[k].item() for k in f.files}
+
+
+def load_flax_npz(path: str) -> dict:
+    """The `params` tree of a flax variables file."""
+    return load_flax_collections(path)["params"]

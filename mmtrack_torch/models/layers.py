@@ -60,34 +60,35 @@ class Dense(nn.Module):
 class Conv2d(nn.Module):
     """flax nn.Conv on NCHW tensors: round(conv(x, W)) + bias in the compute
     dtype. weight (O, I, kh, kw) in `param_dtype` (default `dtype`), bias
-    (O,) f32 (none with `bias=False`, flax's use_bias=False)."""
+    (O,) f32 (none with `bias=False`, flax's use_bias=False); `groups` is
+    flax's feature_group_count."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  padding: int = 0, dtype=torch.float32, device=None, param_dtype=None,
-                 bias: bool = True):
+                 bias: bool = True, groups: int = 1):
         super().__init__()
         self.dtype = dtype
-        self.stride, self.padding = stride, padding
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel,
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kernel, kernel,
                                                dtype=param_dtype or dtype, device=device))
         self.bias = (nn.Parameter(torch.zeros(out_ch, dtype=torch.float32, device=device))
                      if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
+        y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding, 1,
+                     self.groups)
         return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
 
 
 class LayerNorm(nn.Module):
-    """flax nn.LayerNorm(epsilon=1e-6): f32 statistics and affine, output in
-    `dtype`."""
+    """flax nn.LayerNorm (epsilon 1e-6 unless `eps` says otherwise): f32
+    statistics and affine, output in `dtype`."""
 
-    eps = 1e-6
-
-    def __init__(self, dim: int, dtype=torch.float32, device=None):
+    def __init__(self, dim: int, dtype=torch.float32, device=None, eps: float = 1e-6):
         super().__init__()
         self.dtype = dtype
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32, device=device))
 

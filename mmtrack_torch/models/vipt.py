@@ -1,11 +1,14 @@
 """ViPT: prompt-tuned one-stream ViT tracker, port of mmtrack_tpu/models/vipt.py
-(:36-346, :412-428; the CENTER head).
+(:36-454: the CENTER head, plain OSTrack, and OSTrack-online's score head).
 
 Token-space PromptBlock/Fovea, 12 CE blocks with static-shape candidate
 elimination, deep-prompt re-injection with scatter/gather recovery, and
-the CenterPredictor head. Inputs are NHWC 6-channel crops; module and
-parameter names are the reference torch ones, so `models/convert.py`
-carries flax parameters across unchanged.
+the CenterPredictor head. Inputs are NHWC 6-channel crops (3-channel for
+plain OSTrack); module and parameter names are the reference torch ones,
+so `models/convert.py` carries flax parameters across unchanged.
+`build_ostrack` is the prompt-free OSTrack, and `ScoreTransformer` (with
+its `CABlock`s) the class-attention confidence head of OSTrack-online,
+named as the reference's `cls_head.` tensors.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 from torch import nn
 
 from mmtrack_torch.models.heads import CenterPredictor, cal_bbox
-from mmtrack_torch.models.layers import CEBlock, Conv2d, LayerNorm, PatchEmbed
+from mmtrack_torch.models.layers import CEBlock, Conv2d, Dense, LayerNorm, Mlp, PatchEmbed
 from mmtrack_torch.ops.ce import gather_search_tokens, recover_search_tokens
 
 
@@ -98,7 +101,11 @@ class ViTCEPrompt(nn.Module):
     (B, L_t + L_x, C) tokens with pruned search positions recovered as
     zeros. 3-channel crops (plain OSTrack, JAX `build_ostrack`) skip the
     auxiliary stream: `patch_embed_prompt` and the prompts are not used,
-    and a model bridged from such a flax tree lacks their weights.
+    and a model bridged from such a flax tree lacks their weights. With
+    prompt_type 'none', 6-channel crops add `patch_embed_prompt` of the
+    auxiliary triplet to the RGB tokens (vipt.py:152-160); a model whose
+    `patch_embed_prompt` was dropped (`drop_prompt_embed`, a 3-channel
+    flax tree) refuses them, as flax finds no parameters for it.
 
     Block i has drop-path rate drop_path_rate * i / (depth - 1)
     (vipt.py:204); drop path acts only when forward gets
@@ -162,6 +169,9 @@ class ViTCEPrompt(nn.Module):
             z_tok = z_tok + z_prompted
             x_tok = x_tok + x_prompted
         else:
+            if self.patch_embed_prompt is None:
+                raise ValueError("this model has no patch_embed_prompt weights (a 3-channel "
+                                 "tree): it needs 3-channel crops")
             z_tok = z_tok + self.patch_embed_prompt(z[..., 3:])
             x_tok = x_tok + self.patch_embed_prompt(x[..., 3:])
 
@@ -257,16 +267,22 @@ class ViPTrack(nn.Module):
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random initialisation in the spirit of flax's defaults (the
     card's machine has no jax to run `model.init`): LeCun-normal Dense and
-    conv kernels, Xavier-uniform prompt convs, truncated-normal(0.02)
-    position embeddings, zero biases; LayerNorm, FrozenBatchNorm and the
-    Fovea temperature keep their constructor values. Values are drawn in
-    f32 on the CPU from a `torch.Generator`, so a seed gives the same
-    weights on every device and dtype."""
+    conv kernels (fan in = the product of all but the first axis),
+    Xavier-uniform prompt convs, truncated-normal(0.02) position
+    embeddings, a unit-normal query embedding (STARK's), zero biases;
+    LayerNorm, FrozenBatchNorm, the Fovea temperature and SiamFC's
+    response scale keep their constructor values. Values are drawn in f32
+    on the CPU from a `torch.Generator`, so a seed gives the same weights
+    on every device and dtype. The port's other models (Alpha-Refine,
+    STARK, SiamFC, the score head) take their seeded weights from here
+    too."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if p.dim() >= 2 and "pos_embed" in name:
                 v = torch.empty(p.shape).normal_(0.0, 0.02, generator=g).clamp_(-0.04, 0.04)
+            elif name == "query_embed.weight":
+                v = torch.empty(p.shape).normal_(0.0, 1.0, generator=g)
             elif p.dim() >= 2 and "prompt_blocks" in name:
                 fan_in = p[0].numel()
                 fan_out = p.shape[0] * p[0, 0].numel()
@@ -279,6 +295,94 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
                 continue
             p.copy_(v)
     return model
+
+
+class _ClassAttention(nn.Module):
+    """The class token's attention over [cls; tokens] (cross_attn.py
+    ClassAttention): `qkv` projects every token, and the query is the
+    class token's own row of the same Dense, computed alone as the JAX
+    package does; logits and softmax in f32."""
+
+    def __init__(self, dim: int, heads: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.heads = heads
+        self.dtype = dtype
+        self.qkv = Dense(dim, 3 * dim, dtype=dtype, device=device)
+        self.proj = Dense(dim, dim, dtype=dtype, device=device)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        B, L, C = h.shape
+        hd = C // self.heads
+        kv = self.qkv(h).reshape(B, L, 3, self.heads, hd)
+        k, v = kv[:, :, 1], kv[:, :, 2]
+        q = self.qkv(h[:, 0])[:, :C].reshape(B, 1, self.heads, hd)
+        logits = torch.einsum("bqhd,bkhd->bhqk", (q * hd ** -0.5).float(), k.float())
+        a = torch.softmax(logits, dim=-1).to(self.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(B, 1, C)
+        return self.proj(out)
+
+
+class CABlock(nn.Module):
+    """Class-attention block (vipt.py:349-376; OSTrack layers/cross_attn.py
+    CABlock_): the class token attends [cls; tokens] after `norm1`, then
+    `norm2` -> Mlp (exact GELU) refines it; LayerNorm epsilon 1e-5."""
+
+    def __init__(self, dim: int, heads: int, dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.norm1 = LayerNorm(dim, eps=1e-5, **kw)
+        self.attn = _ClassAttention(dim, heads, **kw)
+        self.norm2 = LayerNorm(dim, eps=1e-5, **kw)
+        self.mlp = Mlp(dim, 4 * dim, **kw)
+
+    def forward(self, tokens: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
+        cls = cls + self.attn(self.norm1(torch.cat([cls, tokens], dim=1)))
+        return cls + self.mlp(self.norm2(cls))
+
+
+class _MLPStack(nn.Module):
+    """`score_head.layers.{j}` of the reference's MLP (score_head.py)."""
+
+    def __init__(self, dim: int, n_layers: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            Dense(dim, dim if j < n_layers - 1 else 1, dtype=dtype, device=device)
+            for j in range(n_layers))
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers[:-1]:
+            h = torch.relu(layer(h))
+        return self.layers[-1](h)
+
+
+class ScoreTransformer(nn.Module):
+    """OSTrack-online's confidence head (vipt.py:379-409; OSTrack
+    score_head.py:20-83): the predicted box projects to a class token
+    (`cls_proj`), `n_layers` CABlocks attend the token sequence, `norm`
+    (epsilon 1e-5) takes the class row, and an `n_mlp_layers` MLP with
+    ReLU maps it to a logit. forward(tokens (B, L, C), pred_box (B, 4)) ->
+    score (B,) in (0, 1). Tokens of another dtype are cast to the head's,
+    as flax promotes them. The state_dict names are the reference's under
+    its `cls_head.` prefix (JAX convert.py::convert_score_head_checkpoint)."""
+
+    def __init__(self, d_model: int = 768, n_layers: int = 2, n_heads: int = 12,
+                 n_mlp_layers: int = 3, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        kw = dict(dtype=dtype, device=device)
+        self.cls_proj = Dense(4, d_model, **kw)
+        self.blocks = nn.ModuleList(CABlock(d_model, n_heads, **kw) for _ in range(n_layers))
+        self.norm = LayerNorm(d_model, eps=1e-5, **kw)
+        self.score_head = _MLPStack(d_model, n_mlp_layers, **kw)
+
+    def forward(self, tokens: torch.Tensor, pred_box: torch.Tensor) -> torch.Tensor:
+        tokens = tokens.to(self.dtype)
+        cls = self.cls_proj(pred_box)[:, None]
+        for block in self.blocks:
+            cls = block(tokens, cls)
+        # the norm is per token: the class row of norm([cls; tokens])
+        h = self.norm(cls)[:, 0]
+        return torch.sigmoid(self.score_head(h).float())[:, 0]
 
 
 def build_viptrack(cfg, dtype=torch.float32, device=None, seed: Optional[int] = None,
@@ -303,3 +407,33 @@ def build_viptrack(cfg, dtype=torch.float32, device=None, seed: Optional[int] = 
     if seed is not None:
         init_weights(model, seed)
     return model.eval()
+
+
+def build_ostrack(cfg=None, dtype=torch.float32, device=None, seed: Optional[int] = None,
+                  use_kernels: bool = True, **overrides) -> ViPTrack:
+    """Plain OSTrack (vipt.py:431-454): ViPTrack with prompt_type 'none',
+    from a config or from ViPTrack's keyword arguments (`overrides`, e.g.
+    template_size=128, search_size=320). 3-channel crops run the RGB
+    baseline; 6-channel crops add the auxiliary triplet's patch embedding,
+    as JAX's ViTCEPrompt does. Seeded random weights when `seed` is given."""
+    kwargs = dict(prompt_type="none", dtype=dtype, device=device, use_kernels=use_kernels)
+    if cfg is not None:
+        kwargs.update(
+            template_size=cfg.DATA.TEMPLATE.SIZE, search_size=cfg.DATA.SEARCH.SIZE,
+            patch_size=cfg.MODEL.BACKBONE.STRIDE, embed_dim=cfg.MODEL.BACKBONE.EMBED_DIM,
+            depth=cfg.MODEL.BACKBONE.DEPTH, num_heads=cfg.MODEL.BACKBONE.NUM_HEADS,
+            ce_loc=tuple(cfg.MODEL.BACKBONE.CE_LOC), head_channel=cfg.MODEL.HEAD.NUM_CHANNELS,
+            drop_path_rate=cfg.TRAIN.DROP_PATH_RATE)
+    kwargs.update(overrides)
+    model = ViPTrack(**kwargs)
+    if seed is not None:
+        init_weights(model, seed)
+    return model.eval()
+
+
+def drop_prompt_embed(model: ViPTrack) -> ViPTrack:
+    """Remove `backbone.patch_embed_prompt` from a prompt-free model, so
+    that a state_dict of a 3-channel flax tree (which has no such weights)
+    loads strictly and 6-channel crops are refused, as in flax."""
+    model.backbone.patch_embed_prompt = None
+    return model

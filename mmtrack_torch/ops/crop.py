@@ -21,6 +21,12 @@ their source rows in shared memory, cut to the columns the rows can read,
 and writes each row through a shared copy of it; `crop_plan` sizes both. The wrapper copies nothing: boxes, mean and
 std must already be f32 tensors on the frames' card, so a step can be
 captured in a CUDA graph (trackers/vipt_tracker.py::make_track_scan).
+
+Two more crop helpers are plain PyTorch, as the JAX package computes them
+outside any kernel: `crop_att_mask`, STARK's padded-pixel mask for the
+crop's geometry (crop.py:217-252), and `crop_at`, the crop of a given
+centre and side with a replicate or zero border (crop.py:170-215; SiamFC's
+pyramid).
 """
 
 from __future__ import annotations
@@ -148,3 +154,91 @@ def crop_resize_normalized(frames: torch.Tensor, boxes: torch.Tensor,
 
 
 crop_resize_normalized.launches = 0
+
+
+def div_rn(a: torch.Tensor, b: float) -> torch.Tensor:
+    """a / b as one correctly rounded division per element, tensor by
+    tensor: PyTorch's CUDA division by a Python scalar multiplies by the
+    reciprocal, which the JAX functions ported here do not."""
+    return a / torch.full_like(a, float(b))
+
+
+def crop_at(image: torch.Tensor, center_yx: torch.Tensor, crop_sz, out_size: int,
+            border: str = "replicate", origin_yx=None) -> torch.Tensor:
+    """Square crop of side `crop_sz` centred at `center_yx` (y, x), resized
+    to out_size x out_size with cv2's half-pixel bilinear taps (crop.py:170-215).
+
+    image (H, W, C) any real dtype; center_yx (2,) and crop_sz () f32
+    tensors. Without `origin_yx` the side is rounded (at least 2) and the
+    top-left is round(centre - side / 2), half to even; with it,
+    `origin_yx` (2,) is the exact integer top-left and `crop_sz` the
+    integer side. border 'replicate' clamps the taps to the image, 'zero'
+    reads 0 outside it. Returns (out_size, out_size, C) f32."""
+    H, W = image.shape[0], image.shape[1]
+    dev = image.device
+    crop_sz = torch.as_tensor(crop_sz, dtype=torch.float32, device=dev)
+    if origin_yx is None:
+        crop_sz = torch.clamp(torch.round(crop_sz), min=2.0)
+        y1 = torch.round(center_yx[0] - 0.5 * crop_sz)
+        x1 = torch.round(center_yx[1] - 0.5 * crop_sz)
+    else:
+        y1, x1 = origin_yx[0], origin_yx[1]
+    j = torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5
+    s = j * div_rn(crop_sz, out_size) - 0.5
+    s = torch.minimum(torch.clamp(s, min=0.0), crop_sz - 1.0)
+    ys, xs = y1 + s, x1 + s
+    y0, x0 = torch.floor(ys), torch.floor(xs)
+    fy = (ys - y0)[:, None, None]
+    fx = (xs - x0)[None, :, None]
+    y0, x0 = y0.long(), x0.long()
+    img = image.float()
+
+    def tap(yi, xi):
+        v = img[yi.clamp(0, H - 1)][:, xi.clamp(0, W - 1)]
+        if border == "replicate":
+            return v
+        valid = ((yi >= 0) & (yi < H))[:, None, None] & ((xi >= 0) & (xi < W))[None, :, None]
+        return torch.where(valid, v, 0.0)
+
+    return ((1 - fy) * (1 - fx) * tap(y0, x0) + (1 - fy) * fx * tap(y0, x0 + 1)
+            + fy * (1 - fx) * tap(y0 + 1, x0) + fy * fx * tap(y0 + 1, x0 + 1))
+
+
+def crop_att_mask(boxes: torch.Tensor, search_area_factor: float, out_size: int,
+                  H: int, W: int) -> torch.Tensor:
+    """STARK's attention mask for `crop_resize_normalized`'s geometry
+    (crop.py:217-252): True where an output pixel's bilinear footprint
+    touches the constant padding (sample_target's att_mask, a {0, 1} image
+    resized by cv2 and cast to bool). The valid region is a rectangle, so
+    the mask is the OR of a row mask and a column mask.
+
+    boxes (B, 4) f32 xywh -> (B, out_size, out_size) bool; every step is
+    the JAX function's f32 operation in its order."""
+    f32 = torch.float32
+    x, y, w, h = boxes.to(f32).unbind(1)                                  # (B,)
+    crop_sz = torch.clamp(torch.ceil(torch.sqrt(w * h) * search_area_factor), min=1.0)
+    x1 = torch.round(x + 0.5 * w - crop_sz * 0.5)
+    y1 = torch.round(y + 0.5 * h - crop_sz * 0.5)
+    x1_pad = torch.clamp(-x1, min=0.0)
+    x2_pad = torch.clamp(x1 + crop_sz - W + 1, min=0.0)
+    y1_pad = torch.clamp(-y1, min=0.0)
+    y2_pad = torch.clamp(y1 + crop_sz - H + 1, min=0.0)
+
+    j = torch.arange(out_size, dtype=f32, device=boxes.device) + 0.5
+    s = j[None, :] * div_rn(crop_sz, out_size)[:, None] - 0.5               # (B, S)
+    lo = torch.floor(s)
+    frac = s - lo
+    top = (crop_sz - 1.0)[:, None]
+    t0 = torch.minimum(torch.clamp(lo, min=0.0), top)
+    t1 = torch.minimum(torch.clamp(lo + 1.0, min=0.0), top)
+
+    def axis_mask(p1, p2):
+        p1, p2 = p1[:, None], p2[:, None]
+
+        def padded(t):
+            return (t < p1) | (t >= crop_sz[:, None] - p2)
+        return (((1.0 - frac) > 0) & padded(t0)) | ((frac > 0) & padded(t1))
+
+    my = axis_mask(y1_pad, y2_pad)
+    mx = axis_mask(x1_pad, x2_pad)
+    return my[:, :, None] | mx[:, None, :]

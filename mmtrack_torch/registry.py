@@ -1,13 +1,16 @@
-"""Tracker recipes the port can build: one name -> (build, modality,
-composition), port of mmtrack_tpu/registry.py (:19-44, :378-383; the ViPT
-family so far).
+"""Tracker recipes the port can build: one name -> (build, modality, family,
+composition), port of mmtrack_tpu/registry.py (:19-58, :226-235,
+:302-356, :376-456): the ViPT family, plain OSTrack, OSTrack-online,
+STARK-S, STARK-ST, SPT and SiamFC, with the JAX recipes' names,
+modalities, families, compositions and runtimes.
 
 `build(seed, params, device)` returns a tracker with the reference
-BaseTracker API (initialize / track). Weights are seeded random
-(`models/vipt.py::init_weights`) unless `params` gives a state_dict (for
-instance `models/convert.py::vipt_state_dict_from_flax` of a JAX tree).
-Models are f32, as the JAX registry builds them. Entry points run on the
-card unless the caller asks for the CPU.
+BaseTracker API (initialize / track). Weights are seeded random unless
+`params` gives a state_dict (for instance one of `models/convert.py`'s
+`*_state_dict_from_flax` of a JAX tree; OSTrack-online's holds the score
+head under the reference's `cls_head.` prefix). Models are f32, as the JAX
+registry builds them. Entry points run on the card unless the caller asks
+for the CPU.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from mmtrack_torch.config import vipt_experiment_config
 @dataclass
 class TrackerRecipe:
     build: Callable      # (seed, params, device) -> tracker object
-    modality: str        # rgbd | rgbt | rgbe
+    modality: str        # rgbd | rgbt | rgbe | rgb | any
     family: str
     # frame composition the recipe expects (data/composition.py X_DTYPES)
     composition: str = "rgbcolormap"
@@ -39,9 +42,96 @@ def _vipt(config_name: str) -> Callable:
     return build
 
 
+def _load_ostrack(model, params: dict):
+    """Load an OSTrack state_dict; one without patch_embed_prompt (a
+    3-channel tree) drops that module, so the model takes 3-channel crops
+    only, as the JAX recipe's params do."""
+    from mmtrack_torch.models.vipt import drop_prompt_embed
+
+    if not any(k.startswith("backbone.patch_embed_prompt.") for k in params):
+        drop_prompt_embed(model)
+    model.load_state_dict(params)
+    return model
+
+
+def _ostrack() -> Callable:
+    """Plain OSTrack at 128/256 (registry.py:46-58) over ViPTTracker. Seeded
+    weights include patch_embed_prompt, so the default rgbcolormap frames
+    add the depth triplet's patch embedding (JAX ViTCEPrompt, vipt.py:152-160)."""
+    def build(seed: int = 0, params: Optional[dict] = None, device="cuda"):
+        from mmtrack_torch.models.vipt import build_ostrack
+        from mmtrack_torch.trackers.vipt_tracker import ViPTRuntime, ViPTTracker
+        model = build_ostrack(template_size=128, search_size=256,
+                              seed=None if params is not None else seed)
+        if params is not None:
+            _load_ostrack(model, params)
+        return ViPTTracker(model, device, ViPTRuntime())
+    return build
+
+
+def _ostrack_online() -> Callable:
+    """OSTrack-online at the published online entry: search 320, the t2m12
+    score head (registry.py:334-356); seeds `seed` and `seed + 1`."""
+    def build(seed: int = 0, params: Optional[dict] = None, device="cuda"):
+        from mmtrack_torch.models.vipt import ScoreTransformer, build_ostrack, init_weights
+        from mmtrack_torch.trackers.ostrack_online import (
+            OSTrackOnlineRuntime,
+            OSTrackOnlineTracker,
+        )
+        rt = OSTrackOnlineRuntime()
+        model = build_ostrack(template_size=128, search_size=320,
+                              seed=None if params is not None else seed)
+        cls = ScoreTransformer(d_model=768, n_layers=rt.cls_attn_layers,
+                               n_mlp_layers=rt.cls_mlp_layers)
+        if params is None:
+            init_weights(cls, seed + 1)
+        else:
+            pre = "cls_head."
+            _load_ostrack(model, {k: v for k, v in params.items() if not k.startswith(pre)})
+            cls.load_state_dict({k[len(pre):]: v for k, v in params.items() if k.startswith(pre)})
+        return OSTrackOnlineTracker(model, cls, device, rt)
+    return build
+
+
+def _stark(six_channel: bool, dynamic: bool) -> Callable:
+    """STARK-S / STARK-ST / SPT at 128/320 (registry.py:302-314)."""
+    def build(seed: int = 0, params: Optional[dict] = None, device="cuda"):
+        from mmtrack_torch.models.stark import STARK
+        from mmtrack_torch.models.vipt import init_weights
+        from mmtrack_torch.trackers.stark_tracker import STARKRuntime, STARKTracker
+        model = STARK(six_channel=six_channel, score_head=dynamic)
+        if params is None:
+            init_weights(model, seed)
+        else:
+            model.load_state_dict(params)
+        return STARKTracker(model, device, STARKRuntime(dynamic_template=dynamic))
+    return build
+
+
+def _siamfc() -> Callable:
+    """SiamFC on 6-channel 127/255 crops (registry.py:226-235)."""
+    def build(seed: int = 0, params: Optional[dict] = None, device="cuda"):
+        from mmtrack_torch.models.siamfc import SiamFC
+        from mmtrack_torch.models.vipt import init_weights
+        from mmtrack_torch.trackers.siamfc_tracker import SiamFCRuntime, SiamFCTracker
+        model = SiamFC()
+        if params is None:
+            init_weights(model, seed)
+        else:
+            model.load_state_dict(params)
+        return SiamFCTracker(model, device, SiamFCRuntime())
+    return build
+
+
 TRACKER_REGISTRY: dict[str, TrackerRecipe] = {
-    f"vipt_{kind}_{modality}": TrackerRecipe(_vipt(f"{kind}_{modality}"), modality, "vipt")
-    for kind in ("deep", "shaw") for modality in ("rgbd", "rgbt", "rgbe")
+    **{f"vipt_{kind}_{modality}": TrackerRecipe(_vipt(f"{kind}_{modality}"), modality, "vipt")
+       for kind in ("deep", "shaw") for modality in ("rgbd", "rgbt", "rgbe")},
+    "ostrack": TrackerRecipe(_ostrack(), "rgb", "ostrack"),
+    "ostrack_online": TrackerRecipe(_ostrack_online(), "rgbd", "ostrack", composition="color"),
+    "siamfc": TrackerRecipe(_siamfc(), "rgbe", "siamfc"),
+    "stark_s": TrackerRecipe(_stark(False, False), "rgb", "stark"),
+    "stark_st": TrackerRecipe(_stark(False, True), "rgb", "stark"),
+    "spt": TrackerRecipe(_stark(True, False), "rgbd", "stark"),
 }
 
 
@@ -52,5 +142,7 @@ def build_tracker(name: str, seed: int = 0, params: Optional[dict] = None, devic
 
 
 def list_trackers(modality: str | None = None) -> list[str]:
+    """Recipe names, all or those of `modality` plus the modality-free
+    ('any') ones, as the JAX registry lists them."""
     return sorted(n for n, r in TRACKER_REGISTRY.items()
-                  if modality is None or r.modality == modality)
+                  if modality is None or r.modality in (modality, "any"))

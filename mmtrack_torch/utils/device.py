@@ -14,3 +14,10 @@ def require_cuda() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this entry point needs an NVIDIA GPU")
     return torch.device("cuda", 0)
+
+
+def set_f32_precision() -> None:
+    """Full f32 for matrix products and cuDNN convolutions (no TF32), so the
+    card computes what the JAX package's f32 models compute."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
