@@ -27,8 +27,12 @@ non-zero:
      torch.matmul's device time and the tile plan; the LayerNorm kernel at
      M = 16 L and 8 L against its byte bound; the batched crop at S = 128
      and 256 on 320x240 and 640x480 frames of 6 channels (B=16, and B=8 on
-     640x480), and at Alpha-Refine's S = 256 on 640x480 frames of 3, bar
-     bit equality. Times from CUDA events and the profiler's device time.
+     640x480), at Alpha-Refine's S = 256 on 640x480 frames of 3, and at
+     the zoo's shapes on 640x480: S = 320 at factor 5 on 3 and 6
+     channels, SAMF's outer scales (factors 4.0 and 6.25, 6 channels) on
+     boxes whose windows overhang every edge, and ProMixTrack's 3-channel
+     S = 128 template; bar bit equality. Times from CUDA events and the
+     profiler's device time.
   3. main path: BatchedViPTTracker with deep_rgbd in bf16 on seeded random
      weights, B=16 sequences of 320x240 6-channel synthetic frames,
      initialize + 16 tracked steps. The launch counters must show 9 x 16
@@ -95,7 +99,9 @@ non-zero:
      (ViPT template + 19 searches, Alpha-Refine template + 19 searches) and
      19 correlations; per rectangle session 20 crops and none. Then one
      rectangle session each of ostrack_online (colour frames; 20 crops +
-     one per template refresh) and spt (20 crops) from the registry. Every state
+     one per template refresh) and spt (20 crops) from the registry, and
+     one mask session of promixtrack (rgbd_blend frames, Alpha-Refine
+     masks): 2 x 20 crops + one per nomination, 19 correlations. Every state
      must decode to a frame-sized mask (or a finite rectangle). One refine
      on the card against the same model on the CPU (plain versions), same
      frame and box: probabilities within AR_PROB_BAR. Prints ms per frame
@@ -131,23 +137,32 @@ non-zero:
      files. Last, ViPTTracker(host_preproc=True) on one sequence at f32
      against the crop kernel's tracker, on frames composed beforehand: ms
      per frame, IoU, crop launches (none and 33).
- 10. zoo: the six recipes the port added beside ViPT (ostrack,
-     ostrack_online, stark_s, stark_st, spt, siamfc), each from the
-     registry at f32 on seeded weights, through eval/ope.py::run_sequence
-     over one 33-frame 640x480 sequence of phase 9's fixture composed as
-     the recipe asks. Every box finite and inside its frame (SiamFC, which
-     does not clip its box, its centre); crop launches exactly 33 + the
-     template refreshes the tracker reported (none for SiamFC, whose
-     pyramid is plain PyTorch); median ms per frame after 3 warm-up
-     frames. OSTrack-online at bf16 (build_ostrack's dtype): one
+ 10. zoo: the nine recipes the port added beside ViPT (ostrack,
+     ostrack_online, stark_s, stark_st, spt, siamfc, mixformer_rgbd, samf,
+     promixtrack), each from the registry at f32 on seeded weights (the
+     MixFormers at MixFormer-L's full width), through
+     eval/ope.py::run_sequence over one 33-frame 640x480 sequence of phase
+     9's fixture composed as the recipe asks. Every box finite and inside
+     its frame (SiamFC, which does not clip its box, its centre); crop
+     launches exactly 33 + the template refreshes the tracker reported
+     (none for SiamFC, whose pyramid is plain PyTorch), for the MixFormers
+     1 + 32 x scales + the nominations; median ms per frame after 3
+     warm-up frames; for the MixFormers also the nominations, the ring
+     writes and the card's idle share over one profiled frame; one
+     full-width mixformer_rgbd forward on the card against the same
+     weights on the CPU (boxes within 1e-4, logits within 1e-3). The
+     device rgbcolormap compose (ops/compose.py) of the sequence's 33
+     frames, from the decoded RGB and raw 16-bit depth, bit-equal to the
+     host composition. OSTrack-online at bf16 (build_ostrack's dtype): one
      dual-template forward with the kernels against use_kernels=False,
      phase 4's bars without CE and the CE agreement printed; a run over
      the sequence with 9 attention and 12 MLP half-blocks per frame; 3
      profiled frames that must run the attention kernel's streaming branch
-     5 times a frame (L = 464, 344) and its resident branch 4 times. Last, `python
-     -m mmtrack_torch.eval.run_ope --tracker spt --analyze` in its own
-     process on that sequence: exit 0, a result file, and a report equal
-     to the analysis of the in-process spt run's results.
+     5 times a frame (L = 464, 344) and its resident branch 4 times. Last,
+     `python -m mmtrack_torch.eval.run_ope --tracker spt --analyze` and the
+     same with `--tracker samf`, each in its own process on that sequence:
+     exit 0, a result file, and a report equal to the analysis of the
+     in-process run's results.
 
 Every kernel in the `kernels` line carries bound_ms, the larger of its
 bytes over 3.35 TB/s and its operations over the peak rate of their type
@@ -583,30 +598,48 @@ def crop_read_bytes(boxes: torch.Tensor, factor: float, S: int, H: int, W: int,
     return total
 
 
-# (H, W, C, [(S, factor), ...], batch): ViPT's template and search crops on
-# both frame sizes at B=16, on phase 9's 640x480 frames at its B=8,
-# Alpha-Refine's 3-channel search crop (ARRuntime), and the zoo's S = 320
-# search crops (OSTrack-online on 3 channels, STARK / SPT on 6; four boxes,
-# the edge cases of crop_boxes)
-CROP_CASES = (((240, 320), 6, ((128, 2.0), (256, 4.0)), B),
-              ((480, 640), 6, ((128, 2.0), (256, 4.0)), B),
-              ((480, 640), 6, ((128, 2.0), (256, 4.0)), OPE_SEQS),
-              ((480, 640), 3, ((256, 2.0),), B),
-              ((480, 640), 3, ((320, 5.0),), 4),
-              ((480, 640), 6, ((320, 5.0),), 4))
+def overhang_boxes(H: int, W: int) -> torch.Tensor:
+    """Four boxes whose SAMF windows leave the frame: a large centred box
+    (side 838 px at factor 6.25, past every edge of 640x480; past the top
+    and bottom at 4.0), boxes at the top-left and bottom-right corners, and
+    a 2 x 2 px box at the right edge."""
+    return torch.tensor([[W * 0.5 - 75.0, H * 0.5 - 60.0, 150.0, 120.0],
+                         [-20.5, -10.25, 90.0, 70.0],
+                         [W - 60.0, H - 45.5, 80.0, 66.0],
+                         [W - 1.5, H * 0.5, 2.0, 2.0]])
+
+
+# (H, W, C, [(S, factor), ...], batch, boxes, zoo): ViPT's template and
+# search crops on both frame sizes at B=16, on phase 9's 640x480 frames at
+# its B=8, Alpha-Refine's 3-channel search crop (ARRuntime); the zoo's
+# (phase 10) S = 320 search crops (OSTrack-online and ProMixTrack on 3
+# channels, STARK / SPT / MixFormer_RGBD on 6; four boxes, the edge cases
+# of crop_boxes), SAMF's outer scales (factors 5.0 x 0.8 = 4.0 and
+# 5.0 x 1.25 = 6.25, exact in f32) on windows that overhang every edge,
+# and ProMixTrack's 3-channel S = 128 template
+CROP_CASES = (((240, 320), 6, ((128, 2.0), (256, 4.0)), B, crop_boxes, False),
+              ((480, 640), 6, ((128, 2.0), (256, 4.0)), B, crop_boxes, False),
+              ((480, 640), 6, ((128, 2.0), (256, 4.0)), OPE_SEQS, crop_boxes, False),
+              ((480, 640), 3, ((256, 2.0),), B, crop_boxes, False),
+              ((480, 640), 3, ((320, 5.0),), 4, crop_boxes, True),
+              ((480, 640), 6, ((320, 5.0),), 4, crop_boxes, True),
+              ((480, 640), 6, ((320, 4.0), (320, 6.25)), 4,
+               lambda H, W, n, gen: overhang_boxes(H, W), True),
+              ((480, 640), 3, ((128, 2.0),), 4, crop_boxes, True))
 
 
 def compare_crops(dev, gen) -> list[dict]:
     """The crop kernel against its plain version, bar bit equality. No one
     PyTorch call computes the crop (grid_sample would also sample the last
-    row and column, which the reference never reads): library_ms is null."""
+    row and column, which the reference never reads): library_ms is null.
+    Rows of the zoo's cases carry zoo=True."""
     rows = []
-    for (H, W), C, sizes, n in CROP_CASES:
+    for (H, W), C, sizes, n, make_boxes, zoo in CROP_CASES:
         mean = torch.from_numpy(MEAN_6CH[:C]).to(dev)
         std = torch.from_numpy(STD_6CH[:C]).to(dev)
         frames = torch.randint(0, 256, (n, H, W, C), generator=gen,
                                dtype=torch.uint8).to(dev)
-        boxes = crop_boxes(H, W, n, gen).to(dev)
+        boxes = make_boxes(H, W, n, gen).to(dev)
         for S, factor in sizes:
             def kernel():
                 return crop_resize_normalized(frames, boxes, factor, S, mean, std)
@@ -617,7 +650,7 @@ def compare_crops(dev, gen) -> list[dict]:
             (got, rf), (want, rf_w) = kernel(), plain()
             torch.cuda.synchronize()
             row = dict(kernel="crop_resize_normalized", B=n, H=H, W=W, C=C, S=S,
-                       max_abs_err=(got - want).abs().max().item(),
+                       factor=factor, zoo=zoo, max_abs_err=(got - want).abs().max().item(),
                        rf_equal=bool(torch.equal(rf, rf_w)), bar=0.0,
                        ms=cuda_ms(kernel), device_ms=device_ms(kernel),
                        plain_ms=cuda_ms(plain), library_ms=None,
@@ -1300,6 +1333,37 @@ def vot_path(dev) -> dict:
             counted["crop_resize_normalized"] += crops
             del zoo
 
+        # ProMixTrack's VOT entry: the mask protocol, Alpha-Refine masks on
+        # the rgbd_blend frames. Crops: the tracker's template, one search
+        # crop a frame and one per nomination; Alpha-Refine's template and
+        # one search crop a frame; one correlation a frame.
+        recipe = TRACKER_REGISTRY["promixtrack"]
+        zoo = FrameRecorder(recipe.build(device=dev))
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        states = session("mask", VOT_FRAMES, trk=zoo, dtype=recipe.composition)
+        elapsed = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        nominations = zoo.tracker.nominations
+        want = {"crop_resize_normalized": 2 * VOT_FRAMES + nominations,
+                "depthwise_xcorr": VOT_FRAMES - 1}
+        ok = len(states) == VOT_FRAMES and all(
+            isinstance(st, Mask) and (st.x, st.y) == (0, 0) and st.mask.shape == (H, W)
+            for st in states[1:])
+        log("vot", protocol="mask", tracker="promixtrack", dtype="f32",
+            composition=recipe.composition, ar_input_size=AR_INPUT_SIZE, frames=VOT_FRAMES,
+            frame=f"{W}x{H}", states=len(states), states_ok=ok, nominations=nominations,
+            ring_updates=zoo.tracker.ring_updates, launches=launches, expected=want,
+            ms_per_frame=elapsed / VOT_FRAMES * 1e3, card=card_line())
+        if not ok or launches != want:
+            raise AssertionError(f"vot promixtrack mask: states ok {ok}, launches {launches} "
+                                 f"(want {want})")
+        for name, k in launches.items():
+            counted[name] += k
+        del zoo
+        torch.cuda.empty_cache()
+
         # one refine on the card against the same model on the CPU
         frame = cv2.cvtColor(cv2.imread(colors[1]), cv2.COLOR_BGR2RGB)
         box = [x + 2.0, y + 1.0, w + 3.0, h - 2.0]
@@ -1670,7 +1734,9 @@ class FrameRecorder:
         return out
 
 
-ZOO = ("ostrack", "ostrack_online", "stark_s", "stark_st", "spt", "siamfc")
+ZOO = ("ostrack", "ostrack_online", "stark_s", "stark_st", "spt", "siamfc",
+       "mixformer_rgbd", "samf", "promixtrack")
+ZOO_ENTRIES = ("spt", "samf")        # run_ope --tracker in its own process
 ZOO_WARMUP = 3                      # frames left out of the median ms per frame
 # OSTrack-online's attention half-blocks per frame: blocks 0-2 at L = 464
 # and 4-5 at 344 take the streaming branch, 7-8 at 260 and 10-11 at 202 the
@@ -1749,23 +1815,45 @@ def zoo_path(dev) -> dict:
                 fn.launches = 0
             res = run_sequence(tracker, seq)
             launches = ope_counts()
+            extra = {}
+            if recipe.family == "mixformer":
+                # the template, one search crop per scale a frame, one per nomination
+                inner = tracker.tracker
+                crops = (1 + (OPE_FRAMES - 1) * len(inner.rt.scale_factors)
+                         + inner.nominations)
+                extra = dict(scales=list(inner.rt.scale_factors), nominations=inner.nominations,
+                             ring_updates=inner.ring_updates, n_online=inner.state["n_online"])
+                # one more frame (the last again) under the profiler, after the count
+                last = get_x_frame(seq.rgb_frames[-1], seq.x_frames[-1], seq.dtype,
+                                   seq.depth_clip)
+                rows, wall_s = profile_window(lambda: inner.track(last), 1)
+                dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+                extra.update(profiled_frame_device_ms=dev_ms,
+                             profiled_frame_wall_ms=wall_s * 1e3,
+                             device_idle_share=1.0 - dev_ms / (wall_s * 1e3),
+                             profiled_frame_kernels=sum(e.count for e in rows),
+                             top_kernels=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                                          for e in rows[:6]])
+            else:
+                crops = 0 if name == "siamfc" else OPE_FRAMES + tracker.updates
             want = {"attn_block_fused": 0, "mlp_block_fused": 0,   # f32: the plain blocks
-                    "crop_resize_normalized": 0 if name == "siamfc"
-                    else OPE_FRAMES + tracker.updates}
+                    "crop_resize_normalized": crops}
             ok = zoo_boxes_ok(name, res["boxes"], H, W)
             log("zoo", tracker=name, family=recipe.family, modality=recipe.modality,
                 composition=recipe.composition, dtype="f32", frames=OPE_FRAMES,
                 frame=f"{W}x{H}", boxes_ok=ok, template_updates=tracker.updates,
                 launches=launches, expected=want,
                 median_ms_per_frame=float(np.median(tracker.ms[ZOO_WARMUP:])),
-                first_frame_ms=tracker.ms[0], card=card_line())
+                first_frame_ms=tracker.ms[0], **extra, card=card_line())
             if not ok or launches != want:
                 raise AssertionError(f"zoo {name}: boxes ok {ok}, launches {launches} "
                                      f"(want {want})")
             for k, n in launches.items():
                 counted[k] += n
-            if name == "spt":
-                save_result(result_path(res_in, "DepthTrack", "spt", seq.name), res,
+            if name == "mixformer_rgbd":
+                mixformer_card_vs_cpu(dev, tracker.tracker.model)
+            if name in ZOO_ENTRIES:
+                save_result(result_path(res_in, "DepthTrack", name, seq.name), res,
                             fmt=seq.save_fmt, delimiter=seq.save_delimiter,
                             time_style=seq.time_style)
             del tracker
@@ -1829,39 +1917,104 @@ def zoo_path(dev) -> dict:
         del model, tracker
         torch.cuda.empty_cache()
 
-        # the entry, as a user runs it, in its own process
-        entry_root = os.path.join(tmp, "entry")
+        # the device rgbcolormap compose of the sequence's frames, bit-equal
+        # to the host composition that mixformer_rgbd and samf read
+        compose_check(dev, load_sequence(seq_dir, "DepthTrack"))
+
+        # the entries, as a user runs them, each in its own process
         env = dict(os.environ)
         here = os.path.dirname(os.path.abspath(__file__))
         env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "mmtrack_torch.eval.run_ope",
-                               "--tracker", "spt", "--dataset", "DepthTrack",
-                               "--dataset_root", root, "--analyze",
-                               "--results_root", entry_root],
-                              cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
-        entry_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"spt entry exited {proc.returncode}: {proc.stderr[-3000:]}")
         seqs = [load_sequence(seq_dir, "DepthTrack")]
-        written = os.path.exists(result_path(entry_root, "DepthTrack", "spt", seqs[0].name))
-        with open(os.path.join(entry_root, "DepthTrack", "spt_report.json")) as f:
-            report = json.load(f)
-        ope_in = analyze_ope(seqs, res_in, "DepthTrack", "spt")["overall"]
-        want = {"ope": {k: v for k, v in ope_in.items() if np.isscalar(v)},
-                "fscore": analyze_fscore(seqs, res_in, "DepthTrack", "spt")}
-        same = report == json.loads(json.dumps(want))
-        box_diff = float(np.abs(
-            np.loadtxt(result_path(entry_root, "DepthTrack", "spt", seqs[0].name), delimiter=",")
-            - np.loadtxt(result_path(res_in, "DepthTrack", "spt", seqs[0].name),
-                         delimiter=",")).max())
-        log("zoo_entry", tracker="spt", seconds=entry_s, result_file=written,
-            stdout=proc.stdout.splitlines()[-6:], report_equal=same,
-            boxes_max_abs_diff_vs_in_process_px=box_diff)
-        if not written or not same:
-            raise AssertionError(f"spt entry: result file {written}, report equal {same}: "
-                                 f"{report} vs {want}")
+        for name in ZOO_ENTRIES:
+            entry_root = os.path.join(tmp, f"entry_{name}")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "mmtrack_torch.eval.run_ope",
+                                   "--tracker", name, "--dataset", "DepthTrack",
+                                   "--dataset_root", root, "--analyze",
+                                   "--results_root", entry_root],
+                                  cwd=tmp, env=env, capture_output=True, text=True,
+                                  timeout=600)
+            entry_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"{name} entry exited {proc.returncode}: "
+                                     f"{proc.stderr[-3000:]}")
+            path = result_path(entry_root, "DepthTrack", name, seqs[0].name)
+            written = os.path.exists(path)
+            with open(os.path.join(entry_root, "DepthTrack", f"{name}_report.json")) as f:
+                report = json.load(f)
+            ope_in = analyze_ope(seqs, res_in, "DepthTrack", name)["overall"]
+            want = {"ope": {k: v for k, v in ope_in.items() if np.isscalar(v)},
+                    "fscore": analyze_fscore(seqs, res_in, "DepthTrack", name)}
+            same = report == json.loads(json.dumps(want))
+            box_diff = float(np.abs(
+                np.loadtxt(path, delimiter=",")
+                - np.loadtxt(result_path(res_in, "DepthTrack", name, seqs[0].name),
+                             delimiter=",")).max())
+            log("zoo_entry", tracker=name, seconds=entry_s, result_file=written,
+                stdout=proc.stdout.splitlines()[-6:], report_equal=same,
+                boxes_max_abs_diff_vs_in_process_px=box_diff)
+            if not written or not same:
+                raise AssertionError(f"{name} entry: result file {written}, report equal "
+                                     f"{same}: {report} vs {want}")
     return counted
+
+
+MF_BOX_BAR = 1e-4                   # MixFormer card vs CPU: boxes, in crop units
+MF_LOGIT_BAR = 1e-3                 # and score logits
+
+
+def mixformer_card_vs_cpu(dev, model) -> None:
+    """One full-width MixFormer forward (K = 3 online templates, seeded
+    N(0, 1) crops) on the card, TF32 off, against the same weights on the
+    CPU, where tests/test_torch_mixformer.py holds the model against JAX:
+    boxes within MF_BOX_BAR, logits within MF_LOGIT_BAR (the two sum in
+    f32 in other orders through 16 blocks)."""
+    from mmtrack_torch.models.mixformer import build_mixformer_rgbd
+
+    cpu = build_mixformer_rgbd(in_channels=model.in_channels)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    C, rng = model.in_channels, np.random.RandomState(0)
+    z, ot, x = (torch.from_numpy(rng.randn(*shape, C).astype(np.float32)) for shape in
+                ((1, 128, 128), (1, 3, 128, 128), (1, 320, 320)))
+    with torch.inference_mode():
+        got = model(z.to(dev), ot.to(dev), x.to(dev))
+        t0 = time.perf_counter()
+        want = cpu.eval()(z, ot, x)
+        cpu_s = time.perf_counter() - t0
+    diff = {k: float((got[k].cpu() - want[k]).abs().max()) for k in ("pred_boxes", "score_logits")}
+    log("zoo_mixformer_card_vs_cpu", in_channels=C, online_templates=3, max_abs_diff=diff,
+        box_bar=MF_BOX_BAR, logit_bar=MF_LOGIT_BAR, cpu_forward_s=cpu_s,
+        tf32=torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32)
+    if not (diff["pred_boxes"] <= MF_BOX_BAR and diff["score_logits"] <= MF_LOGIT_BAR):
+        raise AssertionError(f"MixFormer card vs CPU beyond bars: {diff}")
+
+
+def compose_check(dev, seq) -> None:
+    """ops/compose.py::compose_rgbcolormap_device on the card over the
+    sequence's decoded RGB and raw 16-bit depth, all frames in one call,
+    against the host's get_x_frame(..., 'rgbcolormap'): bit equality."""
+    from mmtrack_torch.ops.compose import compose_rgbcolormap_device, jet_lut
+
+    n = len(seq.rgb_frames)
+    rgb = np.stack([cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB) for p in seq.rgb_frames])
+    depth = np.stack([cv2.imread(p, -1) for p in seq.x_frames])
+    host = np.stack([get_x_frame(seq.rgb_frames[t], seq.x_frames[t], "rgbcolormap",
+                                 seq.depth_clip) for t in range(n)])
+    rgb_d, depth_d = torch.from_numpy(rgb).to(dev), torch.from_numpy(depth).to(dev)
+    lut = torch.from_numpy(jet_lut()).to(dev)
+
+    def compose():
+        return compose_rgbcolormap_device(rgb_d, depth_d, lut, depth_clip=seq.depth_clip)
+
+    got = compose().cpu().numpy()
+    differ = int((got != host).any(-1).sum())
+    log("zoo_compose", function="compose_rgbcolormap_device", frames=n,
+        frame=f"{rgb.shape[2]}x{rgb.shape[1]}", depth_dtype=str(depth.dtype),
+        depth_clip=seq.depth_clip, pixels_differ=differ, ms_for_all_frames=cuda_ms(compose),
+        card=card_line())
+    if differ:
+        raise AssertionError(f"device rgbcolormap compose: {differ} pixels differ from the host's")
 
 
 def main() -> int:
@@ -1926,7 +2079,7 @@ def main() -> int:
     for name, n in zoo_path(dev).items():
         launches[name] = launches.get(name, 0) + n
 
-    zoo_rows["crop_resize_normalized"] = [r for r in crop_rows if r["S"] == 320]
+    zoo_rows["crop_resize_normalized"] = [r for r in crop_rows if r["zoo"]]
 
     def entry(name, source, replaces, rows):
         # the first row is the main path's shape: L=320 for the attention,
@@ -1940,7 +2093,8 @@ def main() -> int:
                 "ms": first["ms"], "plain_ms": first["plain_ms"],
                 "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
                 "library_ms": first["library_ms"],
-                **({"zoo_rows": [{k: r[k] for k in ("B", "L", "C", "S", "ms", "device_ms",
+                **({"zoo_rows": [{k: r[k] for k in ("B", "L", "C", "S", "factor", "ms",
+                                                    "device_ms",
                                                     "plain_ms", "bound_ms", "bound_by",
                                                     "library_ms", "max_abs_err") if k in r}
                                  for r in zoo]}

@@ -20,8 +20,10 @@ state_dict) or a flax params file (`np.savez(path, params=params)`,
 models/convert.py::load_flax_npz), read through the weight bridge of the
 model's family (`FLAX_BRIDGES`; OSTrack-online's file also holds the
 score head's tree as `cls_params`); an orbax directory and a family
-without a bridge are refused. --tracker takes any of the twelve recipes
-of mmtrack_torch/registry.py (`list_trackers()`). Without --dataset_root
+without a bridge are refused. --tracker takes any of the fifteen recipes
+of mmtrack_torch/registry.py (`list_trackers()`); a recipe that names its
+own composition (promixtrack's rgbd_blend, ostrack_online's color) composes
+the dataset's frames so, the others as the dataset does. Without --dataset_root
 the root comes from ~/.mmtrack_tpu/local.yaml (utils/env.py).
 
 --batched B advances B sequences in lockstep (eval/batched_ope.py). Disk
@@ -61,7 +63,8 @@ def load_config(name: str):
 # family -> the models/convert.py function that turns its flax params tree
 # into the port's state_dict
 FLAX_BRIDGES = {"vipt": "vipt_state_dict_from_flax", "ostrack": "vipt_state_dict_from_flax",
-                "stark": "stark_state_dict_from_flax", "siamfc": "siamfc_state_dict_from_flax"}
+                "stark": "stark_state_dict_from_flax", "siamfc": "siamfc_state_dict_from_flax",
+                "mixformer": "mixformer_state_dict_from_flax"}
 
 
 def flax_state_dict(path: str, family: str) -> dict:
@@ -93,6 +96,18 @@ def load_checkpoint(path: str, family: str = "vipt") -> dict:
         return flax_state_dict(path, family)
     payload = torch.load(path, map_location="cpu", weights_only=True)
     return payload["model"] if "model" in payload else payload
+
+
+def compose_as_recipe(seqs, composition: str) -> None:
+    """A recipe that names its own composition (ProMixTrack's rgbd_blend,
+    OSTrack-online's color) composes the frames of sequences with an X
+    plane so; the registry's default, rgbcolormap, keeps the dataset's own
+    (the RGB-T and RGB-E suites compose rgbrgb)."""
+    if composition == "rgbcolormap":
+        return
+    for seq in seqs:
+        if seq.dtype != "color":
+            seq.dtype = composition
 
 
 def main(argv=None) -> int:
@@ -176,6 +191,8 @@ def main(argv=None) -> int:
     else:
         root = args.dataset_root or load_env_settings().dataset_root(args.dataset)
         seqs = [load_sequence(d, args.dataset) for d in list_sequences(root, args.dataset)]
+        if args.tracker:
+            compose_as_recipe(seqs, TRACKER_REGISTRY[args.tracker].composition)
         if args.batched > 1:
             from mmtrack_torch.eval.batched_ope import run_dataset_batched
             from mmtrack_torch.parallel.batched_eval import BatchedViPTTracker

@@ -24,6 +24,8 @@ that converter reads, so the bridge only relabels and re-lays out:
                     stacked into nn.MultiheadAttention's in_proj)
   SiamFC            `siamfc_state_dict_from_flax` (the port keeps the flax
                     names; the JAX package has no torch converter for it)
+  MixFormer         `mixformer_state_dict_from_flax`, the inverse of
+                    convert_mixformer_checkpoint
 
 Works on numpy arrays; no jax or flax import.
 """
@@ -279,6 +281,36 @@ def siamfc_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
         else:
             raise KeyError(f"no port counterpart for flax leaf {p}")
     return _tensors(out)
+
+
+def _mixformer_leaf(p: str, value: np.ndarray):
+    """(port name, value) of one MixFormer flax leaf: the path's module
+    names become the reference's (`blocks_{j}` -> `blocks.{j}`, the score
+    branch's `{mod}_{i}` -> `{mod}.{i}`, `score_head_{i}` ->
+    `score_head.layers.{i}`)."""
+    if p == "score_branch/score_token":
+        return "score_branch.score_token", value
+    if p.startswith("box_head/"):
+        item = _corner_head_leaf(p, value)
+        if item is None:
+            raise KeyError(f"no port counterpart for flax leaf {p}")
+        return item
+    q = re.sub(r"/blocks_(\d+)/", r"/blocks.\1/", p)
+    q = re.sub(r"^score_branch/score_head_(\d)/", r"score_branch/score_head/layers.\1/", q)
+    q = re.sub(r"^score_branch/(norm2|proj_[qkv]|proj)_(\d)/", r"score_branch/\1.\2/", q)
+    if not re.fullmatch(r"(backbone(_depth)?/stage\d/[\w./]+|score_branch/[\w./]+)", q):
+        raise KeyError(f"no port counterpart for flax leaf {p}")
+    mod, _, leaf = q.replace("/", ".").rpartition(".")
+    if leaf == "kernel":
+        return _conv(mod, leaf, value) if value.ndim == 4 else _dense(mod, leaf, value)
+    return _norm(mod, leaf, value)
+
+
+def mixformer_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax `params['params']` tree of a MixFormer (3 or 6 channels) -> the
+    port's MixFormer state_dict, named as the reference's (f32 CPU
+    tensors); the inverse of convert_mixformer_checkpoint."""
+    return _tensors(_mixformer_leaf("/".join(path), v) for path, v in _flatten(params).items())
 
 
 def load_flax_collections(path: str) -> dict:

@@ -269,17 +269,18 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     card's machine has no jax to run `model.init`): LeCun-normal Dense and
     conv kernels (fan in = the product of all but the first axis),
     Xavier-uniform prompt convs, truncated-normal(0.02) position
-    embeddings, a unit-normal query embedding (STARK's), zero biases;
+    embeddings and MixFormer's score token, a unit-normal query embedding
+    (STARK's), zero biases;
     LayerNorm, FrozenBatchNorm, the Fovea temperature and SiamFC's
     response scale keep their constructor values. Values are drawn in f32
     on the CPU from a `torch.Generator`, so a seed gives the same weights
     on every device and dtype. The port's other models (Alpha-Refine,
     STARK, SiamFC, the score head) take their seeded weights from here
-    too."""
+    too, and so does MixFormer."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if p.dim() >= 2 and "pos_embed" in name:
+            if p.dim() >= 2 and ("pos_embed" in name or name.endswith("score_token")):
                 v = torch.empty(p.shape).normal_(0.0, 0.02, generator=g).clamp_(-0.04, 0.04)
             elif name == "query_embed.weight":
                 v = torch.empty(p.shape).normal_(0.0, 1.0, generator=g)

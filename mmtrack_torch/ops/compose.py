@@ -1,8 +1,10 @@
-"""Device-side frame composition of the streamed wire, port of
-mmtrack_tpu/ops/compose.py (:21-28, :154-215).
+"""Device-side frame composition, port of mmtrack_tpu/ops/compose.py.
 
-The host decodes and ships planes smaller than the 6-channel frame; the
-card composes the frame the tracker reads:
+`compose_rgbcolormap_device` composes the 'rgbcolormap' frame from the
+decoded RGB and the raw 16-bit depth (clip, NORM_MINMAX and the JET LUT),
+bit-equal to the host's compose_x. For the streamed wire the host decodes
+and ships planes smaller than the 6-channel frame; the card composes the
+frame the tracker reads:
 
 - rgb + JET index (4 B/px): `compose_rgb_index_device` gathers the 3-byte
   colormap from the 1-byte index plane (data/composition.py::
@@ -36,6 +38,48 @@ def jet_lut() -> np.ndarray:
 
     idx = np.arange(256, dtype=np.uint8).reshape(256, 1)
     return cv2.applyColorMap(idx, cv2.COLORMAP_JET).reshape(256, 3).copy()
+
+
+def _median_i32(flat: torch.Tensor) -> torch.Tensor:
+    """np.median of each row of (N, n) int32 values, as f32 (the mean of
+    the two central order statistics when n is even: exact, both are
+    integers below 2^16)."""
+    n = flat.shape[-1]
+    a = torch.kthvalue(flat, (n + 1) // 2, dim=-1).values
+    if n % 2:
+        return a.float()
+    b = torch.kthvalue(flat, n // 2 + 1, dim=-1).values
+    return (a + b).float() / 2.0
+
+
+def compose_rgbcolormap_device(rgb_u8: torch.Tensor, depth_u16: torch.Tensor,
+                               lut_rgb: torch.Tensor, depth_clip: bool = True) -> torch.Tensor:
+    """(..., H, W, 3) uint8 RGB + (..., H, W) uint16 (or int32) depth ->
+    (..., H, W, 6) uint8, bit-equal to compose_x(..., 'rgbcolormap',
+    x_clip=depth_clip) (JAX ops/compose.py:31-151).
+
+    Per frame: the DepthTrack clip at min(3 * median, 10000) with the
+    median exact (kthvalue on int32) and clipped pixels taking the
+    truncated clip value, as numpy's uint16 assignment does; then cv2's
+    NORM_MINMAX to [0, 255]: scale = 255 * (1 / D) and shift = -lo * scale
+    in f64, each cast to f32, and v * scale + shift in f64 cast to f32 once
+    (the sum is exact in f64: a 16-bit v times a 24-bit scale has at most
+    40 bits, and |shift| is below 2^17 of the scale's unit), which is the
+    single rounding of cv2's f32 FMA; round half to even, the JET LUT. A
+    constant map gets scale 0 (cv2's DBL_EPSILON guard)."""
+    lead, (H, W) = rgb_u8.shape[:-3], rgb_u8.shape[-3:-1]
+    d = depth_u16.reshape(-1, H * W).to(torch.int32)
+    if depth_clip:
+        mx = torch.minimum(_median_i32(d) * 3.0, torch.tensor(10000.0, device=d.device))
+        d = torch.where(d.float() > mx[:, None], torch.trunc(mx).to(torch.int32)[:, None], d)
+    lo = d.min(dim=-1, keepdim=True).values.double()
+    D = d.max(dim=-1, keepdim=True).values.double() - lo
+    scale = torch.where(D > 0, 255.0 * (1.0 / D.clamp(min=1.0)), torch.zeros_like(D))
+    a = scale.float().double()
+    b = (-(lo * scale)).float().double()
+    v = (d.double() * a + b).float()
+    idx = torch.round(v).clamp_(0, 255).to(torch.uint8).reshape(*lead, H, W)
+    return torch.cat([rgb_u8, _gather_lut(lut_rgb, idx)], dim=-1)
 
 
 def _gather_lut(lut_rgb: torch.Tensor, idx_u8: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Tracker recipes the port can build: one name -> (build, modality, family,
 composition), port of mmtrack_tpu/registry.py (:19-58, :226-235,
-:302-356, :376-456): the ViPT family, plain OSTrack, OSTrack-online,
-STARK-S, STARK-ST, SPT and SiamFC, with the JAX recipes' names,
-modalities, families, compositions and runtimes.
+:302-373, :376-456): the ViPT family, plain OSTrack, OSTrack-online,
+STARK-S, STARK-ST, SPT, SiamFC, MixFormer_RGBD, SAMF and ProMixTrack, with
+the JAX recipes' names, modalities, families, compositions and runtimes.
 
 `build(seed, params, device)` returns a tracker with the reference
 BaseTracker API (initialize / track). Weights are seeded random unless
@@ -123,6 +123,26 @@ def _siamfc() -> Callable:
     return build
 
 
+def _mixformer(in_channels: int = 6, scales: tuple = (1.0,),
+               re_constrain: str = "simple") -> Callable:
+    """MixFormer-L at the reference's scale (CvT 192/768/1024, depths
+    2/2/12), three online templates (TEST.ONLINE_SIZES.VOT2022RGBD):
+    MixFormer_RGBD and SAMF on 6 channels (registry.py:316-331), ProMixTrack
+    on 3 without re-constraint (registry.py:360-373)."""
+    def build(seed: int = 0, params: Optional[dict] = None, device="cuda"):
+        from mmtrack_torch.models.mixformer import build_mixformer_rgbd
+        from mmtrack_torch.models.vipt import init_weights
+        from mmtrack_torch.trackers.mixformer_tracker import MixFormerRuntime, MixFormerTracker
+        model = build_mixformer_rgbd(in_channels=in_channels)
+        if params is None:
+            init_weights(model, seed)
+        else:
+            model.load_state_dict(params)
+        return MixFormerTracker(model, device, MixFormerRuntime(
+            scale_factors=scales, online_size=3, re_constrain=re_constrain))
+    return build
+
+
 TRACKER_REGISTRY: dict[str, TrackerRecipe] = {
     **{f"vipt_{kind}_{modality}": TrackerRecipe(_vipt(f"{kind}_{modality}"), modality, "vipt")
        for kind in ("deep", "shaw") for modality in ("rgbd", "rgbt", "rgbe")},
@@ -132,6 +152,12 @@ TRACKER_REGISTRY: dict[str, TrackerRecipe] = {
     "stark_s": TrackerRecipe(_stark(False, False), "rgb", "stark"),
     "stark_st": TrackerRecipe(_stark(False, True), "rgb", "stark"),
     "spt": TrackerRecipe(_stark(True, False), "rgbd", "stark"),
+    "mixformer_rgbd": TrackerRecipe(_mixformer(), "rgbd", "mixformer"),
+    # SAMF: the scale-adaptive MixFormer
+    "samf": TrackerRecipe(_mixformer(scales=(0.8, 1.0, 1.25)), "rgbd", "mixformer"),
+    # ProMixTrack: the RGB MixFormer-L on a 5% JET-depth alpha blend
+    "promixtrack": TrackerRecipe(_mixformer(in_channels=3, re_constrain="none"), "rgbd",
+                                 "mixformer", composition="rgbd_blend"),
 }
 
 

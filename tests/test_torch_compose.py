@@ -1,7 +1,9 @@
 """The streamed wire of the port on the CPU: device compose and host decode.
 
 mmtrack_torch/ops/compose.py against mmtrack_tpu/ops/compose.py on the
-same seeded planes: the JET LUT, the rgb + index compose and the
+same seeded planes: the rgbcolormap compose from raw 16-bit depth bit for
+bit against JAX and compose_x (the tie fuzz included); the JET LUT, the
+rgb + index compose and the
 triangular chroma upsample bit for bit; the BT.601 conversion and the YUV
 compose bit for bit against a numpy f32 reference that rounds once per
 operation in JAX's written order, and within 1 LSB of JAX at under 1e-5
@@ -84,6 +86,69 @@ def test_rgb_index_compose_equals_host_compose(clip):
     idx = composition.depth_index_u8(depth, x_clip=clip)
     dev = compose.compose_rgb_index_device(*_t(rgb, idx, compose.jet_lut()))
     np.testing.assert_array_equal(dev.numpy(), host)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("clip", [True, False])
+def test_rgbcolormap_device_bit_equal_to_jax_and_host(seed, clip):
+    """compose_rgbcolormap_device against JAX's and compose_x on raw uint16
+    depth (the cases of tests/test_eval.py:180-200)."""
+    r = np.random.RandomState(seed)
+    rgb = r.randint(0, 255, (32, 48, 3)).astype(np.uint8)
+    dep = r.randint(100, 60000, (32, 48)).astype(np.uint16)
+    lut = compose.jet_lut()
+    host = composition.compose_x(rgb, dep, "rgbcolormap", x_clip=clip)
+    want = np.asarray(jax_compose.compose_rgbcolormap_device(rgb, dep, jax.numpy.asarray(lut),
+                                                              depth_clip=clip))
+    got = compose.compose_rgbcolormap_device(*_t(rgb, dep, lut), depth_clip=clip)
+    assert got.dtype == torch.uint8 and got.shape == (32, 48, 6)
+    np.testing.assert_array_equal(got.numpy(), host)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("lead", LEADS[1:])
+def test_rgbcolormap_device_leading_axes(lead):
+    """Each frame of a (T, B) batch composes on its own clip and range."""
+    rng = np.random.RandomState(9)
+    rgb = rng.randint(0, 255, (*lead, 16, 20, 3)).astype(np.uint8)
+    dep = rng.randint(0, 9000, (*lead, 16, 20)).astype(np.uint16)
+    dep.reshape(-1, 16, 20)[0] //= 7                               # another range per frame
+    lut = compose.jet_lut()
+    got = compose.compose_rgbcolormap_device(*_t(rgb, dep, lut))
+    assert got.shape == (*lead, 16, 20, 6)
+    want = np.asarray(jax_compose.compose_rgbcolormap_device(rgb, dep, jax.numpy.asarray(lut)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    for f, (c, d) in enumerate(zip(rgb.reshape(-1, 16, 20, 3), dep.reshape(-1, 16, 20))):
+        np.testing.assert_array_equal(got.numpy().reshape(-1, 16, 20, 6)[f],
+                                      composition.compose_x(c, d, "rgbcolormap", x_clip=True))
+
+
+def test_rgbcolormap_device_rounding_ties():
+    """The tie fuzz of tests/test_eval.py:223-250: tight depth ranges put
+    NORM_MINMAX results on .5 and even-count medians on x.5; the f64 sum
+    cast once to f32 must round as cv2's f32 FMA, with 0 mismatches
+    against compose_x and JAX; a constant map gets index 0."""
+    lut = compose.jet_lut()
+    jax_fn = jax.jit(lambda r, d: jax_compose.compose_rgbcolormap_device(
+        r, d, jax.numpy.asarray(lut)))
+    rng = np.random.default_rng(21)
+    mismatches = 0
+    for trial in range(25):
+        n = 48
+        lo = int(rng.integers(0, 30000))
+        hi = lo + int(rng.integers(100, 12000))
+        d = rng.integers(lo, hi + 1, size=(n, n)).astype(np.uint16)
+        rgb = rng.integers(0, 255, (n, n, 3)).astype(np.uint8)
+        host = composition.compose_x(rgb, d, "rgbcolormap", x_clip=True)
+        got = compose.compose_rgbcolormap_device(*_t(rgb, d, lut)).numpy()
+        mismatches += int((got != host).sum())
+        np.testing.assert_array_equal(
+            got, np.asarray(jax_fn(rgb, d)))
+    assert mismatches == 0
+    d = np.full((16, 16), 4321, np.uint16)
+    rgb = np.zeros((16, 16, 3), np.uint8)
+    np.testing.assert_array_equal(compose.compose_rgbcolormap_device(*_t(rgb, d, lut)).numpy(),
+                                  composition.compose_x(rgb, d, "rgbcolormap", x_clip=True))
 
 
 def _yuv_one_rounding(y, cb, cr):
