@@ -101,8 +101,11 @@ non-zero:
      rectangle session each of ostrack_online (colour frames; 20 crops +
      one per template refresh) and spt (20 crops) from the registry, and
      one mask session of promixtrack (rgbd_blend frames, Alpha-Refine
-     masks): 2 x 20 crops + one per nomination, 19 correlations. Every state
-     must decode to a frame-sized mask (or a finite rectangle). One refine
+     masks): 2 x 20 crops + one per nomination, 19 correlations; then,
+     after a 3-frame warm-up, one 10-frame rectangle session of
+     det_dimp50_max (DeT, rgbcolormap frames), which launches no kernel
+     of the port. Every state must decode to a frame-sized mask (or a
+     finite rectangle). One refine
      on the card against the same model on the CPU (plain versions), same
      frame and box: probabilities within AR_PROB_BAR. Prints ms per frame
      split into read+compose, tracker step, refine and encode.
@@ -162,7 +165,24 @@ non-zero:
      `python -m mmtrack_torch.eval.run_ope --tracker spt --analyze` and the
      same with `--tracker samf`, each in its own process on that sequence:
      exit 0, a result file, and a report equal to the analysis of the
-     in-process run's results.
+     in-process run's results. The DiMP family (PR 10): its eight recipes
+     (dimp50, det_dimp50_{max,mean,mul,weightedsum,mc}, mfdimp on rgbrgb
+     frames of the colour and an 8-bit thermal stand-in made from the
+     depth, prdimp50 at 352 px) from the registry at f32 on seeded weights
+     over the same sequence: every box finite and inside its frame, no launch of
+     any of the five kernels (the sample crop is the plain `crop_at`),
+     the median ms per frame, host syncs per frame from torch.cuda's sync
+     debug mode over 4 more frames, the flag counts and the filter
+     iterations run (and computed, masked); one profiled frame each of
+     det_dimp50_max and prdimp50 (device ms, idle share, kernels; and
+     the kernels, device and wall ms of its parts, each profiled alone:
+     crop + backbones + features, IoU refinement, masked filter update); one
+     det_dimp50_max frame on the card against the CPU from the card's
+     state, same weights and draws, the not-found threshold at 0 so the
+     frame refines its box (box within 1e-3 px, score within 1e-4, the
+     same flag); and `run_ope --tracker det_dimp50_max
+     --analyze` in its own process, its report equal to the in-process
+     analysis.
 
 Every kernel in the `kernels` line carries bound_ms, the larger of its
 bytes over 3.35 TB/s and its operations over the peak rate of their type
@@ -197,7 +217,7 @@ import torch
 import torch.nn.functional as F
 
 from mmtrack_torch.config import vipt_experiment_config
-from mmtrack_torch.data.composition import get_x_frame
+from mmtrack_torch.data.composition import compose_x, get_x_frame
 from mmtrack_torch.data.datasets import SyntheticVideoDataset
 from mmtrack_torch.data.loader import BatchLoader
 from mmtrack_torch.data.processing import from_config as processing_from_config
@@ -215,7 +235,7 @@ from mmtrack_torch.models.vipt import (
     generate_ctr_mask,
 )
 from mmtrack_torch.models.vipt import init_weights as init_vipt_weights
-from mmtrack_torch.ops.crop import crop_resize_normalized, crop_resize_normalized_plain
+from mmtrack_torch.ops.crop import crop_at, crop_resize_normalized, crop_resize_normalized_plain
 from mmtrack_torch.ops.flash_attn import (
     attn_block_fused,
     attn_block_fused_plain,
@@ -1364,6 +1384,8 @@ def vot_path(dev) -> dict:
         del zoo
         torch.cuda.empty_cache()
 
+        dimp_vot_session(dev, session, counters)
+
         # one refine on the card against the same model on the CPU
         frame = cv2.cvtColor(cv2.imread(colors[1]), cv2.COLOR_BGR2RGB)
         box = [x + 2.0, y + 1.0, w + 3.0, h - 2.0]
@@ -1380,6 +1402,37 @@ def vot_path(dev) -> dict:
         if not diff["prob_max_abs_diff"] <= AR_PROB_BAR:
             raise AssertionError(f"Alpha-Refine card vs CPU: {diff}")
     return counted
+
+
+def dimp_vot_session(dev, session, counters) -> None:
+    """Phase 8's det_dimp50_max session: DeT's VOT RGB-D entry, rectangle
+    protocol, DIMP_VOT_FRAMES frames after a 3-frame warm-up session; no
+    kernel of the port runs on its path. `session(protocol, n, timings,
+    trk, dtype)` is vot_path's TraX session."""
+    H, W = VOT_HW
+    recipe = TRACKER_REGISTRY["det_dimp50_max"]
+    session("rectangle", 3, trk=recipe.build(device=dev), dtype=recipe.composition)
+    zoo = recipe.build(device=dev)
+    for fn in counters:
+        fn.launches = 0
+    timings = {}
+    t0 = time.perf_counter()
+    states = session("rectangle", DIMP_VOT_FRAMES, timings, trk=zoo, dtype=recipe.composition)
+    elapsed = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    want = dict.fromkeys(launches, 0)
+    ok = len(states) == DIMP_VOT_FRAMES and all(
+        isinstance(st, Rectangle) and np.isfinite(list(st)).all() for st in states[1:])
+    frames = timings["frames"]
+    log("vot", protocol="rectangle", tracker="det_dimp50_max", dtype="f32",
+        composition=recipe.composition, frames=DIMP_VOT_FRAMES, frame=f"{W}x{H}",
+        states=len(states), states_ok=ok, launches=launches, expected=want,
+        ms_per_frame=elapsed / DIMP_VOT_FRAMES * 1e3,
+        ms_per_frame_split={k: timings[k] / frames * 1e3
+                            for k in ("read_compose", "track", "refine", "encode")},
+        flags=zoo.flags, optimizer_iters=zoo.optimizer_iters, card=card_line())
+    if not ok or launches != want:
+        raise AssertionError(f"vot det_dimp50_max: states ok {ok}, launches {launches}")
 
 
 OPE_PASSES = 2                                       # timed passes per wire, best kept
@@ -1736,7 +1789,17 @@ class FrameRecorder:
 
 ZOO = ("ostrack", "ostrack_online", "stark_s", "stark_st", "spt", "siamfc",
        "mixformer_rgbd", "samf", "promixtrack")
-ZOO_ENTRIES = ("spt", "samf")        # run_ope --tracker in its own process
+ZOO_ENTRIES = ("spt", "samf", "det_dimp50_max")   # run_ope --tracker in its own process
+# the DiMP family (PR 10): no kernel of the port runs on its path
+DIMP_ZOO = ("dimp50", "det_dimp50_max", "det_dimp50_mean", "det_dimp50_mul",
+            "det_dimp50_weightedsum", "det_dimp50_mc", "mfdimp", "prdimp50")
+DIMP_PROFILED = ("det_dimp50_max", "prdimp50")
+DIMP_SYNC_FRAMES = 4                # frames under torch.cuda's sync debug mode
+DIMP_VOT_FRAMES = 10
+DIMP_BOX_BAR = 1e-3                 # det_dimp50_max card vs CPU: box, px
+DIMP_SCORE_BAR = 1e-4               # and score
+KERNEL_COUNTERS = (attn_block_fused, mlp_block_fused, crop_resize_normalized, flash_mhsa_qkv,
+                   depthwise_xcorr)
 ZOO_WARMUP = 3                      # frames left out of the median ms per frame
 # OSTrack-online's attention half-blocks per frame: blocks 0-2 at L = 464
 # and 4-5 at 344 take the streaming branch, 7-8 at 260 and 10-11 at 202 the
@@ -1858,6 +1921,7 @@ def zoo_path(dev) -> dict:
                             time_style=seq.time_style)
             del tracker
             torch.cuda.empty_cache()
+        dimp_path(dev, seq_dir, res_in)
 
         # OSTrack-online at bf16 through build_ostrack's dtype: the half-blocks
         # at B=2 and L = 464 / 344 / 260 / 202
@@ -1958,6 +2022,179 @@ def zoo_path(dev) -> dict:
                 raise AssertionError(f"{name} entry: result file {written}, report equal "
                                      f"{same}: {report} vs {want}")
     return counted
+
+
+def host_syncs(fn) -> int:
+    """The synchronizing CUDA calls fn() makes (a blocking copy either way,
+    `.item()`, a stream sync), as torch.cuda's sync debug mode reports them."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def thermal_frames(seq) -> list:
+    """rgbrgb frames for an RGB-T recipe from a DepthTrack sequence: its
+    colour beside an 8-bit thermal stand-in, nearer being warmer
+    (255 - depth / 40, clipped)."""
+    out = []
+    for c, d in zip(seq.rgb_frames, seq.x_frames):
+        rgb = cv2.cvtColor(cv2.imread(c), cv2.COLOR_BGR2RGB)
+        depth = cv2.imread(d, -1).astype(np.float32)
+        thermal = (255.0 - np.clip(depth / 40.0, 0.0, 255.0)).astype(np.uint8)
+        out.append(compose_x(rgb, thermal, "rgbrgb"))
+    return out
+
+
+def dimp_path(dev, seq_dir: str, res_in: str) -> None:
+    """Phase 10's DiMP recipes from the registry at f32 on seeded weights
+    over the sequence: boxes, the median ms per frame after ZOO_WARMUP
+    frames, host syncs per frame, the localisation flags, the filter
+    iterations run; no kernel launch; one profiled frame of det_dimp50_max
+    and prdimp50; det_dimp50_max's frame on the card against the CPU."""
+    from mmtrack_torch.eval.datasets import load_sequence
+    from mmtrack_torch.eval.ope import result_path, run_sequence, save_result
+
+    H, W = OPE_HW
+    for name in DIMP_ZOO:
+        recipe = TRACKER_REGISTRY[name]
+        seq = load_sequence(seq_dir, "DepthTrack")
+        if recipe.composition == "rgbrgb":      # mfdimp, an RGB-T tracker
+            frames = thermal_frames(seq)
+        else:
+            seq.dtype = recipe.composition
+            frames = None
+        t0 = time.perf_counter()
+        tracker = FrameRecorder(recipe.build(device=dev))
+        build_s = time.perf_counter() - t0
+        for fn in KERNEL_COUNTERS:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = run_sequence(tracker, seq, frame_loader=frames.__getitem__ if frames else None)
+        run_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in KERNEL_COUNTERS}
+        want = dict.fromkeys(launches, 0)
+        inner = tracker.tracker
+        flags, iters = dict(inner.flags), inner.optimizer_iters
+        # more frames (the last again), after the count
+        last = frames[-1] if frames else get_x_frame(seq.rgb_frames[-1], seq.x_frames[-1],
+                                                     seq.dtype, seq.depth_clip)
+        syncs = host_syncs(lambda: [inner.track(last) for _ in range(DIMP_SYNC_FRAMES)])
+        extra = {}
+        if name in DIMP_PROFILED:
+            rows, wall_s = profile_window(lambda: inner.track(last), 1)
+            dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+            extra = dict(profiled_frame_device_ms=dev_ms, profiled_frame_wall_ms=wall_s * 1e3,
+                         device_idle_share=1.0 - dev_ms / (wall_s * 1e3),
+                         profiled_frame_kernels=sum(e.count for e in rows),
+                         top_kernels=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                                      for e in rows[:6]])
+            extra["parts"] = dimp_parts(inner, last)
+        ok = zoo_boxes_ok(name, res["boxes"], H, W)
+        log("zoo_dimp", tracker=name, family=recipe.family, modality=recipe.modality,
+            composition=recipe.composition, dtype="f32", frames=OPE_FRAMES, frame=f"{W}x{H}",
+            sample_size=inner.rt.image_sample_size, boxes_ok=ok, launches=launches,
+            expected=want, median_ms_per_frame=float(np.median(tracker.ms[ZOO_WARMUP:])),
+            first_frame_ms=tracker.ms[0], build_s=build_s, sequence_s=run_s,
+            host_syncs_per_frame=syncs / DIMP_SYNC_FRAMES, flags=flags, optimizer_iters=iters,
+            optimizer_iters_computed=(OPE_FRAMES - 1) * inner.rt.max_update_iter, **extra,
+            card=card_line())
+        if not ok or launches != want or sum(flags.values()) != OPE_FRAMES - 1:
+            raise AssertionError(f"zoo {name}: boxes ok {ok}, launches {launches}, "
+                                 f"flags {flags}")
+        if name == "det_dimp50_max":
+            dimp_card_vs_cpu(dev, inner, seq)
+        if name in ZOO_ENTRIES:
+            save_result(result_path(res_in, "DepthTrack", name, seq.name), res,
+                        fmt=seq.save_fmt, delimiter=seq.save_delimiter,
+                        time_style=seq.time_style)
+        del tracker, inner
+        torch.cuda.empty_cache()
+
+
+def dimp_parts(tracker, frame) -> dict:
+    """Kernels, device ms and wall ms of the parts of one DiMP frame, each
+    profiled alone from the tracker's state: the sample crop with the
+    backbones and classification features, the IoU refinement (its
+    autograd ascent), and the masked filter update."""
+    from mmtrack_torch.trackers.dimp_tracker import _normalize, _refine_box, _sample_geometry
+
+    rt, model, state = tracker.rt, tracker.model, tracker.state
+    image = torch.from_numpy(frame).to(state["pos"].device)
+    szl, tl, sample_pos, sample_scale = _sample_geometry(
+        rt, state["pos"], state["target_scale"], im_hw=image.shape[:2])
+    jitter = torch.rand((rt.num_init_random_boxes, 4), generator=torch.Generator().manual_seed(0))
+    jitter = jitter.to(image.device)
+    no_iter = torch.zeros((), dtype=torch.int64, device=image.device)
+
+    @torch.no_grad()
+    def features():
+        patch = crop_at(image, state["pos"], szl, rt.image_sample_size, origin_yx=tl)
+        bfeat = model.extract_backbone(_normalize(patch)[None])
+        return bfeat, model.extract_classification_feat(bfeat)
+
+    bfeat, _ = features()
+    parts = {"crop_backbone_features": features,
+             "iou_refinement": torch.no_grad()(lambda: _refine_box(
+                 rt, model, bfeat, state, sample_pos, sample_scale, jitter)),
+             "filter_update_masked": torch.no_grad()(lambda: model.optimize_filter(
+                 state["filter"], state["memory_feat"], state["memory_boxes"],
+                 state["sample_weights"], no_iter, rt.max_update_iter))}
+    out = {}
+    for name, fn in parts.items():
+        rows, wall_s = profile_window(fn, 1)
+        out[name] = dict(kernels=sum(e.count for e in rows), wall_ms=wall_s * 1e3,
+                         device_ms=sum(e.self_device_time_total for e in rows) / 1e3)
+    return out
+
+
+def dimp_card_vs_cpu(dev, tracker, seq) -> None:
+    """det_dimp50_max on the card (TF32 off) against the same weights and
+    draws on the CPU, where tests/test_torch_dimp_tracker.py holds the
+    runtime against JAX: both initialise on the sequence's first frame
+    (the init filters' difference printed), then the CPU tracker takes the
+    card's state and both track the second frame. The not-found threshold
+    is 0 here: the seeded weights score below 0.25, and a not-found frame
+    would keep the box it had; so the frame refines its box and updates
+    the memory. Box within DIMP_BOX_BAR px, score within DIMP_SCORE_BAR,
+    the same flag."""
+    import dataclasses
+
+    from mmtrack_torch.models.dimp import build_det_dimp50
+    from mmtrack_torch.trackers.dimp_tracker import DiMPTracker
+
+    frames = [get_x_frame(seq.rgb_frames[t], seq.x_frames[t], seq.dtype, seq.depth_clip)
+              for t in (0, 1)]
+    info = {"init_bbox": seq.gt[0].tolist()}
+    rt = dataclasses.replace(tracker.rt, target_not_found_threshold=0.0)
+    card = DiMPTracker(tracker.model, dev, rt)
+    cpu_model = build_det_dimp50("max")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in tracker.model.state_dict().items()})
+    cpu = DiMPTracker(cpu_model, "cpu", rt)
+    card.initialize(frames[0], info)
+    t0 = time.perf_counter()
+    cpu.initialize(frames[0], info)
+    cpu_init_s = time.perf_counter() - t0
+    init_filter_diff = float((card.state["filter"].cpu() - cpu.state["filter"]).abs().max())
+    cpu.state = {k: v.cpu() if torch.is_tensor(v) else v for k, v in card.state.items()}
+    got, want = card.track(frames[1]), cpu.track(frames[1])
+    diff = dict(box_max_abs_diff_px=float(np.abs(np.subtract(got["target_bbox"],
+                                                             want["target_bbox"])).max()),
+                score_abs_diff=abs(got["best_score"] - want["best_score"]),
+                flags=(got["flag"], want["flag"]))
+    log("zoo_dimp_card_vs_cpu", tracker="det_dimp50_max", **diff, box_bar=DIMP_BOX_BAR,
+        score_bar=DIMP_SCORE_BAR, init_filter_max_abs_diff=init_filter_diff,
+        cpu_init_s=cpu_init_s,
+        tf32=torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32)
+    if not (diff["box_max_abs_diff_px"] <= DIMP_BOX_BAR
+            and diff["score_abs_diff"] <= DIMP_SCORE_BAR and got["flag"] == want["flag"]):
+        raise AssertionError(f"det_dimp50_max card vs CPU beyond bars: {diff}")
 
 
 MF_BOX_BAR = 1e-4                   # MixFormer card vs CPU: boxes, in crop units

@@ -20,7 +20,7 @@ state_dict) or a flax params file (`np.savez(path, params=params)`,
 models/convert.py::load_flax_npz), read through the weight bridge of the
 model's family (`FLAX_BRIDGES`; OSTrack-online's file also holds the
 score head's tree as `cls_params`); an orbax directory and a family
-without a bridge are refused. --tracker takes any of the fifteen recipes
+without a bridge are refused. --tracker takes any of the twenty-three recipes
 of mmtrack_torch/registry.py (`list_trackers()`); a recipe that names its
 own composition (promixtrack's rgbd_blend, ostrack_online's color) composes
 the dataset's frames so, the others as the dataset does. Without --dataset_root
@@ -64,7 +64,7 @@ def load_config(name: str):
 # into the port's state_dict
 FLAX_BRIDGES = {"vipt": "vipt_state_dict_from_flax", "ostrack": "vipt_state_dict_from_flax",
                 "stark": "stark_state_dict_from_flax", "siamfc": "siamfc_state_dict_from_flax",
-                "mixformer": "mixformer_state_dict_from_flax"}
+                "mixformer": "mixformer_state_dict_from_flax", "dimp": "dimp_state_dict_from_flax"}
 
 
 def flax_state_dict(path: str, family: str) -> dict:

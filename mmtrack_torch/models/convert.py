@@ -26,6 +26,9 @@ that converter reads, so the bridge only relabels and re-lays out:
                     names; the JAX package has no torch converter for it)
   MixFormer         `mixformer_state_dict_from_flax`, the inverse of
                     convert_mixformer_checkpoint
+  DiMP / DeT        `dimp_state_dict_from_flax`, the inverse of
+                    convert_dimp_checkpoint (the backbones stop at layer3,
+                    so the JAX trunks' layer4 leaves are left out)
 
 Works on numpy arrays; no jax or flax import.
 """
@@ -311,6 +314,69 @@ def mixformer_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     port's MixFormer state_dict, named as the reference's (f32 CPU
     tensors); the inverse of convert_mixformer_checkpoint."""
     return _tensors(_mixformer_leaf("/".join(path), v) for path, v in _flatten(params).items())
+
+
+# the IoUNet's LinearBlocks and the side of the pooled map they flatten
+_DIMP_LINEAR_POOL = {"fc3_rt": 5, "fc4_rt": 3}
+_DIMP_BIN_KERNELS = {"label_map_kernel": "label_map_predictor.weight",
+                     "target_mask_kernel": "target_mask_predictor.0.weight",
+                     "spatial_weight_kernel": "spatial_weight_predictor.weight"}
+
+
+def _dimp_leaf(p: str, value: np.ndarray, hinge: bool):
+    """(port name, value) of one DiMPNet flax leaf; None for a trunk's
+    layer4, which the port's backbones do not build."""
+    top, _, rest = p.partition("/")
+    if top in ("backbone", "backbone_x"):
+        if rest.startswith("layer4_"):
+            return None
+        body = "feature_extractor" if top == "backbone" else "feature_extractor_depth"
+        return _resnet_leaf(body, rest, value)
+    if m := re.fullmatch(r"merge_conv(\d)", top):
+        return _conv(f"merge_layer{m.group(1)}", rest, value)
+    if p == "clf_features/final_conv/kernel":
+        return _conv("classifier.feature_extractor.0", "kernel", value)
+    if m := re.fullmatch(r"filter_initializer/filter_conv/(kernel|bias)", p):
+        return _conv("classifier.filter_initializer.filter_conv", m.group(1), value)
+    if top == "filter_optimizer":
+        opt = "classifier.filter_optimizer"
+        if rest in _DIMP_BIN_KERNELS:
+            return f"{opt}.{_DIMP_BIN_KERNELS[rest]}", value.reshape(1, -1, 1, 1)
+        if rest == "filter_reg" and hinge:
+            return f"{opt}.residual_module.filter_reg", value.reshape(1)
+        if rest in ("log_step_length", "filter_reg"):
+            return f"{opt}.{rest}", value.reshape(1)
+    if top == "bb_regressor":
+        mod, _, sub = rest.partition("/")
+        base = f"bb_regressor.{mod}"
+        if mod == "iou_predictor":
+            return _dense(base, sub, value)
+        if mod in _DIMP_LINEAR_POOL and sub == "linear/kernel":
+            # (sz * sz * C, O) over the NHWC flatten -> (O, C * sz * sz) over CHW
+            sz = _DIMP_LINEAR_POOL[mod]
+            o = value.shape[1]
+            w = value.T.reshape(o, sz, sz, -1).transpose(0, 3, 1, 2).reshape(o, -1)
+            return f"{base}.linear.weight", w
+        if m := re.fullmatch(r"(conv|linear|bn)/(\w+)", sub):
+            kind, leaf = m.groups()
+            if kind == "bn":
+                return _norm(f"{base}.{'bn' if mod in _DIMP_LINEAR_POOL else '1'}", leaf, value)
+            if kind == "linear":
+                return _dense(f"{base}.linear", leaf, value)
+            return _conv(f"{base}.0", leaf, value)
+    raise KeyError(f"no port counterpart for flax leaf {p}")
+
+
+def dimp_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax `params['params']` tree of a DiMPNet (DiMP-50, DeT with any
+    merge, PrDiMP or super_dimp) -> the port's DiMPNet state_dict, named
+    as the reference's (f32 CPU tensors); the inverse of
+    convert_dimp_checkpoint. A filter optimizer without `log_step_length`
+    is the hinge's, whose regularisation sits under `residual_module`."""
+    flat = {"/".join(k): v for k, v in _flatten(params).items()}
+    hinge = "filter_optimizer/log_step_length" not in flat
+    return _tensors(item for p, v in flat.items()
+                    if (item := _dimp_leaf(p, v, hinge)) is not None)
 
 
 def load_flax_collections(path: str) -> dict:

@@ -1,7 +1,8 @@
 """Tracker recipes the port can build: one name -> (build, modality, family,
-composition), port of mmtrack_tpu/registry.py (:19-58, :226-235,
+composition), port of mmtrack_tpu/registry.py (:19-90, :226-235,
 :302-373, :376-456): the ViPT family, plain OSTrack, OSTrack-online,
-STARK-S, STARK-ST, SPT, SiamFC, MixFormer_RGBD, SAMF and ProMixTrack, with
+STARK-S, STARK-ST, SPT, SiamFC, MixFormer_RGBD, SAMF, ProMixTrack and the
+DiMP family (DiMP-50, the five DeT_DiMP50 merges, mfDiMP, PrDiMP-50), with
 the JAX recipes' names, modalities, families, compositions and runtimes.
 
 `build(seed, params, device)` returns a tracker with the reference
@@ -143,6 +144,27 @@ def _mixformer(in_channels: int = 6, scales: tuple = (1.0,),
     return build
 
 
+def _dimp(merge_type: Optional[str], prdimp: bool = False) -> Callable:
+    """DiMP-50 (merge None), DeT's dual-backbone DiMP-50 (registry.py:61-74)
+    with DeT_DiMP50_Max's runtime, or PrDiMP-50 with its own (:77-90). The
+    tracker's random draws are seeded with `seed` too."""
+    def build(seed: int = 0, params: Optional[dict] = None, device="cuda"):
+        from mmtrack_torch.models.dimp import DiMPNet, build_prdimp50, init_dimp_weights
+        from mmtrack_torch.trackers.dimp_tracker import (
+            DiMPRuntime,
+            DiMPTracker,
+            prdimp50_runtime,
+        )
+        model = build_prdimp50() if prdimp else DiMPNet(merge_type=merge_type)
+        if params is None:
+            init_dimp_weights(model, seed)
+        else:
+            model.load_state_dict(params)
+        rt = prdimp50_runtime() if prdimp else DiMPRuntime()
+        return DiMPTracker(model, device, rt, seed=seed)
+    return build
+
+
 TRACKER_REGISTRY: dict[str, TrackerRecipe] = {
     **{f"vipt_{kind}_{modality}": TrackerRecipe(_vipt(f"{kind}_{modality}"), modality, "vipt")
        for kind in ("deep", "shaw") for modality in ("rgbd", "rgbt", "rgbe")},
@@ -158,6 +180,13 @@ TRACKER_REGISTRY: dict[str, TrackerRecipe] = {
     # ProMixTrack: the RGB MixFormer-L on a 5% JET-depth alpha blend
     "promixtrack": TrackerRecipe(_mixformer(in_channels=3, re_constrain="none"), "rgbd",
                                  "mixformer", composition="rgbd_blend"),
+    "dimp50": TrackerRecipe(_dimp(None), "rgb", "dimp"),
+    **{f"det_dimp50_{name}": TrackerRecipe(_dimp(merge), "rgbd", "dimp")
+       for name, merge in (("max", "max"), ("mean", "mean"), ("mul", "mul"),
+                           ("weightedsum", "weightedSum"), ("mc", "conv"))},
+    # mfDiMP: the RGB-T fusion DiMP, DeT's mean merge on rgbrgb frames
+    "mfdimp": TrackerRecipe(_dimp("mean"), "rgbt", "dimp", composition="rgbrgb"),
+    "prdimp50": TrackerRecipe(_dimp(None, prdimp=True), "rgb", "dimp"),
 }
 
 

@@ -229,7 +229,7 @@ def test_ostrack_tracker_free_run_matches_jax():
 
 
 def test_registry_recipes_match_jax():
-    assert len(registry.list_trackers()) == 15 and set(NEW) <= set(registry.list_trackers())
+    assert len(registry.list_trackers()) == 23 and set(NEW) <= set(registry.list_trackers())
     for name, r in registry.TRACKER_REGISTRY.items():
         j = JAX_REGISTRY[name]
         assert (r.modality, r.family, r.composition) == (j.modality, j.family, j.composition), name
@@ -261,4 +261,4 @@ def test_ostrack_online_npz_round_trips(tmp_path):
     for k, v in vipt_state_dict_from_flax(_np_tree(params["params"])).items():
         assert torch.equal(model.state_dict()[k], v), k
     with pytest.raises(ValueError, match="no flax weight bridge"):
-        load_checkpoint(path, "dimp")
+        load_checkpoint(path, "lwl")

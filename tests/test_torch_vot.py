@@ -14,8 +14,9 @@ module) against the JAX package's, at f32 on the CPU.
     masks equal except at pixels whose probability lies within 1e-4 of
     the 0.5 threshold;
   * `python -m mmtrack_torch.eval.vot_entry` answers the session in a
-    subprocess where jax, flax and mmtrack_tpu cannot be imported, and
-    without a card (default device) fails before it answers.
+    subprocess where jax, flax and mmtrack_tpu cannot be imported (also a
+    3-frame rectangle session of det_dimp50_max), and without a card
+    (default device) fails before it answers.
 """
 
 import io
@@ -176,7 +177,7 @@ def test_region_codecs_round_trip_and_jax_equal():
 def test_registry_has_the_vipt_recipes():
     vipt = sorted(f"vipt_{k}_{m}" for k in ("deep", "shaw") for m in ("rgbd", "rgbt", "rgbe"))
     assert [n for n in list_trackers() if n.startswith("vipt_")] == vipt
-    assert list_trackers("rgbt") == ["vipt_deep_rgbt", "vipt_shaw_rgbt"]
+    assert list_trackers("rgbt") == ["mfdimp", "vipt_deep_rgbt", "vipt_shaw_rgbt"]
     assert all(TRACKER_REGISTRY[n].composition == "rgbcolormap"
                and TRACKER_REGISTRY[n].family == "vipt" for n in vipt)
 
@@ -299,6 +300,27 @@ def test_entry_answers_a_session_without_jax(sequence, models, tmp_path):
     assert len(states) == n + 1
     for s in states[1:]:
         assert isinstance(s, vot.Mask) and s.mask.shape == (H, W)
+
+
+def test_entry_answers_a_det_dimp50_max_session_without_jax(sequence, tmp_path):
+    """MMTRACK_TRACKER=det_dimp50_max on the CPU, rectangle protocol, 3
+    frames: the full-width DeT recipe (seeded weights, the augmented init)
+    answers every frame with a finite box, jax, flax and mmtrack_tpu
+    blocked."""
+    _, colors, depths, gt = sequence
+    n = 3
+    x, y, w, h = gt[0]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=REPO, MMTRACK_DEVICE="cpu", MMTRACK_TRACKER="det_dimp50_max",
+               OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", BLOCKER], cwd=str(tmp_path), env=env,
+                          input=_script(colors[:n], depths[:n], f"{x:.4f},{y:.4f},{w:.4f},{h:.4f}"),
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    states = _states(proc.stdout, vot._decode_region)
+    assert len(states) == n
+    for s in states[1:]:
+        assert isinstance(s, vot.Rectangle) and np.isfinite(list(s)).all() and s.width > 0
 
 
 def test_entry_without_a_card_raises_before_answering(sequence, tmp_path):
