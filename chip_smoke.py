@@ -183,6 +183,35 @@ non-zero:
      same flag); and `run_ope --tracker det_dimp50_max
      --analyze` in its own process, its report equal to the in-process
      analysis.
+ 11. train_disk: training from disk. Corpora written in their own
+     layouts by 8 threads: phase 9's DepthTrack fixture (8 sequences of 33
+     640x480 frames), a LasHeR layout of the same size, LaSOT and GOT-10k
+     layouts of 4 sequences of 33 1280x720 frames each, and an LMDB twin of
+     GOT-10k's images (data/minilmdb.py's writer), whose frames must equal
+     the directory's. The decoder (native or cv2) and the LMDB reader (the C
+     lmdb package or minilmdb) that ran are printed; then the loader's
+     seconds per B=32 batch for each corpus (names2datasets -> sampler ->
+     ViPTProcessing -> BatchLoader, one producer thread). deep_rgbd at
+     B=32, bf16 compute, f32 parameters, drop path with CE keep 0.7: the
+     first DepthTrack batch's loss and prompt gradients with the kernels
+     against the plain versions within phase 6's bars (same decode at the
+     plain run's argmax); prompt-only steps from disk, a warm-up and 4
+     counted, then 2 under torch.profiler (the card's idle share over the
+     from-disk window), then 4 on the first batch resident on the card:
+     ms/step, samples/s, the wait on the loader and peak memory, launches
+     exactly 8 / 1 / 1 (flash_mhsa_qkv / attn_block_fused /
+     mlp_block_fused) a step, every prompt leaf moved and every frozen leaf
+     unchanged. OSTrack (every parameter trainable) from the RGB mix
+     (LaSOT + GOT-10k at 1:1, 3-channel crops): a warm-up and 2 counted
+     steps, launches 8 / 1 / 1 a step, every leaf moved but the auxiliary
+     patch embedding, which 3-channel input never reaches and which must
+     equal its start times (1 - lr wd) per step (weight decay alone).
+     Last, `python -m mmtrack_torch.train.run --script ostrack --config
+     rgb_mix.json --bf16` and then `--script vipt --config deep_rgbd --bf16
+     --init <its checkpoint>`, each in its own process with the roots in a
+     local.yaml under a temporary HOME, two B=32 steps each: exit 0, a
+     checkpoint written, and the --init's printed counts (missing = the
+     prompt leaves, unexpected = 0).
 
 Every kernel in the `kernels` line carries bound_ms, the larger of its
 bytes over 3.35 TB/s and its operations over the peak rate of their type
@@ -1120,10 +1149,11 @@ def train_path(cfg, dev) -> dict:
     return counted
 
 
-def train_kernels_vs_plain(cfg, dev) -> None:
+def train_kernels_vs_plain(cfg, dev, batch=None, label="train_kernels_vs_plain") -> None:
     """One step's loss and prompt gradients with the kernels and with
-    their plain versions (use_kernels=False): same weights, batch and
-    drop-path generator. Asserted without candidate elimination, printed
+    their plain versions (use_kernels=False): same weights, batch (the
+    device-resident random batch unless `batch` is given) and drop-path
+    generator. Asserted without candidate elimination, printed
     with it (tied bf16 CE scores on random weights move tokens). The same
     step at f32 compute gives the scale of bf16 rounding for comparison.
 
@@ -1142,7 +1172,8 @@ def train_kernels_vs_plain(cfg, dev) -> None:
                              cfg.MODEL.BACKBONE.CE_TEMPLATE_RANGE, dev)
     ce_lens = ce_keep_schedule((cfg.DATA.SEARCH.SIZE // stride) ** 2,
                                cfg.MODEL.BACKBONE.CE_LOC, cfg.MODEL.BACKBONE.CE_KEEP_RATIO)
-    batch = synthetic_train_batch(cfg, dev)
+    if batch is None:
+        batch = synthetic_train_batch(cfg, dev)
     results, score_maps, cells = {}, {}, {}
     for name, dtype, use_kernels, runs in (("plain", torch.bfloat16, False, (None, ce_lens)),
                                            ("kernels", torch.bfloat16, True, (None, ce_lens)),
@@ -1180,7 +1211,7 @@ def train_kernels_vs_plain(cfg, dev) -> None:
     ties = dict(argmax_differs=(sk.argmax(1) != sp.argmax(1)).nonzero().flatten().tolist(),
                 plain_min_top2_gap=(top2[:, 0] - top2[:, 1]).min().item(),
                 score_map_max_abs_diff=(sk - sp).abs().max().item())
-    log("train_kernels_vs_plain",
+    log(label,
         ce_off=dict(loss_kernels=results["kernels", True][0].item(),
                     loss_plain=results["plain", True][0].item(), **off, **ties),
         ce_on=diff(("kernels", False), ("plain", False)),
@@ -1188,7 +1219,7 @@ def train_kernels_vs_plain(cfg, dev) -> None:
         loss_rel_bar=TRAIN_LOSS_REL_BAR, grad_rel_l2_bar=TRAIN_GRAD_REL_BAR, asserted="ce_off",
         boxes_decoded_at="the plain bf16 run's score-map argmax")
     if off["loss_rel_diff"] > TRAIN_LOSS_REL_BAR or off["grad_rel_l2"] > TRAIN_GRAD_REL_BAR:
-        raise AssertionError(f"train step, kernels vs plain beyond bar: {off}")
+        raise AssertionError(f"{label}: kernels vs plain beyond bar: {off}")
 
 
 XCORR_CASES = (  # (name, N, H, W, C, fh, fw, per-sample filter, pad)
@@ -2254,6 +2285,333 @@ def compose_check(dev, seq) -> None:
         raise AssertionError(f"device rgbcolormap compose: {differ} pixels differ from the host's")
 
 
+DISK_SEQS = 8                       # DepthTrack and LasHeR sequences of OPE_FRAMES, 640x480
+RGB_SEQS, RGB_HW = 4, (720, 1280)   # LaSOT and GOT-10k sequences each, 1280x720
+LOADER_BATCHES = 2                  # B=32 batches timed per corpus
+DISK_STEPS = 4                      # counted vipt steps from disk (and on a resident batch)
+DISK_PROFILED = 2                   # vipt steps from disk under torch.profiler
+OSTRACK_STEPS = 2                   # counted ostrack steps from disk
+ENTRY_SAMPLES = 2 * TRAIN_B         # two steps per entry run
+DISK_PER_STEP = {"flash_mhsa_qkv": 8, "attn_block_fused": 1, "mlp_block_fused": 1}
+RGB_MIX = {"DATA": {"TRAIN": {"DATASETS_NAME": ["LASOT", "GOT10K_vottrain"],
+                              "DATASETS_RATIO": [1, 1]}}}
+
+
+def train_fixture(root: str) -> dict:
+    """The training corpora in their own layouts under root, written by 8
+    threads: DepthTrack (phase 9's fixture), LasHeR (visible/ + infrared/
+    JPEGs of the synthetic RGB and aux triplets), LaSOT (class/sequence
+    nesting, occlusion files) and GOT-10k (list.txt, absence and cover
+    labels) at 1280x720, and an LMDB twin of GOT-10k's images
+    (data/minilmdb.py's writer). Returns the roots by dataset name and
+    "lmdb"."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mmtrack_torch.data.minilmdb import write_fixture
+
+    roots = {n: os.path.join(root, n) for n in ("DepthTrack_train", "LasHeR_all", "LASOT",
+                                                "GOT10K_vottrain")}
+    ope_fixture(roots["DepthTrack_train"], n_seqs=DISK_SEQS)
+    jobs, texts = [], {}
+    for corpus, n_seqs, (H, W) in (("LasHeR_all", DISK_SEQS, OPE_HW),
+                                   ("LASOT", RGB_SEQS, RGB_HW),
+                                   ("GOT10K_vottrain", RGB_SEQS, RGB_HW)):
+        for i in range(n_seqs):
+            rng = np.random.RandomState(300 + i)
+            box0 = (rng.uniform(0.1, 0.6) * W, rng.uniform(0.1, 0.6) * H,
+                    rng.uniform(0.08, 0.15) * W, rng.uniform(0.1, 0.2) * H)
+            frames, gt = make_synthetic_sequence(
+                n_frames=OPE_FRAMES, height=H, width=W, seed=300 + i, box0=box0,
+                velocity=tuple(rng.uniform(-8, 8, 2)), channels=6 if corpus == "LasHeR_all" else 3)
+            gt_txt = "\n".join(",".join(f"{v:.4f}" for v in b) for b in gt) + "\n"
+            flags = ",".join(["0"] * OPE_FRAMES) + "\n"
+            if corpus == "LasHeR_all":
+                seq = os.path.join(roots[corpus], f"seq{i:02d}")
+                images = {os.path.join(seq, sub, f"{t:05d}.jpg"): frames[t, :, :, c:c + 3]
+                          for t in range(OPE_FRAMES)
+                          for sub, c in (("visible", 0), ("infrared", 3))}
+                texts[os.path.join(seq, "visible.txt")] = gt_txt
+            elif corpus == "LASOT":
+                cls = ("cat", "dog")[i % 2]
+                seq = os.path.join(roots[corpus], cls, f"{cls}-{i + 1}")
+                images = {os.path.join(seq, "img", f"{t + 1:08d}.jpg"): frames[t]
+                          for t in range(OPE_FRAMES)}
+                texts.update({os.path.join(seq, "groundtruth.txt"): gt_txt,
+                              os.path.join(seq, "full_occlusion.txt"): flags,
+                              os.path.join(seq, "out_of_view.txt"): flags})
+            else:
+                seq = os.path.join(roots[corpus], f"GOT-10k_Train_{i + 1:06d}")
+                images = {os.path.join(seq, f"{t + 1:08d}.jpg"): frames[t]
+                          for t in range(OPE_FRAMES)}
+                texts.update({os.path.join(seq, "groundtruth.txt"): gt_txt,
+                              os.path.join(seq, "absence.label"): "0\n" * OPE_FRAMES,
+                              os.path.join(seq, "cover.label"): "8\n" * OPE_FRAMES})
+            for path, img in images.items():
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                jobs.append((path, cv2.cvtColor(img, cv2.COLOR_RGB2BGR)))
+    texts[os.path.join(roots["GOT10K_vottrain"], "list.txt")] = "".join(
+        f"GOT-10k_Train_{i + 1:06d}\n" for i in range(RGB_SEQS))
+    for path, text in texts.items():
+        with open(path, "w") as f:
+            f.write(text)
+    with ThreadPoolExecutor(8) as pool:
+        if not all(pool.map(lambda job: cv2.imwrite(*job), jobs)):
+            raise IOError("could not write the training fixture")
+    got = roots["GOT10K_vottrain"]
+    items = {}
+    for d, _, files in os.walk(got):
+        for f in files:
+            if f.endswith(".jpg"):
+                with open(os.path.join(d, f), "rb") as fh:
+                    items[os.path.relpath(os.path.join(d, f), got)] = fh.read()
+    roots["lmdb"] = os.path.join(root, "GOT10K_lmdb")
+    write_fixture(roots["lmdb"], items)
+    return roots
+
+
+def disk_loader(datasets, ratios, cfg, n_batches: int, seed: int = 0) -> BatchLoader:
+    sampler = TrackingSampler(datasets, ratios, samples_per_epoch=n_batches * TRAIN_B,
+                              max_gap=cfg.DATA.MAX_SAMPLE_INTERVAL,
+                              processing=processing_from_config(cfg), seed=seed)
+    return BatchLoader(sampler, TRAIN_B)
+
+
+def disk_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in (flash_mhsa_qkv, attn_block_fused,
+                                                mlp_block_fused)}
+
+
+def disk_steps(state, step, batches, n: int) -> tuple[float, float, list]:
+    """n train steps, each on the loader's next batch: (seconds, seconds
+    waiting on the loader, losses), synchronised at the end."""
+    wait, losses = 0.0, []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        w0 = time.perf_counter()
+        batch = next(batches)
+        wait += time.perf_counter() - w0
+        losses.append(state_step(state, step, batch))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, wait, losses
+
+
+def train_entries(tmp: str, roots: dict) -> None:
+    """`python -m mmtrack_torch.train.run` as a user runs it, each in its
+    own process, with the roots in a local.yaml under a temporary HOME:
+    --script ostrack on the RGB mix (a JSON override), then --script vipt
+    --config deep_rgbd with --init from the ostrack checkpoint; bf16, two
+    B=32 steps each. Both must exit 0 and write their checkpoint, and the
+    --init must load every name but the prompts' (missing = the prompt
+    leaves, unexpected = 0)."""
+    import yaml
+
+    home = os.path.join(tmp, "home")
+    os.makedirs(os.path.join(home, ".mmtrack_tpu"))
+    with open(os.path.join(home, ".mmtrack_tpu", "local.yaml"), "w") as f:
+        yaml.safe_dump({"datasets": {"depthtrack_dir": roots["DepthTrack_train"],
+                                     "lasot_dir": roots["LASOT"],
+                                     "got10k_dir": roots["GOT10K_vottrain"]}}, f)
+    mix = os.path.join(tmp, "rgb_mix.json")
+    with open(mix, "w") as f:
+        json.dump(RGB_MIX, f)
+    ws = os.path.join(tmp, "workspace")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, HOME=home,
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    prior = os.path.join(ws, "ostrack-rgb_mix", "checkpoints", "epoch_0001.pt")
+    n_prompt = sum(k.startswith(("backbone.prompt_blocks.", "backbone.prompt_norms."))
+                   for k in build_viptrack(vipt_experiment_config("deep_rgbd"),
+                                           device="meta").state_dict())
+    for script, config, extra, ckpt in (
+            ("ostrack", mix, [], prior),
+            ("vipt", "deep_rgbd", ["--init", prior],
+             os.path.join(ws, "vipt-deep_rgbd", "checkpoints", "epoch_0001.pt"))):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "mmtrack_torch.train.run", "--script", script,
+                               "--config", config, "--bf16", "--epochs", "1", "--samples",
+                               str(ENTRY_SAMPLES), "--save_dir", ws] + extra,
+                              cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        log("train_disk_entry", script=script, config=os.path.basename(config), seconds=seconds,
+            returncode=proc.returncode, checkpoint=os.path.exists(ckpt), stdout=lines[-8:])
+        if proc.returncode != 0 or not os.path.exists(ckpt):
+            raise AssertionError(f"train entry --script {script} exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        if extra and f"--init {prior}: loaded; missing={n_prompt} unexpected=0" not in lines:
+            raise AssertionError(f"train entry --init: {lines}")
+
+
+def train_disk_path(cfg, dev) -> dict:
+    """Phase 11: training from disk. Returns the launches of each kernel
+    counted in it."""
+    from mmtrack_torch.data import native_io
+    from mmtrack_torch.data.datasets import names2datasets
+    from mmtrack_torch.data.image_loader import opencv_loader
+    from mmtrack_torch.data.lmdb_backend import LmdbBackend, wrap_dataset_with_lmdb
+    from mmtrack_torch.data.rgb_datasets import GOT10k
+
+    counted = dict.fromkeys(DISK_PER_STEP, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        roots = train_fixture(os.path.join(tmp, "data"))
+        write_s = time.perf_counter() - t0
+        reader = LmdbBackend(roots["lmdb"]).reader
+        log("train_disk_env", decoder=native_io.decoder(), decoder_error=native_io.load_error(),
+            lmdb_reader=reader, cpu_count=os.cpu_count(), fixture_write_s=write_s,
+            corpora={"DepthTrack_train": f"{DISK_SEQS} x {OPE_FRAMES} x {OPE_HW[1]}x{OPE_HW[0]}",
+                     "LasHeR_all": f"{DISK_SEQS} x {OPE_FRAMES} x {OPE_HW[1]}x{OPE_HW[0]}",
+                     "LASOT": f"{RGB_SEQS} x {OPE_FRAMES} x {RGB_HW[1]}x{RGB_HW[0]}",
+                     "GOT10K_vottrain": f"{RGB_SEQS} x {OPE_FRAMES} x {RGB_HW[1]}x{RGB_HW[0]}"})
+
+        # the LMDB twin reads the directory twin's frames (cv2, as the
+        # backend decodes)
+        got = roots["GOT10K_vottrain"]
+        twin, plain = wrap_dataset_with_lmdb(GOT10k, roots["lmdb"], got), GOT10k(
+            got, image_loader=opencv_loader)
+        ids = [0, OPE_FRAMES // 2, OPE_FRAMES - 1]
+        if not all(np.array_equal(a, b) for a, b in zip(twin.get_frames(0, ids)[0],
+                                                        plain.get_frames(0, ids)[0])):
+            raise AssertionError("train_disk: LMDB twin frames differ from the directory's")
+
+        rows = {label: (names2datasets(names, {n: roots[n] for n in names}), ratios)
+                for label, (names, ratios) in (
+                    ("DepthTrack_train (rgbcolormap)", (["DepthTrack_train"], [1])),
+                    ("LasHeR_all (rgbrgb)", (["LasHeR_all"], [1])),
+                    ("LASOT + GOT10K_vottrain (rgb, 1:1)", (["LASOT", "GOT10K_vottrain"], [1, 1])))}
+        rows[f"GOT10K_vottrain LMDB twin ({reader})"] = ([twin], [1])
+        loader_s = {}
+        for label, (sets, ratios) in rows.items():
+            t0 = time.perf_counter()
+            shapes = [list(b["search"].shape) for b in disk_loader(sets, ratios, cfg,
+                                                                    LOADER_BATCHES)]
+            loader_s[label] = (time.perf_counter() - t0) / LOADER_BATCHES
+            log("train_disk_loader", corpus=label, B=TRAIN_B, batches=LOADER_BATCHES,
+                seconds_per_batch=loader_s[label], search_shapes=shapes)
+
+        # vipt (prompt-only) on DepthTrack from disk, drop path + CE keep 0.7
+        stride = cfg.MODEL.BACKBONE.STRIDE
+        ce_lens = ce_keep_schedule((cfg.DATA.SEARCH.SIZE // stride) ** 2,
+                                   cfg.MODEL.BACKBONE.CE_LOC, cfg.MODEL.BACKBONE.CE_KEEP_RATIO)
+        mask = generate_ctr_mask(cfg.DATA.TEMPLATE.SIZE // stride,
+                                 cfg.MODEL.BACKBONE.CE_TEMPLATE_RANGE, dev)
+        step = make_train_step(box_mask_z=mask, ce_keep_lens=ce_lens,
+                               weights=(cfg.TRAIN.GIOU_WEIGHT, cfg.TRAIN.L1_WEIGHT,
+                                        cfg.TRAIN.FOCAL_WEIGHT),
+                               search_size=cfg.DATA.SEARCH.SIZE, stride=stride, seed=0)
+
+        def trainer(build, mask_fn):
+            model = build(cfg, dtype=torch.bfloat16, param_dtype=torch.float32, device=dev,
+                          seed=0)
+            opt, sched = build_optimizer(model, lr=cfg.TRAIN.LR,
+                                         weight_decay=cfg.TRAIN.WEIGHT_DECAY,
+                                         grad_clip_norm=cfg.TRAIN.GRAD_CLIP_NORM,
+                                         trainable_mask=mask_fn(model))
+            return TrainState(model, opt, sched), {k: v.clone()
+                                                   for k, v in model.state_dict().items()}
+
+        sets, _ = rows["DepthTrack_train (rgbcolormap)"]
+        first = next(iter(disk_loader(sets, [1], cfg, 1)))
+        first_dev = {k: torch.as_tensor(first[k], device=dev)
+                     for k in ("template", "search", "search_anno")}
+        train_kernels_vs_plain(cfg, dev, batch=first_dev, label="train_disk_kernels_vs_plain")
+        state, start = trainer(build_viptrack, prompt_only_mask)
+        state_step(state, step, first_dev)                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in (flash_mhsa_qkv, attn_block_fused, mlp_block_fused):
+            fn.launches = 0
+        # a loader started with the timed steps, as at an epoch's start: its
+        # one thread is slower than the step, so no batch waits in its queue
+        batches = iter(disk_loader(sets, [1], cfg, DISK_STEPS + DISK_PROFILED, seed=1))
+        disk_s, wait_s, losses = disk_steps(state, step, batches, DISK_STEPS)
+        launches = disk_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        counts, device_ms, wall_ms = profile_pass(
+            lambda: disk_steps(state, step, batches, DISK_PROFILED), dev,
+            kernels={"attention": (ATTENTION_KERNELS, 9)})
+        for fn in (flash_mhsa_qkv, attn_block_fused, mlp_block_fused):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(DISK_STEPS):
+            losses.append(state_step(state, step, first_dev))
+        torch.cuda.synchronize()
+        resident_s = time.perf_counter() - t0
+        resident = disk_counts()
+        expected = {k: n * DISK_STEPS for k, n in DISK_PER_STEP.items()}
+        after = state.model.state_dict()
+        moved = [k for k in after if "prompt" in k and not torch.equal(after[k], start[k])]
+        n_prompt = sum("prompt" in k for k in after)
+        frozen_changed = [k for k in after
+                          if "prompt" not in k and not torch.equal(after[k], start[k])]
+        losses = [float(v) for v in losses]
+        log("train_disk", script="vipt", config="deep_rgbd", corpus="DepthTrack_train",
+            dtype="bf16 compute, f32 params", B=TRAIN_B, steps=DISK_STEPS,
+            ms_per_step=disk_s / DISK_STEPS * 1e3, samples_per_s=TRAIN_B * DISK_STEPS / disk_s,
+            loader_wait_ms_per_step=wait_s / DISK_STEPS * 1e3,
+            resident_ms_per_step=resident_s / DISK_STEPS * 1e3,
+            resident_samples_per_s=TRAIN_B * DISK_STEPS / resident_s,
+            profiled_steps=DISK_PROFILED, profiled_wall_ms=wall_ms, profiled_device_ms=device_ms,
+            idle_share=1 - device_ms / wall_ms, profiled_attention_kernels=counts["attention"],
+            max_memory_allocated_gib=peak, launches=launches, resident_launches=resident,
+            expected=expected, loss_first=losses[0], loss_last=losses[-1],
+            all_finite=bool(np.isfinite(losses).all()),
+            prompt_leaves_moved=f"{len(moved)}/{n_prompt}", frozen_leaves_changed=frozen_changed,
+            loader_seconds_per_batch=loader_s, card=card_line())
+        if launches != expected or resident != expected:
+            raise AssertionError(f"train_disk vipt: launches {launches} / {resident}, "
+                                 f"want {expected}")
+        if not np.isfinite(losses).all() or len(moved) != n_prompt or frozen_changed:
+            raise AssertionError("train_disk vipt: non-finite loss, unmoved prompt leaf or "
+                                 "changed frozen leaf")
+        for k, n in launches.items():
+            counted[k] += 2 * n
+        del state, start, after
+        torch.cuda.empty_cache()
+
+        # ostrack (every parameter) on the RGB mix from disk: 3-channel
+        # crops never reach the auxiliary patch embedding, which only
+        # weight decay moves
+        sets, ratios = rows["LASOT + GOT10K_vottrain (rgb, 1:1)"]
+        state, start = trainer(build_ostrack, lambda model: None)
+        warm = next(iter(disk_loader(sets, ratios, cfg, 1)))
+        if warm["search"].shape[-1] != 3:
+            raise AssertionError(f"train_disk ostrack: batch {warm['search'].shape}")
+        state_step(state, step, warm)
+        torch.cuda.synchronize()
+        for fn in (flash_mhsa_qkv, attn_block_fused, mlp_block_fused):
+            fn.launches = 0
+        batches = iter(disk_loader(sets, ratios, cfg, OSTRACK_STEPS, seed=1))
+        disk_s, wait_s, losses = disk_steps(state, step, batches, OSTRACK_STEPS)
+        launches = disk_counts()
+        expected = {k: n * OSTRACK_STEPS for k, n in DISK_PER_STEP.items()}
+        after = state.model.state_dict()
+        decay = 1 - cfg.TRAIN.LR * cfg.TRAIN.WEIGHT_DECAY
+        unreached = [k for k in after if "patch_embed_prompt" in k]
+        unmoved = [k for k in after if k not in unreached and torch.equal(after[k], start[k])]
+        decay_only = all(torch.allclose(after[k], start[k] * decay ** (1 + OSTRACK_STEPS),
+                                        rtol=1e-6, atol=0) for k in unreached)
+        losses = [float(v) for v in losses]
+        log("train_disk", script="ostrack", config="deep_rgbd + RGB mix",
+            corpus="LASOT + GOT10K_vottrain", dtype="bf16 compute, f32 params", B=TRAIN_B,
+            steps=OSTRACK_STEPS, ms_per_step=disk_s / OSTRACK_STEPS * 1e3,
+            samples_per_s=TRAIN_B * OSTRACK_STEPS / disk_s,
+            loader_wait_ms_per_step=wait_s / OSTRACK_STEPS * 1e3, launches=launches,
+            expected=expected, losses=losses, leaves=len(after),
+            leaves_moved=len(after) - len(unmoved) - len(unreached), unmoved=unmoved,
+            patch_embed_prompt_by_decay_only=decay_only, card=card_line())
+        if launches != expected or unmoved or not decay_only or not np.isfinite(losses).all():
+            raise AssertionError("train_disk ostrack: launches, an unmoved leaf, the auxiliary "
+                                 "embedding or a non-finite loss")
+        for k, n in launches.items():
+            counted[k] += n
+        del state, start, after
+        torch.cuda.empty_cache()
+
+        train_entries(tmp, roots)
+    return counted
+
+
 def main() -> int:
     dev = require_cuda()
     card = card_line()
@@ -2314,6 +2672,8 @@ def main() -> int:
     for name, n in ope_path(dev, cfg, rt).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in zoo_path(dev).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in train_disk_path(cfg, dev).items():
         launches[name] = launches.get(name, 0) + n
 
     zoo_rows["crop_resize_normalized"] = [r for r in crop_rows if r["zoo"]]

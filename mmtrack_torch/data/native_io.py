@@ -179,11 +179,9 @@ def _decode_file(fn, path: str, out: np.ndarray, out_ptr) -> tuple[int, int] | N
     return h.value, w.value
 
 
-# decode_jpeg_rgb, decode_png_u16 and depth_index_u8_native are the
-# training image loader's decoders in the JAX package
-# (mmtrack_tpu/data/image_loader.py); the port's copy of that loader, with
-# the on-disk training datasets (ROADMAP, training's open parts), is their
-# caller to come.
+# decode_jpeg_rgb is the first decoder of the training image loader
+# (data/image_loader.py); decode_png_u16 and depth_index_u8_native are the
+# single-file forms of the pair decode, as in the JAX package.
 
 def decode_jpeg_rgb(path: str, out: np.ndarray | None = None,
                     max_hw: tuple[int, int] = (4096, 4096)) -> np.ndarray | None:

@@ -1,4 +1,5 @@
-"""Machine-local path configuration: the dataset roots of the OPE entry.
+"""Machine-local path configuration: the dataset roots of the OPE and
+training entries.
 
 Port of mmtrack_tpu/utils/env.py:14-61 (`EnvironmentSettings`,
 `load_env_settings`), the reference's generated `local.py`
@@ -34,12 +35,17 @@ class EnvironmentSettings:
     path: str = DEFAULT_PATH
 
     def dataset_root(self, name: str) -> str:
+        """The root of dataset `name` under the key of its first word:
+        datasets.lasot_dir for LASOT, got10k_dir for GOT10K_vottrain, as
+        the JAX package reads it. So COCO17 reads coco17_dir and IMAGENETVID
+        imagenetvid_dir, which the defaults do not list (they list coco_dir
+        and imagenet_dir): a local.yaml that adds those keys serves both
+        packages."""
         key = name.lower().split("_")[0] + "_dir"
         root = self.datasets.get(key, "")
         if not root:
             raise FileNotFoundError(
-                f"dataset root for '{name}' not configured: set datasets.{key} in "
-                f"{self.path} or pass --dataset_root")
+                f"dataset root for '{name}' not configured: set datasets.{key} in {self.path}")
         return root
 
 
