@@ -212,6 +212,22 @@ non-zero:
      local.yaml under a temporary HOME, two B=32 steps each: exit 0, a
      checkpoint written, and the --init's printed counts (missing = the
      prompt leaves, unexpected = 0).
+ 12. atom_dcf: the ATOM and DCF families, the eight recipes atom,
+     det_atom_{max,mean,mc} (rgbcolormap frames), eco, ccot, mosse and
+     scsrdcf (colour frames) from the registry at f32 on seeded weights
+     over a 33-frame 640x480 sequence of phase 9's fixture: every box
+     finite and inside its frame (ATOM's, which its IoU refinement does
+     not clip, its centre), no launch of any of the five kernels (the
+     crops are the plain `crop_at`, the FFTs torch.fft), the median ms per
+     frame, host syncs per frame from torch.cuda's sync debug mode over 4
+     more frames with their Python sites, ATOM's flags and the CG
+     iterations run; one profiled frame each of det_atom_max and eco
+     (device ms, idle share, kernels); each of the two on the card against
+     the CPU from the card's state on the 10th frame, whose filter update
+     runs its CG (det_atom_max with the not-found threshold at 0: box
+     within 1e-3 px; eco within 1e-2 px, cuFFT against pocketfft; scores
+     within 1e-4); and `run_ope --tracker eco --analyze` in its own
+     process, its report equal to the in-process analysis.
 
 Every kernel in the `kernels` line carries bound_ms, the larger of its
 bytes over 3.35 TB/s and its operations over the peak rate of their type
@@ -1820,7 +1836,8 @@ class FrameRecorder:
 
 ZOO = ("ostrack", "ostrack_online", "stark_s", "stark_st", "spt", "siamfc",
        "mixformer_rgbd", "samf", "promixtrack")
-ZOO_ENTRIES = ("spt", "samf", "det_dimp50_max")   # run_ope --tracker in its own process
+# run_ope --tracker in its own process (eco in phase 12)
+ZOO_ENTRIES = ("spt", "samf", "det_dimp50_max", "eco")
 # the DiMP family (PR 10): no kernel of the port runs on its path
 DIMP_ZOO = ("dimp50", "det_dimp50_max", "det_dimp50_mean", "det_dimp50_mul",
             "det_dimp50_weightedsum", "det_dimp50_mc", "mfdimp", "prdimp50")
@@ -1832,6 +1849,8 @@ DIMP_SCORE_BAR = 1e-4               # and score
 KERNEL_COUNTERS = (attn_block_fused, mlp_block_fused, crop_resize_normalized, flash_mhsa_qkv,
                    depthwise_xcorr)
 ZOO_WARMUP = 3                      # frames left out of the median ms per frame
+# trackers whose box is not clipped to the frame: zoo_boxes_ok checks their centre
+UNCLIPPED = ("siamfc", "atom", "det_atom_max", "det_atom_mean", "det_atom_mc")
 # OSTrack-online's attention half-blocks per frame: blocks 0-2 at L = 464
 # and 4-5 at 344 take the streaming branch, 7-8 at 260 and 10-11 at 202 the
 # resident one (the CE blocks 3, 6, 9 run unfused)
@@ -1842,10 +1861,11 @@ OO_PROFILE_FRAMES = 3
 
 def zoo_boxes_ok(name: str, boxes: np.ndarray, H: int, W: int) -> bool:
     """Every box finite and inside the H x W frame; SiamFC's protocol does
-    not clip its box (siamfc_tracker.py:125-146), so its centre."""
+    not clip its box (siamfc_tracker.py:125-146), nor does ATOM's after the
+    IoU refinement (atom_tracker.py:430-438), so their centres."""
     if not np.isfinite(boxes).all():
         return False
-    if name == "siamfc":
+    if name in UNCLIPPED:
         cx, cy = boxes[:, 0] + boxes[:, 2] / 2, boxes[:, 1] + boxes[:, 3] / 2
         return bool(((cx >= 0) & (cx <= W) & (cy >= 0) & (cy <= H)).all())
     return bool((boxes[:, :2] >= 0).all() and (boxes[:, 0] + boxes[:, 2] <= W + 1e-3).all()
@@ -1889,7 +1909,6 @@ def oo_forward(dev, model, plain, templates, searches, rt) -> None:
 def zoo_path(dev) -> dict:
     """Phase 10: the zoo's six recipes, OSTrack-online at bf16 and the spt
     entry. Returns the launches of each kernel counted in it."""
-    from mmtrack_torch.eval.analysis import analyze_fscore, analyze_ope
     from mmtrack_torch.eval.datasets import list_sequences, load_sequence
     from mmtrack_torch.eval.ope import result_path, run_sequence, save_result
 
@@ -2017,47 +2036,61 @@ def zoo_path(dev) -> dict:
         compose_check(dev, load_sequence(seq_dir, "DepthTrack"))
 
         # the entries, as a user runs them, each in its own process
-        env = dict(os.environ)
-        here = os.path.dirname(os.path.abspath(__file__))
-        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
-        seqs = [load_sequence(seq_dir, "DepthTrack")]
-        for name in ZOO_ENTRIES:
-            entry_root = os.path.join(tmp, f"entry_{name}")
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-m", "mmtrack_torch.eval.run_ope",
-                                   "--tracker", name, "--dataset", "DepthTrack",
-                                   "--dataset_root", root, "--analyze",
-                                   "--results_root", entry_root],
-                                  cwd=tmp, env=env, capture_output=True, text=True,
-                                  timeout=600)
-            entry_s = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise AssertionError(f"{name} entry exited {proc.returncode}: "
-                                     f"{proc.stderr[-3000:]}")
-            path = result_path(entry_root, "DepthTrack", name, seqs[0].name)
-            written = os.path.exists(path)
-            with open(os.path.join(entry_root, "DepthTrack", f"{name}_report.json")) as f:
-                report = json.load(f)
-            ope_in = analyze_ope(seqs, res_in, "DepthTrack", name)["overall"]
-            want = {"ope": {k: v for k, v in ope_in.items() if np.isscalar(v)},
-                    "fscore": analyze_fscore(seqs, res_in, "DepthTrack", name)}
-            same = report == json.loads(json.dumps(want))
-            box_diff = float(np.abs(
-                np.loadtxt(path, delimiter=",")
-                - np.loadtxt(result_path(res_in, "DepthTrack", name, seqs[0].name),
-                             delimiter=",")).max())
-            log("zoo_entry", tracker=name, seconds=entry_s, result_file=written,
-                stdout=proc.stdout.splitlines()[-6:], report_equal=same,
-                boxes_max_abs_diff_vs_in_process_px=box_diff)
-            if not written or not same:
-                raise AssertionError(f"{name} entry: result file {written}, report equal "
-                                     f"{same}: {report} vs {want}")
+        check_entries([n for n in ZOO_ENTRIES if n in ZOO + DIMP_ZOO], root, seq_dir, res_in,
+                      tmp)
     return counted
 
 
-def host_syncs(fn) -> int:
+def check_entries(names, root: str, seq_dir: str, res_in: str, tmp: str) -> None:
+    """`python -m mmtrack_torch.eval.run_ope --tracker <name> --analyze` for
+    each name, each in its own process over the DepthTrack layout at root:
+    exit 0, a result file, and a report equal to the analysis of the
+    in-process run's results under res_in."""
+    from mmtrack_torch.eval.analysis import analyze_fscore, analyze_ope
+    from mmtrack_torch.eval.datasets import load_sequence
+    from mmtrack_torch.eval.ope import result_path
+
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    seqs = [load_sequence(seq_dir, "DepthTrack")]
+    for name in names:
+        entry_root = os.path.join(tmp, f"entry_{name}")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "mmtrack_torch.eval.run_ope",
+                               "--tracker", name, "--dataset", "DepthTrack",
+                               "--dataset_root", root, "--analyze",
+                               "--results_root", entry_root],
+                              cwd=tmp, env=env, capture_output=True, text=True,
+                              timeout=600)
+        entry_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} entry exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        path = result_path(entry_root, "DepthTrack", name, seqs[0].name)
+        written = os.path.exists(path)
+        with open(os.path.join(entry_root, "DepthTrack", f"{name}_report.json")) as f:
+            report = json.load(f)
+        ope_in = analyze_ope(seqs, res_in, "DepthTrack", name)["overall"]
+        want = {"ope": {k: v for k, v in ope_in.items() if np.isscalar(v)},
+                "fscore": analyze_fscore(seqs, res_in, "DepthTrack", name)}
+        same = report == json.loads(json.dumps(want))
+        box_diff = float(np.abs(
+            np.loadtxt(path, delimiter=",")
+            - np.loadtxt(result_path(res_in, "DepthTrack", name, seqs[0].name),
+                         delimiter=",")).max())
+        log("zoo_entry", tracker=name, seconds=entry_s, result_file=written,
+            stdout=proc.stdout.splitlines()[-6:], report_equal=same,
+            boxes_max_abs_diff_vs_in_process_px=box_diff)
+        if not written or not same:
+            raise AssertionError(f"{name} entry: result file {written}, report equal "
+                                 f"{same}: {report} vs {want}")
+
+
+def host_sync_sites(fn) -> list:
     """The synchronizing CUDA calls fn() makes (a blocking copy either way,
-    `.item()`, a stream sync), as torch.cuda's sync debug mode reports them."""
+    `.item()`, a stream sync), as torch.cuda's sync debug mode reports
+    them: the Python file:line of each."""
     import warnings
 
     with warnings.catch_warnings(record=True) as caught:
@@ -2067,7 +2100,13 @@ def host_syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def host_syncs(fn) -> int:
+    """The number of `host_sync_sites` of fn()."""
+    return len(host_sync_sites(fn))
 
 
 def thermal_frames(seq) -> list:
@@ -2611,6 +2650,190 @@ def train_disk_path(cfg, dev) -> dict:
         train_entries(tmp, roots)
     return counted
 
+# phase 12: the ATOM and DCF families; no kernel of the port runs on
+# their paths
+ATOM_DCF = ("atom", "det_atom_max", "det_atom_mean", "det_atom_mc", "eco", "ccot", "mosse",
+            "scsrdcf")
+ATOM_DCF_PROFILED = ("det_atom_max", "eco")
+ATOM_BOX_BAR = 1e-3                 # det_atom_max card vs CPU: box, px
+ECO_BOX_BAR = 1e-2                  # eco card vs CPU: box, px (cuFFT against pocketfft)
+SCORE_BAR = 1e-4                    # and score, both
+CARD_VS_CPU_FRAME = 10              # the compared frame: frame_num 11 runs the filter CG
+
+
+def tree_to(x, dev):
+    """Tensors of a state or constants tree (dicts, tuples, lists) on dev."""
+    if isinstance(x, dict):
+        return {k: tree_to(v, dev) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(tree_to(v, dev) for v in x)
+    return x.to(dev) if torch.is_tensor(x) else x
+
+
+def atom_dcf_path(dev) -> None:
+    """Phase 12: the eight ATOM and DCF recipes from the registry at f32 on
+    seeded weights over phase 10's 33-frame 640x480 sequence: boxes, the
+    median ms per frame after ZOO_WARMUP frames, host syncs per frame, the
+    flags (ATOM) and CG iterations run, no kernel launch; one profiled
+    frame of det_atom_max and eco; both on the card against the CPU; the
+    eco entry in its own process."""
+    from mmtrack_torch.eval.datasets import list_sequences, load_sequence
+    from mmtrack_torch.eval.ope import result_path, run_sequence, save_result
+
+    H, W = OPE_HW
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "DepthTrack")
+        ope_fixture(root, n_seqs=1)
+        seq_dir = list_sequences(root, "DepthTrack")[0]
+        res_in = os.path.join(tmp, "in_process")
+        for name in ATOM_DCF:
+            recipe = TRACKER_REGISTRY[name]
+            seq = load_sequence(seq_dir, "DepthTrack")
+            seq.dtype = recipe.composition
+            t0 = time.perf_counter()
+            tracker = FrameRecorder(recipe.build(device=dev))
+            build_s = time.perf_counter() - t0
+            for fn in KERNEL_COUNTERS:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = run_sequence(tracker, seq)
+            run_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in KERNEL_COUNTERS}
+            want = dict.fromkeys(launches, 0)
+            inner = tracker.tracker
+            flags = dict(getattr(inner, "flags", {}))
+            cg_iters = getattr(inner, "cg_iters", 0)
+            last = get_x_frame(seq.rgb_frames[-1], seq.x_frames[-1], seq.dtype, seq.depth_clip)
+            sites = host_sync_sites(lambda: [inner.track(last) for _ in range(DIMP_SYNC_FRAMES)])
+            extra = {}
+            if name in ATOM_DCF_PROFILED:
+                rows, wall_s = profile_window(lambda: inner.track(last), 1)
+                dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+                extra = dict(profiled_frame_device_ms=dev_ms, profiled_frame_wall_ms=wall_s * 1e3,
+                             device_idle_share=1.0 - dev_ms / (wall_s * 1e3),
+                             profiled_frame_kernels=sum(e.count for e in rows),
+                             top_kernels=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                                          for e in rows[:6]])
+            ok = zoo_boxes_ok(name, res["boxes"], H, W)
+            log("atom_dcf", tracker=name, family=recipe.family, modality=recipe.modality,
+                composition=recipe.composition, dtype="f32", frames=OPE_FRAMES,
+                frame=f"{W}x{H}", sample_size=inner.geom.sample_sz if hasattr(inner, "geom")
+                else inner.rt.image_sample_size, boxes_ok=ok, launches=launches, expected=want,
+                median_ms_per_frame=float(np.median(tracker.ms[ZOO_WARMUP:])),
+                first_frame_ms=tracker.ms[0], build_s=build_s, sequence_s=run_s,
+                host_syncs_per_frame=len(sites) / DIMP_SYNC_FRAMES,
+                sync_sites=sorted(set(sites)), flags=flags, cg_iters=cg_iters,
+                boxes_extent=[float(res["boxes"][:, 0].min()), float(res["boxes"][:, 1].min()),
+                              float((res["boxes"][:, 0] + res["boxes"][:, 2]).max()),
+                              float((res["boxes"][:, 1] + res["boxes"][:, 3]).max())],
+                **extra, card=card_line())
+            if not ok or launches != want or (flags and sum(flags.values()) != OPE_FRAMES - 1):
+                raise AssertionError(f"atom_dcf {name}: boxes ok {ok}, launches {launches}, "
+                                     f"flags {flags}")
+            if name == "det_atom_max":
+                atom_card_vs_cpu(dev, inner, seq)
+            if name == "eco":
+                eco_card_vs_cpu(dev, inner, seq)
+            if name in ZOO_ENTRIES:
+                save_result(result_path(res_in, "DepthTrack", name, seq.name), res,
+                            fmt=seq.save_fmt, delimiter=seq.save_delimiter,
+                            time_style=seq.time_style)
+            del tracker, inner
+            torch.cuda.empty_cache()
+        check_entries([n for n in ZOO_ENTRIES if n in ATOM_DCF], root, seq_dir, res_in, tmp)
+    log("atom_dcf_phase", seconds=time.perf_counter() - t_phase, recipes=len(ATOM_DCF))
+
+
+def _card_vs_cpu_frames(seq, n: int) -> list:
+    return [get_x_frame(seq.rgb_frames[t], seq.x_frames[t], seq.dtype, seq.depth_clip)
+            for t in range(n + 1)]
+
+
+def atom_card_vs_cpu(dev, tracker, seq) -> None:
+    """det_atom_max on the card (TF32 off) against the same weights and
+    draws on the CPU, where tests/test_torch_atom.py holds the runtime
+    against JAX: the card tracks CARD_VS_CPU_FRAME - 1 frames, the CPU
+    takes its state, and both track the next frame, whose filter update
+    runs 5 CG iterations. The not-found threshold is 0 (the seeded weights
+    score below 0.25), so the frame refines its box and updates the
+    memory. Box within ATOM_BOX_BAR px, score within SCORE_BAR, the same
+    flag, and the updated filters' difference printed."""
+    import dataclasses
+
+    from mmtrack_torch.models.atom import build_det_atom
+    from mmtrack_torch.trackers.atom_tracker import ATOMTracker
+
+    frames = _card_vs_cpu_frames(seq, CARD_VS_CPU_FRAME)
+    rt = dataclasses.replace(tracker.rt, target_not_found_threshold=0.0)
+    card = ATOMTracker(tracker.model, dev, rt)
+    cpu_model = build_det_atom("max")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in tracker.model.state_dict().items()})
+    cpu = ATOMTracker(cpu_model, "cpu", rt)
+    card.initialize(frames[0], {"init_bbox": seq.gt[0].tolist()})
+    for f in frames[1:-1]:
+        card.track(f)
+    cpu._draw = card._draw
+    cpu.state = tree_to(card.state, torch.device("cpu"))
+    draw_state = card._draw.generator.get_state()
+    got = card.track(frames[-1])
+    cpu._draw.generator.set_state(draw_state)
+    t0 = time.perf_counter()
+    want = cpu.track(frames[-1])
+    cpu_s = time.perf_counter() - t0
+    diff = dict(box_max_abs_diff_px=float(np.abs(np.subtract(got["target_bbox"],
+                                                             want["target_bbox"])).max()),
+                score_abs_diff=abs(got["best_score"] - want["best_score"]),
+                flags=(got["flag"], want["flag"]), cg_iters=(got["cg_iters"], want["cg_iters"]),
+                filter_max_abs_diff=float((card.state["filter"].cpu()
+                                           - cpu.state["filter"]).abs().max()))
+    log("atom_dcf_card_vs_cpu", tracker="det_atom_max", frame=CARD_VS_CPU_FRAME, **diff,
+        box_bar=ATOM_BOX_BAR, score_bar=SCORE_BAR, cpu_frame_s=cpu_s,
+        tf32=torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32)
+    if not (diff["box_max_abs_diff_px"] <= ATOM_BOX_BAR and diff["score_abs_diff"] <= SCORE_BAR
+            and got["flag"] == want["flag"] and got["cg_iters"] == want["cg_iters"] > 0):
+        raise AssertionError(f"det_atom_max card vs CPU beyond bars: {diff}")
+
+
+def eco_card_vs_cpu(dev, tracker, seq) -> None:
+    """eco on the card against the same weights on the CPU, where
+    tests/test_torch_eco.py holds the runtime against JAX: the card tracks
+    CARD_VS_CPU_FRAME - 1 frames, the CPU takes its state and constants,
+    and both track the next frame, a training frame (the filter CG with
+    the carried direction). Box within ECO_BOX_BAR px (cuFFT against
+    pocketfft under CG), score within SCORE_BAR."""
+    from mmtrack_torch.models.backbones import resnet18_vggmconv1
+    from mmtrack_torch.trackers.eco_tracker import ECOTracker, eco_trains
+
+    frames = _card_vs_cpu_frames(seq, CARD_VS_CPU_FRAME)
+    card = ECOTracker(tracker.model, dev, tracker.rt)
+    cpu_model = resnet18_vggmconv1()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in tracker.model.state_dict().items()})
+    cpu = ECOTracker(cpu_model, "cpu", tracker.rt)
+    card.initialize(frames[0], {"init_bbox": seq.gt[0].tolist()})
+    for f in frames[1:-1]:
+        card.track(f)
+    cpu_dev = torch.device("cpu")
+    cpu.geom, cpu.consts = card.geom, tree_to(card.consts, cpu_dev)
+    cpu.state = tree_to(card.state, cpu_dev)
+    got = card.track(frames[-1])
+    t0 = time.perf_counter()
+    want = cpu.track(frames[-1])
+    cpu_s = time.perf_counter() - t0
+    diff = dict(box_max_abs_diff_px=float(np.abs(np.subtract(got["target_bbox"],
+                                                             want["target_bbox"])).max()),
+                score_abs_diff=abs(got["best_score"] - want["best_score"]),
+                trained=eco_trains(tracker.rt, card.state["frame_num"]),
+                filter_max_abs_diff=max(float((a.cpu() - b).abs().max()) for a, b in
+                                        zip(card.state["filters"], cpu.state["filters"])))
+    log("atom_dcf_card_vs_cpu", tracker="eco", frame=CARD_VS_CPU_FRAME,
+        sample_size=card.geom.sample_sz, **diff, box_bar=ECO_BOX_BAR, score_bar=SCORE_BAR,
+        cpu_frame_s=cpu_s,
+        tf32=torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32)
+    if not (diff["box_max_abs_diff_px"] <= ECO_BOX_BAR and diff["score_abs_diff"] <= SCORE_BAR
+            and diff["trained"]):
+        raise AssertionError(f"eco card vs CPU beyond bars: {diff}")
+
 
 def main() -> int:
     dev = require_cuda()
@@ -2675,6 +2898,7 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     for name, n in train_disk_path(cfg, dev).items():
         launches[name] = launches.get(name, 0) + n
+    atom_dcf_path(dev)
 
     zoo_rows["crop_resize_normalized"] = [r for r in crop_rows if r["zoo"]]
 

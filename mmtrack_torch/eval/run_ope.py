@@ -19,8 +19,9 @@ either precision. --checkpoint is the port trainer's file (its "model"
 state_dict) or a flax params file (`np.savez(path, params=params)`,
 models/convert.py::load_flax_npz), read through the weight bridge of the
 model's family (`FLAX_BRIDGES`; OSTrack-online's file also holds the
-score head's tree as `cls_params`); an orbax directory and a family
-without a bridge are refused. --tracker takes any of the twenty-three recipes
+score head's tree as `cls_params`); an orbax directory, a family
+without a bridge and a checkpoint for MOSSE or SCSRDCF (which have no
+learned weights) are refused. --tracker takes any of the thirty-one recipes
 of mmtrack_torch/registry.py (`list_trackers()`); a recipe that names its
 own composition (promixtrack's rgbd_blend, ostrack_online's color) composes
 the dataset's frames so, the others as the dataset does. Without --dataset_root
@@ -64,7 +65,8 @@ def load_config(name: str):
 # into the port's state_dict
 FLAX_BRIDGES = {"vipt": "vipt_state_dict_from_flax", "ostrack": "vipt_state_dict_from_flax",
                 "stark": "stark_state_dict_from_flax", "siamfc": "siamfc_state_dict_from_flax",
-                "mixformer": "mixformer_state_dict_from_flax", "dimp": "dimp_state_dict_from_flax"}
+                "mixformer": "mixformer_state_dict_from_flax", "dimp": "dimp_state_dict_from_flax",
+                "eco": "eco_state_dict_from_flax"}
 
 
 def flax_state_dict(path: str, family: str) -> dict:
@@ -141,7 +143,7 @@ def main(argv=None) -> int:
     from mmtrack_torch.eval.datasets import EvalSequence, list_sequences, load_sequence
     from mmtrack_torch.eval.ope import result_path, run_dataset, run_sequence, save_result
     from mmtrack_torch.models.vipt import build_viptrack
-    from mmtrack_torch.registry import TRACKER_REGISTRY, build_tracker
+    from mmtrack_torch.registry import TRACKER_REGISTRY, WEIGHTLESS, build_tracker
     from mmtrack_torch.trackers.vipt_tracker import ViPTRuntime, ViPTTracker, make_track_scan
     from mmtrack_torch.utils.device import require_cuda, set_f32_precision
     from mmtrack_torch.utils.env import load_env_settings
@@ -156,11 +158,13 @@ def main(argv=None) -> int:
     if args.batched > 1 and args.tracker:
         p.error("--batched applies to ViPT configs (no --tracker)")
 
+    if args.checkpoint and args.tracker in WEIGHTLESS:
+        p.error(f"{args.tracker} has no learned weights; it takes no --checkpoint")
     params = None
     if args.checkpoint:
         family = TRACKER_REGISTRY[args.tracker].family if args.tracker else "vipt"
         params = load_checkpoint(args.checkpoint, family)
-    else:
+    elif args.tracker not in WEIGHTLESS:
         print("WARNING: no checkpoint given; using random init (pipeline check)")
 
     if args.tracker:

@@ -28,7 +28,11 @@ that converter reads, so the bridge only relabels and re-lays out:
                     convert_mixformer_checkpoint
   DiMP / DeT        `dimp_state_dict_from_flax`, the inverse of
                     convert_dimp_checkpoint (the backbones stop at layer3,
-                    so the JAX trunks' layer4 leaves are left out)
+                    so the JAX trunks' layer4 leaves are left out); an
+                    ATOMNet tree (ResNet-18 trunks, no classifier, the
+                    (128, 256) IoUNet) takes the same names
+  ECO / C-COT       `eco_state_dict_from_flax` (ResNetVGGm1), the inverse
+                    of convert_eco_backbone_checkpoint up to layer3
 
 Works on numpy arrays; no jax or flax import.
 """
@@ -377,6 +381,26 @@ def dimp_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     hinge = "filter_optimizer/log_step_length" not in flat
     return _tensors(item for p, v in flat.items()
                     if (item := _dimp_leaf(p, v, hinge)) is not None)
+
+
+def _eco_leaf(p: str, value: np.ndarray):
+    """(port name, value) of one ResNetVGGm1 flax leaf; None for layer4,
+    which the port's trunk does not build."""
+    if p.startswith("layer4_"):
+        return None
+    if m := re.fullmatch(r"vggmconv1/(kernel|bias)", p):
+        return _conv("vggmconv1", m.group(1), value)
+    name, v = _resnet_leaf("net", p, value)
+    return name[len("net."):], v
+
+
+def eco_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax `params['params']` tree of a ResNetVGGm1 (ECO's and C-COT's
+    feature net) -> the port's state_dict, named as the reference's
+    resnet18_vggmconv1 (f32 CPU tensors); the inverse of
+    convert_eco_backbone_checkpoint up to layer3."""
+    return _tensors(item for path, v in _flatten(params).items()
+                    if (item := _eco_leaf("/".join(path), v)) is not None)
 
 
 def load_flax_collections(path: str) -> dict:

@@ -1,4 +1,4 @@
-"""Hann windows (port of mmtrack_tpu/ops/window.py:15-40)."""
+"""Hann windows and the Gaussian label map (port of mmtrack_tpu/ops/window.py)."""
 
 from __future__ import annotations
 
@@ -29,3 +29,15 @@ def hann2d(sz_h: int, sz_w: int | None = None, centered: bool = True, dtype=torc
     wy = hann1d(sz_h, centered, dtype, device).reshape(-1, 1)
     wx = hann1d(sz_w, centered, dtype, device).reshape(1, -1)
     return wy * wx
+
+
+def gauss_label_2d(sz_h: int, sz_w: int, sigma_h, sigma_w, center_y=0.0, center_x=0.0,
+                   dtype=torch.float32, device=None) -> torch.Tensor:
+    """Spatial Gaussian label map with its origin at the window centre
+    (port of mmtrack_tpu/ops/window.py:43-55, the reference's
+    label_function_spatial); sigmas and centres may be 0-dim tensors."""
+    ky = torch.arange(-(sz_h - 1) / 2.0, (sz_h + 1) / 2.0, dtype=dtype, device=device)
+    kx = torch.arange(-(sz_w - 1) / 2.0, (sz_w + 1) / 2.0, dtype=dtype, device=device)
+    gy = torch.exp(-1.0 / (2.0 * sigma_h ** 2) * (ky - center_y) ** 2)
+    gx = torch.exp(-1.0 / (2.0 * sigma_w ** 2) * (kx - center_x) ** 2)
+    return gy.reshape(-1, 1) * gx.reshape(1, -1)

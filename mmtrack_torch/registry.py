@@ -1,9 +1,11 @@
 """Tracker recipes the port can build: one name -> (build, modality, family,
-composition), port of mmtrack_tpu/registry.py (:19-90, :226-235,
+composition), port of mmtrack_tpu/registry.py (:19-105, :160-235,
 :302-373, :376-456): the ViPT family, plain OSTrack, OSTrack-online,
-STARK-S, STARK-ST, SPT, SiamFC, MixFormer_RGBD, SAMF, ProMixTrack and the
-DiMP family (DiMP-50, the five DeT_DiMP50 merges, mfDiMP, PrDiMP-50), with
-the JAX recipes' names, modalities, families, compositions and runtimes.
+STARK-S, STARK-ST, SPT, SiamFC, MixFormer_RGBD, SAMF, ProMixTrack, the
+DiMP family (DiMP-50, the five DeT_DiMP50 merges, mfDiMP, PrDiMP-50), ATOM
+with DeT's three RGB-D ATOMs, and the DCF family (ECO, C-COT, MOSSE,
+SCSRDCF), with the JAX recipes' names, modalities, families, compositions
+and runtimes.
 
 `build(seed, params, device)` returns a tracker with the reference
 BaseTracker API (initialize / track). Weights are seeded random unless
@@ -165,6 +167,58 @@ def _dimp(merge_type: Optional[str], prdimp: bool = False) -> Callable:
     return build
 
 
+def _atom(merge_type: Optional[str]) -> Callable:
+    """ATOM (merge None) and DeT's RGB-D ATOMs (registry.py:92-105) with
+    ATOM's default runtime; the tracker's random draws are seeded with
+    `seed` too."""
+    def build(seed: int = 0, params: Optional[dict] = None, device="cuda"):
+        from mmtrack_torch.models.atom import ATOMNet
+        from mmtrack_torch.models.vipt import init_weights
+        from mmtrack_torch.trackers.atom_tracker import ATOMRuntime, ATOMTracker
+        model = ATOMNet(merge_type=merge_type)
+        if params is None:
+            init_weights(model, seed)
+        else:
+            model.load_state_dict(params)
+        return ATOMTracker(model, device, ATOMRuntime(), seed=seed)
+    return build
+
+
+def _eco(ccot: bool = False) -> Callable:
+    """ECO and C-COT over ResNet-18 with the VGG-M conv1 tap
+    (registry.py:160-189)."""
+    def build(seed: int = 0, params: Optional[dict] = None, device="cuda"):
+        from mmtrack_torch.models.backbones import resnet18_vggmconv1
+        from mmtrack_torch.models.vipt import init_weights
+        from mmtrack_torch.trackers.ccot_tracker import CCOTTracker
+        from mmtrack_torch.trackers.eco_tracker import ECORuntime, ECOTracker
+        model = resnet18_vggmconv1()
+        if params is None:
+            init_weights(model, seed)
+        else:
+            model.load_state_dict(params)
+        if ccot:
+            return CCOTTracker(model, device, seed=seed)
+        return ECOTracker(model, device, ECORuntime(), seed=seed)
+    return build
+
+
+# recipes without learned weights: no checkpoint applies
+WEIGHTLESS = ("mosse", "scsrdcf")
+
+
+def _no_weights(kind: str) -> Callable:
+    """MOSSE and SCSRDCF (registry.py:192-223): closed-form filters without
+    learned weights; a checkpoint is refused."""
+    def build(seed: int = 0, params: Optional[dict] = None, device="cuda"):
+        from mmtrack_torch.trackers.mosse_tracker import MOSSETracker
+        from mmtrack_torch.trackers.scsrdcf_tracker import SCSRDCFTracker
+        if params is not None:
+            raise ValueError(f"{kind} has no learned weights; it takes no checkpoint")
+        return MOSSETracker(device) if kind == "mosse" else SCSRDCFTracker(device)
+    return build
+
+
 TRACKER_REGISTRY: dict[str, TrackerRecipe] = {
     **{f"vipt_{kind}_{modality}": TrackerRecipe(_vipt(f"{kind}_{modality}"), modality, "vipt")
        for kind in ("deep", "shaw") for modality in ("rgbd", "rgbt", "rgbe")},
@@ -187,6 +241,15 @@ TRACKER_REGISTRY: dict[str, TrackerRecipe] = {
     # mfDiMP: the RGB-T fusion DiMP, DeT's mean merge on rgbrgb frames
     "mfdimp": TrackerRecipe(_dimp("mean"), "rgbt", "dimp", composition="rgbrgb"),
     "prdimp50": TrackerRecipe(_dimp(None, prdimp=True), "rgb", "dimp"),
+    # ATOM and DeT's RGB-D ATOMs
+    "atom": TrackerRecipe(_atom(None), "rgb", "dimp"),
+    **{f"det_atom_{name}": TrackerRecipe(_atom(merge), "rgbd", "dimp")
+       for name, merge in (("max", "max"), ("mean", "mean"), ("mc", "conv"))},
+    # the DCF family on colour frames
+    "eco": TrackerRecipe(_eco(), "rgb", "eco", composition="color"),
+    "ccot": TrackerRecipe(_eco(ccot=True), "rgb", "eco", composition="color"),
+    "mosse": TrackerRecipe(_no_weights("mosse"), "rgb", "eco", composition="color"),
+    "scsrdcf": TrackerRecipe(_no_weights("scsrdcf"), "rgb", "eco", composition="color"),
 }
 
 

@@ -19,7 +19,7 @@ raise every flag (and a tied peak); _update_memory over fills,
 replacements and masked frames, each update from JAX's state: the slot,
 the counts and the memory exact, the weights within 4 ulps (XLA's CPU sum
 adds the f32 weights left to right, PyTorch's vectorises, and they are
-normalised twice). The registry: its 23 names build on the CPU
+normalised twice). The registry: its 31 names build on the CPU
 (MixFormer narrowed), the eight DiMP recipes with JAX's names,
 modalities, family, compositions and runtimes.
 """
@@ -245,7 +245,7 @@ JAX_RUNTIMES = {"prdimp50": jdt.prdimp50_runtime()}
 
 
 def test_registry_builds_every_recipe_on_the_cpu(monkeypatch):
-    """The 23 names build on the CPU (MixFormer-L narrowed); the DiMP
+    """The 31 names build on the CPU (MixFormer-L narrowed); the DiMP
     recipes with JAX's names, modality, family, composition and runtime,
     their networks of the recipe's kind, optimizer at JAX's init."""
     monkeypatch.setattr(mixformer, "build_mixformer_rgbd",
@@ -253,7 +253,7 @@ def test_registry_builds_every_recipe_on_the_cpu(monkeypatch):
                             in_channels=in_channels, stage_dims=(16, 32, 48),
                             stage_depths=(1, 1, 1), stage_heads=(1, 2, 3), head_channel=16))
     names = registry.list_trackers()
-    assert len(names) == 23 and set(DIMP_RECIPES) <= set(names)
+    assert len(names) == 31 and set(DIMP_RECIPES) <= set(names)
     for name in names:
         tracker = registry.build_tracker(name, device="cpu")
         if name not in DIMP_RECIPES:
