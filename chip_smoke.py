@@ -228,6 +228,24 @@ non-zero:
      within 1e-3 px; eco within 1e-2 px, cuFFT against pocketfft; scores
      within 1e-4); and `run_ope --tracker eco --analyze` in its own
      process, its report equal to the in-process analysis.
+ 13. mdnet: the MDNet family, the seven recipes mdnet (rgbcolormap
+     frames of the phase-9 fixture), pymdnet, pyvital, manet, apfnet,
+     dafnet and macnet (rgbrgb frames of a one-sequence LasHeR layout of
+     the same frames: the colour beside phase 10's 8-bit thermal stand-in
+     of the depth, both as JPEG) from the registry at f32 on seeded
+     weights over the 33 frames at 640x480: every box finite and inside
+     its frame, no launch of any of the five kernels (the candidate crops
+     are the plain four-tap gather, the networks cuDNN and cuBLAS), the
+     init in ms, the median ms per frame, the long-term and short-term
+     updates and the failures, host syncs per frame over 4 more frames
+     with their sites, the peak memory; one profiled long-term update
+     frame each of pymdnet and apfnet (device ms, idle share, kernels);
+     pymdnet and manet on the card against the CPU from the card's state
+     on the 10th frame (a long-term update; box within 1e-3 px, score
+     within 1e-4, the mined negatives and the top 5 equal, the fc leaves
+     within 1e-4 of their largest magnitude); and `run_ope --tracker
+     apfnet --dataset LasHeR --analyze` in its own process, its report
+     equal to the in-process analysis.
 
 Every kernel in the `kernels` line carries bound_ms, the larger of its
 bytes over 3.35 TB/s and its operations over the peak rate of their type
@@ -1816,15 +1834,20 @@ def ope_path(dev, cfg, rt) -> dict:
 
 
 class FrameRecorder:
-    """A tracker behind its own API that times each track() (the zoo's
-    trackers read their box on the host, so a call ends when its device
-    work does) and counts the template refreshes it reports."""
+    """A tracker behind its own API that times the initialize (to its
+    device work's end) and each track() (the zoo's trackers read their box
+    on the host, so a call ends when its device work does) and counts the
+    template refreshes it reports."""
 
     def __init__(self, tracker):
-        self.tracker, self.updates, self.ms = tracker, 0, []
+        self.tracker, self.updates, self.ms, self.init_ms = tracker, 0, [], None
 
     def initialize(self, image, info):
+        t0 = time.perf_counter()
         self.tracker.initialize(image, info)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.init_ms = (time.perf_counter() - t0) * 1e3
 
     def track(self, image, info=None):
         t0 = time.perf_counter()
@@ -2041,9 +2064,10 @@ def zoo_path(dev) -> dict:
     return counted
 
 
-def check_entries(names, root: str, seq_dir: str, res_in: str, tmp: str) -> None:
+def check_entries(names, root: str, seq_dir: str, res_in: str, tmp: str,
+                  dataset: str = "DepthTrack") -> None:
     """`python -m mmtrack_torch.eval.run_ope --tracker <name> --analyze` for
-    each name, each in its own process over the DepthTrack layout at root:
+    each name, each in its own process over the `dataset` layout at root:
     exit 0, a result file, and a report equal to the analysis of the
     in-process run's results under res_in."""
     from mmtrack_torch.eval.analysis import analyze_fscore, analyze_ope
@@ -2053,12 +2077,12 @@ def check_entries(names, root: str, seq_dir: str, res_in: str, tmp: str) -> None
     env = dict(os.environ)
     here = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
-    seqs = [load_sequence(seq_dir, "DepthTrack")]
+    seqs = [load_sequence(seq_dir, dataset)]
     for name in names:
         entry_root = os.path.join(tmp, f"entry_{name}")
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "mmtrack_torch.eval.run_ope",
-                               "--tracker", name, "--dataset", "DepthTrack",
+                               "--tracker", name, "--dataset", dataset,
                                "--dataset_root", root, "--analyze",
                                "--results_root", entry_root],
                               cwd=tmp, env=env, capture_output=True, text=True,
@@ -2067,18 +2091,18 @@ def check_entries(names, root: str, seq_dir: str, res_in: str, tmp: str) -> None
         if proc.returncode != 0:
             raise AssertionError(f"{name} entry exited {proc.returncode}: "
                                  f"{proc.stderr[-3000:]}")
-        path = result_path(entry_root, "DepthTrack", name, seqs[0].name)
+        path = result_path(entry_root, dataset, name, seqs[0].name)
         written = os.path.exists(path)
-        with open(os.path.join(entry_root, "DepthTrack", f"{name}_report.json")) as f:
+        with open(os.path.join(entry_root, dataset, f"{name}_report.json")) as f:
             report = json.load(f)
-        ope_in = analyze_ope(seqs, res_in, "DepthTrack", name)["overall"]
+        ope_in = analyze_ope(seqs, res_in, dataset, name)["overall"]
         want = {"ope": {k: v for k, v in ope_in.items() if np.isscalar(v)},
-                "fscore": analyze_fscore(seqs, res_in, "DepthTrack", name)}
+                "fscore": analyze_fscore(seqs, res_in, dataset, name)}
         same = report == json.loads(json.dumps(want))
         box_diff = float(np.abs(
-            np.loadtxt(path, delimiter=",")
-            - np.loadtxt(result_path(res_in, "DepthTrack", name, seqs[0].name),
-                         delimiter=",")).max())
+            np.loadtxt(path, delimiter=seqs[0].save_delimiter)
+            - np.loadtxt(result_path(res_in, dataset, name, seqs[0].name),
+                         delimiter=seqs[0].save_delimiter)).max())
         log("zoo_entry", tracker=name, seconds=entry_s, result_file=written,
             stdout=proc.stdout.splitlines()[-6:], report_equal=same,
             boxes_max_abs_diff_vs_in_process_px=box_diff)
@@ -2109,17 +2133,18 @@ def host_syncs(fn) -> int:
     return len(host_sync_sites(fn))
 
 
+def thermal_standin(depth_path: str) -> np.ndarray:
+    """An 8-bit thermal stand-in of a depth frame, nearer being warmer
+    (255 - depth / 40, clipped)."""
+    depth = cv2.imread(depth_path, -1).astype(np.float32)
+    return (255.0 - np.clip(depth / 40.0, 0.0, 255.0)).astype(np.uint8)
+
+
 def thermal_frames(seq) -> list:
     """rgbrgb frames for an RGB-T recipe from a DepthTrack sequence: its
-    colour beside an 8-bit thermal stand-in, nearer being warmer
-    (255 - depth / 40, clipped)."""
-    out = []
-    for c, d in zip(seq.rgb_frames, seq.x_frames):
-        rgb = cv2.cvtColor(cv2.imread(c), cv2.COLOR_BGR2RGB)
-        depth = cv2.imread(d, -1).astype(np.float32)
-        thermal = (255.0 - np.clip(depth / 40.0, 0.0, 255.0)).astype(np.uint8)
-        out.append(compose_x(rgb, thermal, "rgbrgb"))
-    return out
+    colour beside the thermal stand-in of its depth."""
+    return [compose_x(cv2.cvtColor(cv2.imread(c), cv2.COLOR_BGR2RGB), thermal_standin(d),
+                      "rgbrgb") for c, d in zip(seq.rgb_frames, seq.x_frames)]
 
 
 def dimp_path(dev, seq_dir: str, res_in: str) -> None:
@@ -2834,6 +2859,169 @@ def eco_card_vs_cpu(dev, tracker, seq) -> None:
             and diff["trained"]):
         raise AssertionError(f"eco card vs CPU beyond bars: {diff}")
 
+# phase 13: the MDNet family; no kernel of the port runs on its path
+MDNET_ZOO = ("mdnet", "pymdnet", "pyvital", "manet", "apfnet", "dafnet", "macnet")
+MDNET_PROFILED = ("pymdnet", "apfnet")
+MDNET_CARD_VS_CPU = ("pymdnet", "manet")
+MDNET_ENTRY = "apfnet"
+MDNET_FRAME = 9                     # the 10th frame: frame_num 10, a long-term update
+MDNET_BOX_BAR = 1e-3                # card vs CPU: box, px
+MDNET_FC_REL_BAR = 1e-4             # and the fc leaves, of their largest magnitude
+
+
+def lasher_fixture(seq, root: str) -> str:
+    """A one-sequence LasHeR layout (visible/*.jpg, infrared/*.jpg,
+    visible.txt) of a DepthTrack sequence: its colour JPEGs as they are,
+    and phase 10's thermal stand-in of its depth."""
+    import shutil
+
+    seq_dir = os.path.join(root, seq.name)
+    for sub in ("visible", "infrared"):
+        os.makedirs(os.path.join(seq_dir, sub))
+    for t, (c, d) in enumerate(zip(seq.rgb_frames, seq.x_frames)):
+        shutil.copy(c, os.path.join(seq_dir, "visible", f"{t:06d}.jpg"))
+        if not cv2.imwrite(os.path.join(seq_dir, "infrared", f"{t:06d}.jpg"), thermal_standin(d)):
+            raise IOError("could not write the LasHeR fixture")
+    np.savetxt(os.path.join(seq_dir, "visible.txt"), seq.gt, delimiter=",", fmt="%.4f")
+    return seq_dir
+
+
+def mdnet_path(dev) -> None:
+    """Phase 13: the seven MDNet-family recipes from the registry at f32 on
+    seeded weights over phase 10's 33-frame 640x480 sequence (mdnet on its
+    rgbcolormap frames, the others on rgbrgb frames of its LasHeR twin):
+    boxes, the init and median ms per frame, the updates and failures,
+    host syncs per frame, peak memory, no kernel launch; one profiled
+    long-term update of pymdnet and apfnet; pymdnet and manet on the card
+    against the CPU; the apfnet entry in its own process."""
+    from mmtrack_torch.eval.datasets import list_sequences, load_sequence
+    from mmtrack_torch.eval.ope import result_path, run_sequence, save_result
+
+    H, W = OPE_HW
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "DepthTrack")
+        ope_fixture(root, n_seqs=1)
+        depth_dir = list_sequences(root, "DepthTrack")[0]
+        lasher_root = os.path.join(tmp, "LasHeR")
+        lasher_dir = lasher_fixture(load_sequence(depth_dir, "DepthTrack"), lasher_root)
+        res_in = os.path.join(tmp, "in_process")
+        for name in MDNET_ZOO:
+            recipe = TRACKER_REGISTRY[name]
+            seq = (load_sequence(depth_dir, "DepthTrack") if recipe.modality == "rgb"
+                   else load_sequence(lasher_dir, "LasHeR"))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tracker = FrameRecorder(recipe.build(device=dev))
+            build_s = time.perf_counter() - t0
+            inner = tracker.tracker
+            for fn in KERNEL_COUNTERS:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = run_sequence(tracker, seq)
+            run_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in KERNEL_COUNTERS}
+            want = dict.fromkeys(launches, 0)
+            peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+            updates, failures = dict(inner.updates), inner.failures
+            last = get_x_frame(seq.rgb_frames[-1], seq.x_frames[-1], seq.dtype, seq.depth_clip)
+            sites = host_sync_sites(lambda: [inner.track(last) for _ in range(DIMP_SYNC_FRAMES)])
+            extra = {}
+            if name in MDNET_PROFILED:
+                while (inner.state["frame_num"] + 1) % inner.rt.long_interval:
+                    inner.track(last)
+                before = dict(inner.state)
+
+                def update_frame(inner=inner, before=before):
+                    # every call from the same state: a long-term update frame
+                    inner.state = dict(before)
+                    inner.track(last)
+
+                rows, wall_s = profile_window(update_frame, 1)
+                dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+                extra = dict(profiled_frame_device_ms=dev_ms, profiled_frame_wall_ms=wall_s * 1e3,
+                             device_idle_share=1.0 - dev_ms / (wall_s * 1e3),
+                             profiled_frame_kernels=sum(e.count for e in rows),
+                             profiled_frame_updated=inner.last_aux["do_update"],
+                             top_kernels=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                                          for e in rows[:6]])
+            ok = zoo_boxes_ok(name, res["boxes"], H, W)
+            log("mdnet", tracker=name, family=recipe.family, modality=recipe.modality,
+                composition=seq.dtype, dtype="f32", frames=OPE_FRAMES, frame=f"{W}x{H}",
+                model=type(inner.model).__name__, candidates=inner.rt.n_samples,
+                boxes_ok=ok, launches=launches, expected=want, init_ms=tracker.init_ms,
+                median_ms_per_frame=float(np.median(tracker.ms[ZOO_WARMUP:])),
+                first_frame_ms=tracker.ms[0], build_s=build_s, sequence_s=run_s,
+                updates=updates, failures=failures,
+                host_syncs_per_frame=len(sites) / DIMP_SYNC_FRAMES,
+                sync_sites=sorted(set(sites)), peak_memory_mb=peak_mb,
+                memory_rings_mb=(inner.state["pos_mem"].numel() + inner.state["neg_mem"].numel())
+                * 4 / 2 ** 20, **extra, card=card_line())
+            if not ok or launches != want or extra and not extra["profiled_frame_updated"]:
+                raise AssertionError(f"mdnet {name}: boxes ok {ok}, launches {launches}, "
+                                     f"profiled update {extra.get('profiled_frame_updated')}")
+            if name in MDNET_CARD_VS_CPU:
+                mdnet_card_vs_cpu(dev, name, inner, seq)
+            if name == MDNET_ENTRY:
+                save_result(result_path(res_in, "LasHeR", name, seq.name), res,
+                            fmt=seq.save_fmt, delimiter=seq.save_delimiter,
+                            time_style=seq.time_style)
+            del tracker, inner
+        torch.cuda.empty_cache()
+        check_entries([MDNET_ENTRY], lasher_root, lasher_dir, res_in, tmp, dataset="LasHeR")
+    log("mdnet_phase", seconds=time.perf_counter() - t_phase, recipes=len(MDNET_ZOO))
+
+
+def mdnet_card_vs_cpu(dev, name: str, tracker, seq) -> None:
+    """An MDNet recipe on the card (TF32 off) against the same weights and
+    draws on the CPU, where tests/test_torch_mdnet_tracker.py holds the
+    protocol against JAX: the card tracks MDNET_FRAME - 1 frames, the CPU
+    takes its state, and both track the next, frame_num 10, a long-term
+    update (15 SGD iterations with mining). Box within MDNET_BOX_BAR px,
+    score within SCORE_BAR, success, the top 5 and every iteration's mined
+    negatives equal, the fc leaves within MDNET_FC_REL_BAR of their largest
+    magnitude."""
+    import copy
+
+    from mmtrack_torch.trackers.mdnet_tracker import MDNetTracker
+
+    frames = _card_vs_cpu_frames(seq, MDNET_FRAME)
+    card = MDNetTracker(tracker.model, dev, tracker.rt)
+    cpu = MDNetTracker(copy.deepcopy(tracker.model), "cpu", tracker.rt)
+    card.initialize(frames[0], {"init_bbox": seq.gt[0].tolist()})
+    for f in frames[1:-1]:
+        card.track(f)
+    cpu._draw = card._draw
+    cpu.state = tree_to(card.state, torch.device("cpu"))
+    draw_state = card._draw.generator.get_state()
+    got = card.track(frames[-1])
+    cpu._draw.generator.set_state(draw_state)
+    t0 = time.perf_counter()
+    want = cpu.track(frames[-1])
+    cpu_s = time.perf_counter() - t0
+    a, b = card.last_aux, cpu.last_aux
+    mined_equal = (len(a["mined"]) == len(b["mined"]) == card.rt.update_iters
+                   and all(torch.equal(x.cpu(), y) for x, y in zip(a["mined"], b["mined"])))
+    fc_rel = max(float((card.state["fc"][k].cpu() - v).abs().max() / v.abs().max())
+                 for k, v in cpu.state["fc"].items())
+    diff = dict(box_max_abs_diff_px=float(np.abs(np.subtract(got["target_bbox"],
+                                                             want["target_bbox"])).max()),
+                score_abs_diff=abs(got["best_score"] - want["best_score"]),
+                success=(a["success"], b["success"]), long_update=(a["long_update"],
+                                                                    b["long_update"]),
+                top5_equal=torch.equal(a["top_idx"].cpu(), b["top_idx"]),
+                mined_equal=mined_equal, fc_max_rel_diff=fc_rel)
+    log("mdnet_card_vs_cpu", tracker=name, frame=MDNET_FRAME,
+        frame_num=card.state["frame_num"], **diff, box_bar=MDNET_BOX_BAR, score_bar=SCORE_BAR,
+        fc_rel_bar=MDNET_FC_REL_BAR, cpu_frame_s=cpu_s,
+        tf32=torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32)
+    if not (diff["box_max_abs_diff_px"] <= MDNET_BOX_BAR and diff["score_abs_diff"] <= SCORE_BAR
+            and a["success"] == b["success"] and a["do_update"] and diff["top5_equal"]
+            and mined_equal and fc_rel <= MDNET_FC_REL_BAR):
+        raise AssertionError(f"{name} card vs CPU beyond bars: {diff}")
+
 
 def main() -> int:
     dev = require_cuda()
@@ -2899,6 +3087,7 @@ def main() -> int:
     for name, n in train_disk_path(cfg, dev).items():
         launches[name] = launches.get(name, 0) + n
     atom_dcf_path(dev)
+    mdnet_path(dev)
 
     zoo_rows["crop_resize_normalized"] = [r for r in crop_rows if r["zoo"]]
 

@@ -33,6 +33,13 @@ that converter reads, so the bridge only relabels and re-lays out:
                     (128, 256) IoUNet) takes the same names
   ECO / C-COT       `eco_state_dict_from_flax` (ResNetVGGm1), the inverse
                     of convert_eco_backbone_checkpoint up to layer3
+  MDNet family      `mdnet_state_dict_from_flax`: MDNet single / dual and
+                    MANet (the inverses of convert_mdnet_checkpoint and
+                    convert_manet_checkpoint), APFNet (of
+                    convert_apfnet_checkpoint), DAFNet and MaCNet (flax
+                    names); fc4's input rows go from the JAX package's HWC
+                    conv3 flatten to the port's CHW one, and so do those
+                    of VITAL's G (`gnet_state_dict_from_flax`)
 
 Works on numpy arrays; no jax or flax import.
 """
@@ -43,6 +50,8 @@ import re
 
 import numpy as np
 import torch
+
+from mmtrack_torch.models.apfnet import ATTRIBUTES
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -401,6 +410,104 @@ def eco_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     convert_eco_backbone_checkpoint up to layer3."""
     return _tensors(item for path, v in _flatten(params).items()
                     if (item := _eco_leaf("/".join(path), v)) is not None)
+
+
+def _hwc_rows_to_chw(kernel: np.ndarray, blocks: tuple[int, ...], hw: int = 3) -> np.ndarray:
+    """A Dense kernel (I, O) whose leading input rows are HWC flattens of
+    hw x hw maps of `blocks` channels each -> the Linear weight (O, I) with
+    those rows in CHW order; the remaining rows keep theirs."""
+    parts, off = [], 0
+    for C in blocks:
+        n = hw * hw * C
+        parts.append(kernel[off:off + n].reshape(hw, hw, C, -1).transpose(2, 0, 1, 3)
+                     .reshape(n, -1))
+        off += n
+    return np.concatenate(parts + [kernel[off:]]).T
+
+
+_APF_ROLES = {"enc_vis": "encoder1", "enc_inf": "encoder2", "enc_agg": "encoder3",
+              "dec_vis": "decoder1", "dec_inf": "decoder2"}
+
+
+def _mdnet_fc_leaf(p: str, value: np.ndarray, fc: dict, blocks: tuple[int, ...]):
+    """fc4 / fc5 / fc6 leaves under the port names of `fc` (layer -> module)."""
+    if m := re.fullmatch(r"fc4/(kernel|bias)", p):
+        if m.group(1) == "kernel":
+            return f"{fc['fc4']}.weight", _hwc_rows_to_chw(value, blocks)
+        return f"{fc['fc4']}.bias", value
+    if m := re.fullmatch(r"(fc5|fc6)/(kernel|bias)", p):
+        return _dense(fc[m.group(1)], m.group(2), value)
+    if m := re.fullmatch(r"fc6_(\d+)/(kernel|bias)", p):
+        return _dense(f"branches.{m.group(1)}.1", m.group(2), value)
+    return None
+
+
+def _mdnet_leaf(p: str, value: np.ndarray, topology: str):
+    """(port name, value) of one flax leaf of an MDNet-family model."""
+    fc = {"mdnet": {"fc4": "layers.fc4.0", "fc5": "layers.fc5.1"},
+          "manet": {"fc4": "layers.fc4.1", "fc5": "layers.fc5.1"},
+          "apfnet": {"fc4": "fc.fc4.0", "fc5": "fc.fc5.1"}}.get(
+              topology, {"fc4": "fc4", "fc5": "fc5", "fc6": "fc6"})
+    blocks = {"mdnet": (512,), "dafnet": (512,), "macnet": (512, 512)}.get(topology, (1024,))
+    if (item := _mdnet_fc_leaf(p, value, fc, blocks)) is not None:
+        return item
+    if m := re.fullmatch(r"(features|layers_[vi])/(conv\d)/(kernel|bias)", p):
+        trunk, conv, leaf = m.groups()
+        return _conv(f"{'layers' if trunk == 'features' else trunk}.{conv}.0", leaf, value)
+    if m := re.fullmatch(r"adapt(\d)_(rgb|x)/(conv|bn)/(\w+)", p):
+        s, stream, part, leaf = m.groups()
+        k = 3 if s == "1" else 1
+        tag = "RGB" if stream == "rgb" else "T"
+        mod = f"{tag}_para{s}_{k}x{k}.{tag[0]}conv{s}"
+        return _conv(f"{mod}.0", leaf, value) if part == "conv" else _norm(f"{mod}.2", leaf, value)
+    if m := re.fullmatch(r"attr(\d)_(\w+)/(conv\d|sk_fc\d)/(kernel|bias)", p):
+        st, attr, part, leaf = m.groups()
+        s, a = int(st) + 1, ATTRIBUTES.index(attr)
+        if part.startswith("conv"):
+            return _conv(f"parallel{s}.{a}.parallel{s}_{part}.0", leaf, value)
+        return _conv(f"parallel{s}_skconv.{a}.parallel{s}_skconv_fc{part[-1]}.0", leaf, value)
+    if m := re.fullmatch(r"agg(\d)/sk_fc(\d)/kernel", p):
+        s = int(m.group(1)) + 1
+        return _conv(f"ensemble{s}_skconv.ensemble{s}_skconv_fc{m.group(2)}.0", "kernel", value)
+    if m := re.fullmatch(r"agg(\d)/(\w+)/(WK|WV|reduce|rise)/(kernel|bias)", p):
+        st, role, part, leaf = m.groups()
+        pre = f"transformer{int(st) + 1}_{_APF_ROLES[role]}"
+        if part in ("WK", "WV"):
+            return _dense(f"{pre}.{pre}_{part}.0", leaf, value)
+        return _conv(f"{pre}.{pre}_fc_{part}.0", leaf, value)
+    if m := re.fullmatch(r"(fuse\d/squeeze|fuse\d/excite|att_[vi]\d|cross\d)/(kernel|bias)", p):
+        return _dense(m.group(1).replace("/", "."), m.group(2), value)
+    raise KeyError(f"no port counterpart for flax leaf {p}")
+
+
+def mdnet_topology(params: dict) -> str:
+    """The MDNet-family model a flax params tree belongs to, by its keys."""
+    for key, topology in (("adapt1_rgb", "manet"), ("attr0_FM", "apfnet"), ("fuse1", "dafnet"),
+                          ("att_v0", "macnet")):
+        if key in params:
+            return topology
+    if "features" in params and "fc4" in params:
+        return "mdnet"
+    raise ValueError(f"not an MDNet-family tree: {sorted(params)[:8]}")
+
+
+def mdnet_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax `params['params']` tree of an MDNet-family model (MDNet single,
+    dual or adapter, APFNet, DAFNet, MaCNet; the topology from the tree's
+    keys) -> the port's state_dict (f32 CPU tensors)."""
+    topology = mdnet_topology(params)
+    return _tensors(_mdnet_leaf("/".join(path), v, topology)
+                    for path, v in _flatten(params).items())
+
+
+def gnet_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax `params['params']` tree of VITAL's GNet -> the port's GNet
+    state_dict (fc1's input rows from HWC to CHW)."""
+    flat = {"/".join(k): v for k, v in _flatten(params).items()}
+    k1 = flat["fc1/kernel"]
+    return _tensors([("fc1.weight", _hwc_rows_to_chw(k1, (k1.shape[0] // 9,))),
+                     ("fc1.bias", flat["fc1/bias"]), _dense("fc2", "kernel", flat["fc2/kernel"]),
+                     _dense("fc2", "bias", flat["fc2/bias"])])
 
 
 def load_flax_collections(path: str) -> dict:

@@ -295,6 +295,9 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             else:
                 continue
             p.copy_(v)
+        for m in model.modules():   # torch's own layers draw their biases from the global generator
+            if isinstance(m, (nn.Linear, nn.Conv2d)) and m.bias is not None:
+                m.bias.zero_()
     return model
 
 

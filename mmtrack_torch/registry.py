@@ -3,9 +3,10 @@ composition), port of mmtrack_tpu/registry.py (:19-105, :160-235,
 :302-373, :376-456): the ViPT family, plain OSTrack, OSTrack-online,
 STARK-S, STARK-ST, SPT, SiamFC, MixFormer_RGBD, SAMF, ProMixTrack, the
 DiMP family (DiMP-50, the five DeT_DiMP50 merges, mfDiMP, PrDiMP-50), ATOM
-with DeT's three RGB-D ATOMs, and the DCF family (ECO, C-COT, MOSSE,
-SCSRDCF), with the JAX recipes' names, modalities, families, compositions
-and runtimes.
+with DeT's three RGB-D ATOMs, the DCF family (ECO, C-COT, MOSSE,
+SCSRDCF) and the MDNet family (MDNet, pyMDNet, pyVITAL, MANet and the
+RGB-T chassis APFNet, DAFNet, MaCNet; registry.py:239-299), with the JAX
+recipes' names, modalities, families, compositions and runtimes.
 
 `build(seed, params, device)` returns a tracker with the reference
 BaseTracker API (initialize / track). Weights are seeded random unless
@@ -203,6 +204,58 @@ def _eco(ccot: bool = False) -> Callable:
     return build
 
 
+def _mdnet_model(build_model: Callable, seed: int, params: Optional[dict]):
+    from mmtrack_torch.models.vipt import init_weights
+
+    model = build_model()
+    if params is None:
+        init_weights(model, seed)
+    else:
+        model.load_state_dict(params)
+    return model
+
+
+def _mdnet(mode: str, vital: bool = False, manet: bool = False) -> Callable:
+    """MDNet (single), pyMDNet (dual, fc6 on the concatenation), pyVITAL
+    (dual, fc6 on the sum, G's adversarial masks) and MANet (adapter) with
+    their published runtimes (registry.py:239-273). The tracker's random
+    draws are seeded with `seed` too."""
+    def build(seed: int = 0, params: Optional[dict] = None, device="cuda"):
+        from mmtrack_torch.models.mdnet import MDNet
+        from mmtrack_torch.trackers.mdnet_tracker import MDNetRuntime, MDNetTracker
+        model = _mdnet_model(lambda: MDNet(mode=mode, fc6_merge="sum" if vital else "concat"),
+                             seed, params)
+        if manet:
+            # MANet's tracking/options.py + run_tracker.py
+            rt = MDNetRuntime(
+                n_samples=512, lr_init=1e-4, init_iters=30, lr_update=2e-4,
+                n_frames_short=20, long_interval=10,
+                scale_pos=1.2, trans_neg=1.5, scale_neg=1.2,
+                trans_neg_init=1.0, scale_neg_init=2.0, scale_bbreg=1.5,
+                loss_sum=True, manet_seed_memory=True, bbreg_reject=True,
+                revert_on_failure=True, hard_trans_expand=True)
+        elif vital:
+            # pyVITAL's tracking/options.yaml: focal BCE, its learning rates
+            rt = MDNetRuntime(vital=True, loss_focal=True, lr_init=5e-3, lr_update=5e-4,
+                              lr_g=2e-4)
+        else:
+            rt = MDNetRuntime()
+        return MDNetTracker(model, device, rt, seed=seed)
+    return build
+
+
+def _rgbt_chassis(kind: str) -> Callable:
+    """APFNet, DAFNet and MaCNet over the MDNet protocol at its default
+    runtime (registry.py:276-299)."""
+    def build(seed: int = 0, params: Optional[dict] = None, device="cuda"):
+        from mmtrack_torch.models.apfnet import APFNet
+        from mmtrack_torch.models.rgbt_fusion import DAFNet, MaCNet
+        from mmtrack_torch.trackers.mdnet_tracker import MDNetRuntime, MDNetTracker
+        cls = {"apfnet": APFNet, "dafnet": DAFNet, "macnet": MaCNet}[kind]
+        return MDNetTracker(_mdnet_model(cls, seed, params), device, MDNetRuntime(), seed=seed)
+    return build
+
+
 # recipes without learned weights: no checkpoint applies
 WEIGHTLESS = ("mosse", "scsrdcf")
 
@@ -250,6 +303,14 @@ TRACKER_REGISTRY: dict[str, TrackerRecipe] = {
     "ccot": TrackerRecipe(_eco(ccot=True), "rgb", "eco", composition="color"),
     "mosse": TrackerRecipe(_no_weights("mosse"), "rgb", "eco", composition="color"),
     "scsrdcf": TrackerRecipe(_no_weights("scsrdcf"), "rgb", "eco", composition="color"),
+    # the MDNet family: candidate scoring with online fc fine-tuning
+    "mdnet": TrackerRecipe(_mdnet("single"), "rgb", "mdnet"),
+    "pymdnet": TrackerRecipe(_mdnet("dual"), "rgbe", "mdnet"),
+    "pyvital": TrackerRecipe(_mdnet("dual", vital=True), "rgbe", "mdnet"),
+    "manet": TrackerRecipe(_mdnet("adapter", manet=True), "rgbe", "mdnet"),
+    "apfnet": TrackerRecipe(_rgbt_chassis("apfnet"), "rgbt", "mdnet"),
+    "dafnet": TrackerRecipe(_rgbt_chassis("dafnet"), "rgbt", "mdnet"),
+    "macnet": TrackerRecipe(_rgbt_chassis("macnet"), "rgbt", "mdnet"),
 }
 
 

@@ -13,8 +13,8 @@ running means) within 1e-4 of its largest magnitude; the geometry's host
 constants exact (the reg kernel with its centre tap moved into the
 scalar regulariser).
 
-The registry: its 31 names build on the CPU (MixFormer-L narrowed); the
-eight new recipes (atom, det_atom_{max,mean,mc}, eco, ccot, mosse,
+The registry: the
+eight recipes (atom, det_atom_{max,mean,mc}, eco, ccot, mosse,
 scsrdcf) with JAX's name, modality, family, composition and runtime, the
 ATOMs' networks of the recipe's merge. The entries: `run_ope --tracker
 mosse` (and scsrdcf) refuses a --checkpoint by name; an ECO flax .npz
@@ -51,7 +51,7 @@ from mmtrack_tpu.trackers import mosse_tracker as jmo  # noqa: E402
 from mmtrack_tpu.trackers import scsrdcf_tracker as jsc  # noqa: E402
 from mmtrack_torch import registry  # noqa: E402
 from mmtrack_torch.eval import run_ope, vot  # noqa: E402
-from mmtrack_torch.models import backbones, mixformer  # noqa: E402
+from mmtrack_torch.models import backbones  # noqa: E402
 from mmtrack_torch.trackers import mosse_tracker as mo  # noqa: E402
 from mmtrack_torch.trackers import scsrdcf_tracker as sc  # noqa: E402
 
@@ -157,19 +157,13 @@ JAX_RUNTIMES = {"atom": jat.ATOMRuntime(), "det_atom_max": jat.ATOMRuntime(),
                 "mosse": jmo.MOSSERuntime(), "scsrdcf": jsc.SCSRDCFRuntime()}
 
 
-def test_registry_builds_every_recipe_on_the_cpu(monkeypatch):
-    """The 31 names build on the CPU (MixFormer-L narrowed); the new recipes
-    with JAX's names, modality, family, composition and runtime."""
-    monkeypatch.setattr(mixformer, "build_mixformer_rgbd",
-                        lambda in_channels=6, device=None: mixformer.MixFormer(
-                            in_channels=in_channels, stage_dims=(16, 32, 48),
-                            stage_depths=(1, 1, 1), stage_heads=(1, 2, 3), head_channel=16))
-    names = registry.list_trackers()
-    assert len(names) == 31 and set(NEW) <= set(names) <= set(JAX_REGISTRY)
-    for name in names:
+def test_registry_builds_every_recipe_on_the_cpu():
+    """The ATOM and DCF recipes build on the CPU with JAX's names, modality,
+    family, composition and runtime (every name is built once, in
+    tests/test_torch_dimp_tracker.py)."""
+    assert set(NEW) <= set(registry.list_trackers()) <= set(JAX_REGISTRY)
+    for name in NEW:
         tracker = registry.build_tracker(name, device="cpu")
-        if name not in NEW:
-            continue
         r, j = registry.TRACKER_REGISTRY[name], JAX_REGISTRY[name]
         assert (r.modality, r.family, r.composition) == (j.modality, j.family, j.composition)
         assert type(tracker.rt).__name__ == type(JAX_RUNTIMES[name]).__name__

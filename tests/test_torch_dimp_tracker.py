@@ -19,8 +19,9 @@ raise every flag (and a tied peak); _update_memory over fills,
 replacements and masked frames, each update from JAX's state: the slot,
 the counts and the memory exact, the weights within 4 ulps (XLA's CPU sum
 adds the f32 weights left to right, PyTorch's vectorises, and they are
-normalised twice). The registry: its 31 names build on the CPU
-(MixFormer narrowed), the eight DiMP recipes with JAX's names,
+normalised twice). The registry: every name, JAX's less the four not
+ported yet, builds on the CPU (MixFormer narrowed), the eight DiMP
+recipes with JAX's names,
 modalities, family, compositions and runtimes.
 """
 
@@ -244,16 +245,22 @@ def test_update_memory_matches_jax(augmented):
 JAX_RUNTIMES = {"prdimp50": jdt.prdimp50_runtime()}
 
 
+# the JAX registry's recipes the port does not build yet (ROADMAP queue 1)
+NOT_PORTED = {"keep_track", "kys", "lwl", "stm"}
+
+
 def test_registry_builds_every_recipe_on_the_cpu(monkeypatch):
-    """The 31 names build on the CPU (MixFormer-L narrowed); the DiMP
-    recipes with JAX's names, modality, family, composition and runtime,
-    their networks of the recipe's kind, optimizer at JAX's init."""
+    """Every name of the registry, JAX's less the ones not ported yet,
+    builds on the CPU (MixFormer-L narrowed); the DiMP recipes with JAX's
+    names, modality, family, composition and runtime, their networks of
+    the recipe's kind, optimizer at JAX's init. (The other families' tests
+    check their own recipes.)"""
     monkeypatch.setattr(mixformer, "build_mixformer_rgbd",
                         lambda in_channels=6, device=None: mixformer.MixFormer(
                             in_channels=in_channels, stage_dims=(16, 32, 48),
                             stage_depths=(1, 1, 1), stage_heads=(1, 2, 3), head_channel=16))
     names = registry.list_trackers()
-    assert len(names) == 31 and set(DIMP_RECIPES) <= set(names)
+    assert set(names) == set(JAX_REGISTRY) - NOT_PORTED and set(DIMP_RECIPES) <= set(names)
     for name in names:
         tracker = registry.build_tracker(name, device="cpu")
         if name not in DIMP_RECIPES:

@@ -224,7 +224,6 @@ def test_registry_mixformer_recipes_match_jax(monkeypatch, name):
     channels, jrt = JAX_RUNTIMES[name]
     assert built == [channels]
     assert dataclasses.asdict(tracker.rt) == dataclasses.asdict(jrt)
-    assert len(registry.list_trackers()) == 31
 
 
 BLOCKER = """

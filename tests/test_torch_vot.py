@@ -177,7 +177,8 @@ def test_region_codecs_round_trip_and_jax_equal():
 def test_registry_has_the_vipt_recipes():
     vipt = sorted(f"vipt_{k}_{m}" for k in ("deep", "shaw") for m in ("rgbd", "rgbt", "rgbe"))
     assert [n for n in list_trackers() if n.startswith("vipt_")] == vipt
-    assert list_trackers("rgbt") == ["mfdimp", "vipt_deep_rgbt", "vipt_shaw_rgbt"]
+    assert list_trackers("rgbt") == ["apfnet", "dafnet", "macnet", "mfdimp", "vipt_deep_rgbt",
+                                     "vipt_shaw_rgbt"]
     assert all(TRACKER_REGISTRY[n].composition == "rgbcolormap"
                and TRACKER_REGISTRY[n].family == "vipt" for n in vipt)
 
