@@ -247,6 +247,24 @@ non-zero:
      apfnet --dataset LasHeR --analyze` in its own process, its report
      equal to the in-process analysis.
 
+ 14. keeptrack_kys: KeepTrack and KYS, keep_track and kys from the
+     registry at f32 on seeded weights over phase 10's 33-frame 640x480
+     sequence: every box finite and its centre inside its frame (the IoU
+     refinement comes after the step's clamp), no launch of any of the
+     five kernels (the sample crop is `crop_at`, the matcher, the cost
+     volume and the shifts plain PyTorch), the init in ms, the median ms
+     per frame, the flags, KeepTrack's frames on each branch (low, fresh,
+     match, speedup) and the matcher passes, KYS's shifted frames, host
+     syncs per frame over 4 more frames with their sites, the peak memory;
+     if no frame took KeepTrack's match branch, one step that forces it
+     (mem_ok set, peaks on both sides), so the matcher runs on the card;
+     one profiled frame of each (device ms, idle share, kernels); each on
+     the card against the CPU from the card's state on the 10th frame
+     (box within 1e-3 px, score within 1e-4, KeepTrack's branch and
+     selected id equal, KYS's fused map within 1e-4); and `run_ope
+     --tracker kys --analyze` in its own process, its report equal to the
+     in-process analysis.
+
 Every kernel in the `kernels` line carries bound_ms, the larger of its
 bytes over 3.35 TB/s and its operations over the peak rate of their type
 (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32 SIMT; NVIDIA's H100 SXM
@@ -1873,7 +1891,8 @@ KERNEL_COUNTERS = (attn_block_fused, mlp_block_fused, crop_resize_normalized, fl
                    depthwise_xcorr)
 ZOO_WARMUP = 3                      # frames left out of the median ms per frame
 # trackers whose box is not clipped to the frame: zoo_boxes_ok checks their centre
-UNCLIPPED = ("siamfc", "atom", "det_atom_max", "det_atom_mean", "det_atom_mc")
+UNCLIPPED = ("siamfc", "atom", "det_atom_max", "det_atom_mean", "det_atom_mc", "keep_track",
+             "kys")
 # OSTrack-online's attention half-blocks per frame: blocks 0-2 at L = 464
 # and 4-5 at 344 take the streaming branch, 7-8 at 260 and 10-11 at 202 the
 # resident one (the CE blocks 3, 6, 9 run unfused)
@@ -1884,8 +1903,9 @@ OO_PROFILE_FRAMES = 3
 
 def zoo_boxes_ok(name: str, boxes: np.ndarray, H: int, W: int) -> bool:
     """Every box finite and inside the H x W frame; SiamFC's protocol does
-    not clip its box (siamfc_tracker.py:125-146), nor does ATOM's after the
-    IoU refinement (atom_tracker.py:430-438), so their centres."""
+    not clip its box (siamfc_tracker.py:125-146), nor do ATOM's, KeepTrack's
+    and KYS's after the IoU refinement (atom_tracker.py:430-438, the DiMP
+    step's clamp comes before it), so their centres."""
     if not np.isfinite(boxes).all():
         return False
     if name in UNCLIPPED:
@@ -3023,6 +3043,180 @@ def mdnet_card_vs_cpu(dev, name: str, tracker, seq) -> None:
         raise AssertionError(f"{name} card vs CPU beyond bars: {diff}")
 
 
+# phase 14: KeepTrack and KYS; no kernel of the port runs on their paths
+KEEPTRACK_KYS = ("keep_track", "kys")
+KK_ENTRY = "kys"
+KK_FUSED_BAR = 1e-4                 # KYS card vs CPU: the fused map
+
+
+def keeptrack_forced_match(tracker, frame) -> dict:
+    """One KeepTrack step that takes the match branch: from the tracker's
+    state with the filter scaled so the frame's scores peak at 1, mem_ok
+    set and the previous collection the frame's own peaks (several valid),
+    so the learned matcher's matches decide the frame. Returns the step's
+    output."""
+    from mmtrack_torch.trackers.dimp_tracker import _normalize, _sample_geometry
+    from mmtrack_torch.trackers.keep_track import extract_peaks, init_peak_state, peak_keypoints
+
+    rt, model, state = tracker.rt, tracker.model, dict(tracker.state)
+    image = torch.from_numpy(frame).to(state["pos"].device)
+    szl, tl, _, _ = _sample_geometry(rt, state["pos"], state["target_scale"],
+                                     im_hw=image.shape[:2])
+    with torch.no_grad():
+        patch = _normalize(crop_at(image, state["pos"], szl, rt.image_sample_size, origin_yx=tl))
+        bfeat = model.extract_backbone(patch[None])
+        scores = model.classify(state["filter"], model.extract_classification_feat(bfeat))[0]
+        state["filter"] = state["filter"] / scores.max()
+        scores = scores / scores.max()
+        p_scores, p_coords, p_valid = extract_peaks(scores, rt.peaks)
+        desc = tracker.matcher.descriptor_extractor(bfeat["layer3"][0], p_coords)
+        kpts = peak_keypoints(p_coords, rt.score_sz, tl, szl)
+        state["peaks"] = init_peak_state(rt.peaks, p_scores, p_coords, kpts, p_valid, desc,
+                                         certain=state["frame_num"] < 10)
+    state["mem_ok"] = torch.ones_like(state["mem_ok"])
+    tracker.state = state
+    out = tracker.track(frame)
+    out["prev_valid_peaks"] = int(p_valid.sum())
+    return out
+
+
+def keeptrack_kys_path(dev) -> None:
+    """Phase 14: keep_track and kys from the registry at f32 on seeded
+    weights over phase 10's 33-frame 640x480 sequence: boxes, the init and
+    median ms per frame, flags, KeepTrack's branches and matcher passes,
+    KYS's shifted frames, host syncs per frame with their sites, peak
+    memory, no kernel launch; the match branch forced once if no frame took
+    it; one profiled frame of each; each on the card against the CPU; the
+    kys entry in its own process."""
+    from mmtrack_torch.eval.datasets import list_sequences, load_sequence
+    from mmtrack_torch.eval.ope import result_path, run_sequence, save_result
+
+    H, W = OPE_HW
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "DepthTrack")
+        ope_fixture(root, n_seqs=1)
+        seq_dir = list_sequences(root, "DepthTrack")[0]
+        res_in = os.path.join(tmp, "in_process")
+        for name in KEEPTRACK_KYS:
+            recipe = TRACKER_REGISTRY[name]
+            seq = load_sequence(seq_dir, "DepthTrack")
+            seq.dtype = recipe.composition
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tracker = FrameRecorder(recipe.build(device=dev))
+            build_s = time.perf_counter() - t0
+            inner = tracker.tracker
+            for fn in KERNEL_COUNTERS:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = run_sequence(tracker, seq)
+            run_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in KERNEL_COUNTERS}
+            want = dict.fromkeys(launches, 0)
+            peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+            flags = dict(inner.flags)
+            extra = ({"branches": dict(inner.branches), "matcher_passes": inner.matcher_passes}
+                     if name == "keep_track" else {"shifted_frames": inner.shifts})
+            last = get_x_frame(seq.rgb_frames[-1], seq.x_frames[-1], seq.dtype, seq.depth_clip)
+            sites = host_sync_sites(lambda: [inner.track(last) for _ in range(DIMP_SYNC_FRAMES)])
+            rows, wall_s = profile_window(lambda: inner.track(last), 1)
+            dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+            ok = zoo_boxes_ok(name, res["boxes"], H, W)
+            log("keeptrack_kys", tracker=name, family=recipe.family, modality=recipe.modality,
+                composition=seq.dtype, dtype="f32", frames=OPE_FRAMES, frame=f"{W}x{H}",
+                sample_size=inner.rt.image_sample_size, boxes_ok=ok, launches=launches,
+                expected=want, init_ms=tracker.init_ms,
+                median_ms_per_frame=float(np.median(tracker.ms[ZOO_WARMUP:])),
+                first_frame_ms=tracker.ms[0], build_s=build_s, sequence_s=run_s, flags=flags,
+                optimizer_iters=inner.optimizer_iters, **extra,
+                host_syncs_per_frame=len(sites) / DIMP_SYNC_FRAMES,
+                sync_sites=sorted(set(sites)), peak_memory_mb=peak_mb,
+                boxes_extent=[float(res["boxes"][:, 0].min()), float(res["boxes"][:, 1].min()),
+                              float((res["boxes"][:, 0] + res["boxes"][:, 2]).max()),
+                              float((res["boxes"][:, 1] + res["boxes"][:, 3]).max())],
+                profiled_frame_device_ms=dev_ms, profiled_frame_wall_ms=wall_s * 1e3,
+                device_idle_share=1.0 - dev_ms / (wall_s * 1e3),
+                profiled_frame_kernels=sum(e.count for e in rows),
+                top_kernels=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                             for e in rows[:6]], card=card_line())
+            if not ok or launches != want or sum(flags.values()) != OPE_FRAMES - 1:
+                raise AssertionError(f"keeptrack_kys {name}: boxes ok {ok}, launches {launches}, "
+                                     f"flags {flags}")
+            if name == "keep_track" and inner.matcher_passes == 0:
+                out = keeptrack_forced_match(inner, last)
+                log("keeptrack_forced_match", tracker=name, branch=out["branch"],
+                    prev_valid_peaks=out["prev_valid_peaks"], flag=out["flag"],
+                    selected_id=out["selected_id"], matcher_passes=inner.matcher_passes,
+                    note="seeded weights left the match branch unused; one step forced it")
+                if out["branch"] != "match":
+                    raise AssertionError(f"keep_track: the forced step took {out['branch']}")
+            keeptrack_kys_card_vs_cpu(dev, name, inner, seq)
+            if name == KK_ENTRY:
+                save_result(result_path(res_in, "DepthTrack", name, seq.name), res,
+                            fmt=seq.save_fmt, delimiter=seq.save_delimiter,
+                            time_style=seq.time_style)
+            del tracker, inner
+            torch.cuda.empty_cache()
+        check_entries([KK_ENTRY], root, seq_dir, res_in, tmp)
+    log("keeptrack_kys_phase", seconds=time.perf_counter() - t_phase,
+        recipes=len(KEEPTRACK_KYS))
+
+
+def keeptrack_kys_card_vs_cpu(dev, name: str, tracker, seq) -> None:
+    """keep_track or kys on the card (TF32 off) against the same weights
+    and draws on the CPU, where tests/test_torch_{keeptrack,kys}.py hold
+    the runtimes against JAX: the card tracks CARD_VS_CPU_FRAME - 1 frames,
+    the CPU takes its state, and both track the next. Box within
+    MDNET_BOX_BAR px, score within SCORE_BAR, the same flag; KeepTrack's
+    branch and selected id equal, KYS's fused map within KK_FUSED_BAR."""
+    import copy
+
+    from mmtrack_torch.trackers.keeptrack_tracker import KeepTrackTracker
+    from mmtrack_torch.trackers.kys_tracker import KYSTracker
+
+    frames = _card_vs_cpu_frames(seq, CARD_VS_CPU_FRAME)
+    if name == "keep_track":
+        card = KeepTrackTracker(tracker.model, dev, tracker.rt, matcher=tracker.matcher)
+        cpu = KeepTrackTracker(copy.deepcopy(tracker.model), "cpu", tracker.rt,
+                               matcher=copy.deepcopy(tracker.matcher))
+    else:
+        card = KYSTracker(tracker.model, dev, tracker.rt)
+        cpu = KYSTracker(copy.deepcopy(tracker.model), "cpu", tracker.rt)
+    card.initialize(frames[0], {"init_bbox": seq.gt[0].tolist()})
+    for f in frames[1:-1]:
+        card.track(f)
+    cpu._draw = card._draw
+    cpu.state = tree_to(card.state, torch.device("cpu"))
+    draw_state = card._draw.generator.get_state()
+    got = card.track(frames[-1])
+    cpu._draw.generator.set_state(draw_state)
+    t0 = time.perf_counter()
+    want = cpu.track(frames[-1])
+    cpu_s = time.perf_counter() - t0
+    diff = dict(box_max_abs_diff_px=float(np.abs(np.subtract(got["target_bbox"],
+                                                             want["target_bbox"])).max()),
+                score_abs_diff=abs(got["best_score"] - want["best_score"]),
+                flags=(got["flag"], want["flag"]))
+    same = got["flag"] == want["flag"]
+    if name == "keep_track":
+        diff.update(branches=(got["branch"], want["branch"]),
+                    selected_ids=(got["selected_id"], want["selected_id"]))
+        same &= got["branch"] == want["branch"] and got["selected_id"] == want["selected_id"]
+    else:
+        diff["fused_max_abs_diff"] = float((card.state["last_fused"].cpu()
+                                            - cpu.state["last_fused"]).abs().max())
+        same &= diff["fused_max_abs_diff"] <= KK_FUSED_BAR
+    log("keeptrack_kys_card_vs_cpu", tracker=name, frame=CARD_VS_CPU_FRAME, **diff,
+        box_bar=MDNET_BOX_BAR, score_bar=SCORE_BAR, cpu_frame_s=cpu_s,
+        tf32=torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32)
+    if not (same and diff["box_max_abs_diff_px"] <= MDNET_BOX_BAR
+            and diff["score_abs_diff"] <= SCORE_BAR):
+        raise AssertionError(f"{name} card vs CPU beyond bars: {diff}")
+
+
 def main() -> int:
     dev = require_cuda()
     card = card_line()
@@ -3088,6 +3282,7 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     atom_dcf_path(dev)
     mdnet_path(dev)
+    keeptrack_kys_path(dev)
 
     zoo_rows["crop_resize_normalized"] = [r for r in crop_rows if r["zoo"]]
 

@@ -21,7 +21,7 @@ models/convert.py::load_flax_npz), read through the weight bridge of the
 model's family (`FLAX_BRIDGES`; OSTrack-online's file also holds the
 score head's tree as `cls_params`); an orbax directory, a family
 without a bridge and a checkpoint for MOSSE or SCSRDCF (which have no
-learned weights) are refused. --tracker takes any of the thirty-eight recipes
+learned weights) are refused. --tracker takes any of the forty recipes
 of mmtrack_torch/registry.py (`list_trackers()`); a recipe that names its
 own composition (promixtrack's rgbd_blend, ostrack_online's color) composes
 the dataset's frames so, the others as the dataset does. Without --dataset_root

@@ -30,7 +30,14 @@ that converter reads, so the bridge only relabels and re-lays out:
                     convert_dimp_checkpoint (the backbones stop at layer3,
                     so the JAX trunks' layer4 leaves are left out); an
                     ATOMNet tree (ResNet-18 trunks, no classifier, the
-                    (128, 256) IoUNet) takes the same names
+                    (128, 256) IoUNet) takes the same names; a KYSNet tree
+                    (`dimp` and `predictor`) goes to
+                    `kys_state_dict_from_flax`, the inverse of
+                    convert_kys_checkpoint (the upstream kys.pth names)
+  KeepTrack matcher `peak_matching_state_dict_from_flax`, the inverse of
+                    convert_peak_matching_checkpoint (the attention's
+                    head-major channels back to d-major, batch_stats to
+                    the BatchNorm1d running statistics)
   ECO / C-COT       `eco_state_dict_from_flax` (ResNetVGGm1), the inverse
                     of convert_eco_backbone_checkpoint up to layer3
   MDNet family      `mdnet_state_dict_from_flax`: MDNet single / dual and
@@ -52,6 +59,7 @@ import numpy as np
 import torch
 
 from mmtrack_torch.models.apfnet import ATTRIBUTES
+from mmtrack_torch.models.peak_matching import HEADS
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -385,11 +393,113 @@ def dimp_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     merge, PrDiMP or super_dimp) -> the port's DiMPNet state_dict, named
     as the reference's (f32 CPU tensors); the inverse of
     convert_dimp_checkpoint. A filter optimizer without `log_step_length`
-    is the hinge's, whose regularisation sits under `residual_module`."""
+    is the hinge's, whose regularisation sits under `residual_module`. A
+    KYSNet tree (a `dimp` and a `predictor` subtree, the same family) goes
+    to `kys_state_dict_from_flax`."""
+    if "predictor" in params:
+        return kys_state_dict_from_flax(params)
     flat = {"/".join(k): v for k, v in _flatten(params).items()}
     hinge = "filter_optimizer/log_step_length" not in flat
     return _tensors(item for p, v in flat.items()
                     if (item := _dimp_leaf(p, v, hinge)) is not None)
+
+
+# KYSNet's DiMP modules under the upstream kys.pth names
+_KYS_BASE = {"feature_extractor.": "backbone_feature_extractor.",
+             "classifier.": "dimp_classifier."}
+
+
+def _kys_predictor_leaf(p: str, value: np.ndarray):
+    """(port name, value) of one ResponsePredictor flax leaf: the conv
+    blocks' `conv` / `bn` as the Sequential children `.0` / `.1`."""
+    pre = "predictor.predictor."
+    if m := re.fullmatch(r"state_predictor/(conv_reset|conv_update|conv_state_new)/(\w+)", p):
+        return _conv(f"{pre}state_predictor.{m.group(1)}", m.group(2), value)
+    m = re.fullmatch(r"(cost_volume_proc[12]|representation_predictor|is_target_predictor)_(\d+)"
+                     r"/(conv|bn)/(\w+)", p)
+    if m:
+        mod, i, kind, leaf = m.groups()
+    elif m := re.fullmatch(r"(response_predictor|init_hidden_state_predictor)/(conv|bn)/(\w+)",
+                           p):
+        (mod, kind, leaf), i = m.groups(), "0"
+    else:
+        raise KeyError(f"no port counterpart for flax leaf predictor/{p}")
+    base = f"{pre}{mod}.{i}"
+    return _conv(f"{base}.0", leaf, value) if kind == "conv" else _norm(f"{base}.1", leaf, value)
+
+
+def kys_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax `params['params']` tree of a KYSNet ({'dimp', 'predictor'}) ->
+    the port's KYSNet state_dict, named as the upstream kys.pth (f32 CPU
+    tensors); the inverse of convert_kys_checkpoint. The DiMP base goes
+    through `dimp_state_dict_from_flax` and is renamed."""
+    out = {}
+    for k, v in dimp_state_dict_from_flax(params["dimp"]).items():
+        pre = next((p for p in _KYS_BASE if k.startswith(p)), None)
+        out[_KYS_BASE[pre] + k[len(pre):] if pre else k] = v
+    out.update(_tensors(_kys_predictor_leaf("/".join(path), v)
+                        for path, v in _flatten(params["predictor"]).items()))
+    return out
+
+
+def _head_perm(dim: int) -> np.ndarray:
+    """perm[c'] = the d-major channel (d * HEADS + h) of the head-major
+    channel c' = h * head_dim + d."""
+    hd = dim // HEADS
+    return np.asarray([(c % hd) * HEADS + c // hd for c in range(dim)])
+
+
+def _mlp_leaf(prefix: str, p: str, value: np.ndarray):
+    """A flax MLPBlock leaf `lin{j}/...` or `bn{j}/...` -> the Conv1d
+    (child 3j) or BatchNorm1d (child 3j + 1) of the port's MLP."""
+    m = re.fullmatch(r"(lin|bn)(\d+)/(\w+)", p)
+    kind, j, leaf = m.group(1), int(m.group(2)), m.group(3)
+    if kind == "lin":
+        return _dense_1d(f"{prefix}.{3 * j}", leaf, value)
+    return _norm(f"{prefix}.{3 * j + 1}", leaf, value)
+
+
+def _matcher_leaf(p: str, value: np.ndarray):
+    """(port name, value) of one PeakMatcher flax leaf (params or
+    batch_stats). The attention's q / k / v outputs and merge inputs go
+    from flax's head-major channels to the port's d-major ones."""
+    if p == "bin_score":
+        return "matcher.bin_score", value
+    if m := re.fullmatch(r"final_proj/(kernel|bias)", p):
+        return _dense_1d("matcher.final_proj", m.group(1), value)
+    if m := re.fullmatch(r"kenc/encoder/(.+)", p):
+        return _mlp_leaf("matcher.kenc.encoder", m.group(1), value)
+    m = re.fullmatch(r"gnn/layer(\d+)/(attn|mlp)/(.+)", p)
+    base = f"matcher.gnn.layers.{m.group(1)}.update"
+    if m.group(2) == "mlp":
+        return _mlp_leaf(f"{base}.mlp", m.group(3), value)
+    mod, leaf = m.group(3).split("/")
+    if mod == "merge":
+        name, v = _dense_1d(f"{base}.attn.merge", leaf, value)
+        # its inputs are the heads' channels; a bias is per output
+        return name, v[:, np.argsort(_head_perm(v.shape[1]))] if leaf == "kernel" else v
+    name, v = _dense_1d(f"{base}.attn.proj.{'qkv'.index(mod[-1])}", leaf, value)
+    return name, v[np.argsort(_head_perm(v.shape[0]))]
+
+
+def _dense_1d(prefix: str, leaf: str, value: np.ndarray):
+    """(name, value) of a flax Dense leaf as a k=1 Conv1d's."""
+    return (f"{prefix}.weight", value.T[:, :, None]) if leaf == "kernel" \
+        else (f"{prefix}.bias", value)
+
+
+def peak_matching_state_dict_from_flax(trees: dict) -> dict[str, torch.Tensor]:
+    """KeepTrack's matcher trees {'desc': {'params'}, 'matcher': {'params',
+    'batch_stats'}} -> the port's PeakMatchingNetwork state_dict (f32 CPU
+    tensors), named as the reference's; the inverse of
+    convert_peak_matching_checkpoint. The batch statistics become the
+    BatchNorm1d running statistics."""
+    pairs = [_conv("descriptor_extractor.conv", path[-1], v)
+             for path, v in _flatten(trees["desc"]["params"]).items()]
+    for coll in ("params", "batch_stats"):
+        pairs += [_matcher_leaf("/".join(path), v)
+                  for path, v in _flatten(trees["matcher"].get(coll, {})).items()]
+    return _tensors(pairs)
 
 
 def _eco_leaf(p: str, value: np.ndarray):

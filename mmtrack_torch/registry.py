@@ -1,10 +1,10 @@
 """Tracker recipes the port can build: one name -> (build, modality, family,
-composition), port of mmtrack_tpu/registry.py (:19-105, :160-235,
+composition), port of mmtrack_tpu/registry.py (:19-141, :160-235,
 :302-373, :376-456): the ViPT family, plain OSTrack, OSTrack-online,
 STARK-S, STARK-ST, SPT, SiamFC, MixFormer_RGBD, SAMF, ProMixTrack, the
-DiMP family (DiMP-50, the five DeT_DiMP50 merges, mfDiMP, PrDiMP-50), ATOM
-with DeT's three RGB-D ATOMs, the DCF family (ECO, C-COT, MOSSE,
-SCSRDCF) and the MDNet family (MDNet, pyMDNet, pyVITAL, MANet and the
+DiMP family (DiMP-50, the five DeT_DiMP50 merges, mfDiMP, PrDiMP-50),
+KeepTrack and KYS, ATOM with DeT's three RGB-D ATOMs, the DCF family
+(ECO, C-COT, MOSSE, SCSRDCF) and the MDNet family (MDNet, pyMDNet, pyVITAL, MANet and the
 RGB-T chassis APFNet, DAFNet, MaCNet; registry.py:239-299), with the JAX
 recipes' names, modalities, families, compositions and runtimes.
 
@@ -168,6 +168,45 @@ def _dimp(merge_type: Optional[str], prdimp: bool = False) -> Callable:
     return build
 
 
+def _keeptrack() -> Callable:
+    """KeepTrack over super_dimp_hinge (registry.py:108-122): DiMP-50 with
+    the hinge optimiser and the learned peak matcher, KeepTrack's release
+    runtime. A state_dict's `descriptor_extractor.` / `matcher.` keys are
+    the matcher's; without them the matcher is seeded from `seed + 1`."""
+    def build(seed: int = 0, params: Optional[dict] = None, device="cuda"):
+        from mmtrack_torch.models.dimp import build_super_dimp50, init_dimp_weights
+        from mmtrack_torch.models.peak_matching import PeakMatchingNetwork
+        from mmtrack_torch.trackers.keeptrack_tracker import KeepTrackRuntime, KeepTrackTracker
+        rt = KeepTrackRuntime()
+        model, matcher = build_super_dimp50(), None
+        if params is None:
+            init_dimp_weights(model, seed)
+        else:
+            own = ("descriptor_extractor.", "matcher.")
+            model.load_state_dict({k: v for k, v in params.items() if not k.startswith(own)})
+            if any(k.startswith(own) for k in params):
+                matcher = PeakMatchingNetwork(rt.descriptor_dim, rt.desc_feat_dim)
+                matcher.load_state_dict({k: v for k, v in params.items() if k.startswith(own)})
+        return KeepTrackTracker(model, device, rt, seed=seed, matcher=matcher)
+    return build
+
+
+def _kys() -> Callable:
+    """KYS: DiMP-50 and the scene-propagation predictor (registry.py:
+    125-141) with the KYS runtime."""
+    def build(seed: int = 0, params: Optional[dict] = None, device="cuda"):
+        from mmtrack_torch.models.dimp import init_dimp_weights
+        from mmtrack_torch.models.kys import build_kysnet
+        from mmtrack_torch.trackers.kys_tracker import KYSRuntime, KYSTracker
+        model = build_kysnet()
+        if params is None:
+            init_dimp_weights(model, seed)
+        else:
+            model.load_state_dict(params)
+        return KYSTracker(model, device, KYSRuntime(), seed=seed)
+    return build
+
+
 def _atom(merge_type: Optional[str]) -> Callable:
     """ATOM (merge None) and DeT's RGB-D ATOMs (registry.py:92-105) with
     ATOM's default runtime; the tracker's random draws are seeded with
@@ -294,6 +333,9 @@ TRACKER_REGISTRY: dict[str, TrackerRecipe] = {
     # mfDiMP: the RGB-T fusion DiMP, DeT's mean merge on rgbrgb frames
     "mfdimp": TrackerRecipe(_dimp("mean"), "rgbt", "dimp", composition="rgbrgb"),
     "prdimp50": TrackerRecipe(_dimp(None, prdimp=True), "rgb", "dimp"),
+    # KeepTrack and KYS on the DiMP base (the keep_track fork)
+    "keep_track": TrackerRecipe(_keeptrack(), "rgb", "dimp"),
+    "kys": TrackerRecipe(_kys(), "rgb", "dimp"),
     # ATOM and DeT's RGB-D ATOMs
     "atom": TrackerRecipe(_atom(None), "rgb", "dimp"),
     **{f"det_atom_{name}": TrackerRecipe(_atom(merge), "rgbd", "dimp")

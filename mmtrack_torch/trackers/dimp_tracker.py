@@ -232,10 +232,16 @@ def _max2d(scores: torch.Tensor):
     return scores.max(), torch.stack([idx // W, idx % W]).float()
 
 
-def dimp_init_state(rt: DiMPRuntime, model: DiMPNet, frame: torch.Tensor,
-                    init_box_xywh: torch.Tensor, draw: Callable) -> dict:
-    """First-frame state (dimp_tracker.py:178-244). frame (H, W, C) uint8
-    on the model's device, init box (4,) f32 on it."""
+def dimp_init_samples(rt: DiMPRuntime, model: DiMPNet, frame: torch.Tensor,
+                      init_box_xywh: torch.Tensor, draw: Callable) -> dict:
+    """The first frame's training samples (dimp_tracker.py:190-244), shared
+    by the DiMP, KeepTrack and KYS inits: the 2x-expanded crop at the
+    rounded target centre with its 13 image augmentations and the feature
+    dropout copies, or the plain crop. Returns their classification
+    features 'clf_feat', crop boxes 'boxes' and crop shifts 'shifts' (N, 2)
+    (y, x), the identity sample's backbone features 'bfeat0', and the
+    target's 'pos', 'target_sz', 'target_scale', 'base_target_sz',
+    'box_crop' and 'init_sample_pos'."""
     x, y, w, h = init_box_xywh.unbind()
     pos = torch.stack([y + (h - 1) / 2, x + (w - 1) / 2])
     target_sz = torch.stack([h, w])
@@ -271,8 +277,21 @@ def dimp_init_state(rt: DiMPRuntime, model: DiMPNet, frame: torch.Tensor,
         bfeat0 = model.extract_backbone(patch[None])
         clf_feat = model.extract_classification_feat(bfeat0)
         boxes = box_crop[None]
-    return dimp_assemble_init_state(rt, model, clf_feat, boxes, bfeat0, box_crop, pos,
-                                    target_sz, target_scale, base_target_sz)
+        shifts = torch.zeros((1, 2), dtype=torch.float32, device=clf_feat.device)
+    return {"clf_feat": clf_feat, "boxes": boxes, "shifts": shifts, "bfeat0": bfeat0,
+            "box_crop": box_crop, "pos": pos, "target_sz": target_sz,
+            "target_scale": target_scale, "base_target_sz": base_target_sz,
+            "init_sample_pos": init_sample_pos}
+
+
+def dimp_init_state(rt: DiMPRuntime, model: DiMPNet, frame: torch.Tensor,
+                    init_box_xywh: torch.Tensor, draw: Callable) -> dict:
+    """First-frame state (dimp_tracker.py:178-244). frame (H, W, C) uint8
+    on the model's device, init box (4,) f32 on it."""
+    s = dimp_init_samples(rt, model, frame, init_box_xywh, draw)
+    return dimp_assemble_init_state(rt, model, s["clf_feat"], s["boxes"], s["bfeat0"],
+                                    s["box_crop"], s["pos"], s["target_sz"], s["target_scale"],
+                                    s["base_target_sz"])
 
 
 def dimp_assemble_init_state(rt: DiMPRuntime, model: DiMPNet, clf_feat, boxes, bfeat0,
@@ -464,23 +483,15 @@ def _update_memory(rt: DiMPRuntime, state: dict, clf_feat: torch.Tensor, box_cro
             "prev_replace_ind": new_prev.to(torch.int32)}
 
 
-def dimp_step_from_patch(rt: DiMPRuntime, model: DiMPNet, state: dict, patch: torch.Tensor,
-                         sample_pos, sample_scale, img_hw, jitter_u: Optional[torch.Tensor]):
-    """A tracked frame from its raw (0..255) sample patch (S, S, C) and
-    geometry (dimp_tracker.py:478-571). Returns (state, box (4,) xywh,
-    max score, aux {'flag', 'num_iter'}), all tensors."""
+def _place_target(rt: DiMPRuntime, model, bfeat: dict, state: dict, translation, found,
+                  sample_pos, sample_scale, img_hw, jitter_u: Optional[torch.Tensor]) -> dict:
+    """The target moved by `translation` where `found` (dimp_tracker.py:
+    509-541): kept inside the image, then refined by the IoUNet; without
+    it (use_iou_net False) the scale re-quantised from the sample
+    geometry, clamped to the init bounds, the inside clamp on the new
+    size. Returns the new state."""
     H, W = img_hw
-    dev = patch.device
-    state = {**state, "frame_num": state["frame_num"] + 1}
-    bfeat = model.extract_backbone(_normalize(patch)[None])
-    clf_feat = model.extract_classification_feat(bfeat)
-    scores = model.classify(state["filter"], clf_feat)[0]
-    if rt.score_preprocess == "softmax":
-        scores = torch.softmax(scores.reshape(-1), dim=0).reshape(scores.shape)
-
-    translation, flag, max_score = _localize_advanced(rt, scores, state, sample_pos,
-                                                      sample_scale)
-    found = flag != FLAG_NOT_FOUND
+    dev = translation.device
     new_pos = sample_pos + translation
     img_sz = _vec((float(H), float(W)), dev)
     if rt.use_iou_net:
@@ -505,7 +516,25 @@ def dimp_step_from_patch(rt: DiMPRuntime, model: DiMPNet, state: dict, patch: to
         state = {**state, "pos": torch.where(found, new_pos, state["pos"]),
                  "target_sz": torch.where(found, new_sz, state["target_sz"]),
                  "target_scale": torch.where(found, new_scale, state["target_scale"])}
+    return state
 
+
+def dimp_step_from_patch(rt: DiMPRuntime, model: DiMPNet, state: dict, patch: torch.Tensor,
+                         sample_pos, sample_scale, img_hw, jitter_u: Optional[torch.Tensor]):
+    """A tracked frame from its raw (0..255) sample patch (S, S, C) and
+    geometry (dimp_tracker.py:478-571). Returns (state, box (4,) xywh,
+    max score, aux {'flag', 'num_iter'}), all tensors."""
+    state = {**state, "frame_num": state["frame_num"] + 1}
+    bfeat = model.extract_backbone(_normalize(patch)[None])
+    clf_feat = model.extract_classification_feat(bfeat)
+    scores = model.classify(state["filter"], clf_feat)[0]
+    if rt.score_preprocess == "softmax":
+        scores = torch.softmax(scores.reshape(-1), dim=0).reshape(scores.shape)
+
+    translation, flag, max_score = _localize_advanced(rt, scores, state, sample_pos,
+                                                      sample_scale)
+    state = _place_target(rt, model, bfeat, state, translation, flag != FLAG_NOT_FOUND,
+                          sample_pos, sample_scale, img_hw, jitter_u)
     update_ok = (flag == FLAG_NORMAL) | (flag == FLAG_HARD_NEG)
     hard_neg = flag == FLAG_HARD_NEG
     lr = torch.where(hard_neg, rt.hard_negative_learning_rate, rt.learning_rate).float()

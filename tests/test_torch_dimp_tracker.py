@@ -19,7 +19,7 @@ raise every flag (and a tied peak); _update_memory over fills,
 replacements and masked frames, each update from JAX's state: the slot,
 the counts and the memory exact, the weights within 4 ulps (XLA's CPU sum
 adds the f32 weights left to right, PyTorch's vectorises, and they are
-normalised twice). The registry: every name, JAX's less the four not
+normalised twice). The registry: every name, JAX's less the two not
 ported yet, builds on the CPU (MixFormer narrowed), the eight DiMP
 recipes with JAX's names,
 modalities, family, compositions and runtimes.
@@ -246,7 +246,7 @@ JAX_RUNTIMES = {"prdimp50": jdt.prdimp50_runtime()}
 
 
 # the JAX registry's recipes the port does not build yet (ROADMAP queue 1)
-NOT_PORTED = {"keep_track", "kys", "lwl", "stm"}
+NOT_PORTED = {"lwl", "stm"}
 
 
 def test_registry_builds_every_recipe_on_the_cpu(monkeypatch):
