@@ -1892,7 +1892,7 @@ KERNEL_COUNTERS = (attn_block_fused, mlp_block_fused, crop_resize_normalized, fl
 ZOO_WARMUP = 3                      # frames left out of the median ms per frame
 # trackers whose box is not clipped to the frame: zoo_boxes_ok checks their centre
 UNCLIPPED = ("siamfc", "atom", "det_atom_max", "det_atom_mean", "det_atom_mc", "keep_track",
-             "kys")
+             "kys", "stm")
 # OSTrack-online's attention half-blocks per frame: blocks 0-2 at L = 464
 # and 4-5 at 344 take the streaming branch, 7-8 at 260 and 10-11 at 202 the
 # resident one (the CE blocks 3, 6, 9 run unfused)
@@ -3217,6 +3217,204 @@ def keeptrack_kys_card_vs_cpu(dev, name: str, tracker, seq) -> None:
         raise AssertionError(f"{name} card vs CPU beyond bars: {diff}")
 
 
+# phase 15: LWL and STM; no kernel of the port runs on their paths
+LWL_STM = ("lwl", "stm")
+LS_ENTRY = "stm"
+LS_MASK_BAR = 1e-3                  # card vs CPU: the share of mask pixels that differ
+LS_FILTER_REL_BAR = 1e-4            # and LWL's filter, of its largest magnitude
+LS_VOT_FRAMES = 8
+
+
+class MaskRecorder(FrameRecorder):
+    """A FrameRecorder that also checks each frame's mask: an (H, W) bool
+    map, counting the non-empty ones."""
+
+    def __init__(self, tracker, hw):
+        super().__init__(tracker)
+        self.hw, self.masks_ok, self.nonempty = hw, True, 0
+
+    def track(self, image, info=None):
+        out = super().track(image, info)
+        m = out["segmentation"]
+        self.masks_ok &= isinstance(m, np.ndarray) and m.dtype == bool and m.shape == self.hw
+        self.nonempty += int(m.any())
+        return out
+
+
+def lwl_stm_path(dev) -> None:
+    """Phase 15: lwl and stm from the registry at f32 on seeded weights over
+    phase 10's 33-frame 640x480 sequence: boxes and masks, the init and
+    median ms per frame, LWL's updates and GN steps, STM's commits, host
+    syncs per frame with their sites, peak memory, no kernel launch; one
+    profiled frame of each; each on the card against the CPU; the stm
+    entry and the lwl mask-protocol VOT entry, each in its own process."""
+    from mmtrack_torch.eval.datasets import list_sequences, load_sequence
+    from mmtrack_torch.eval.ope import result_path, run_sequence, save_result
+
+    H, W = OPE_HW
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "DepthTrack")
+        ope_fixture(root, n_seqs=1)
+        seq_dir = list_sequences(root, "DepthTrack")[0]
+        res_in = os.path.join(tmp, "in_process")
+        for name in LWL_STM:
+            recipe = TRACKER_REGISTRY[name]
+            seq = load_sequence(seq_dir, "DepthTrack")
+            seq.dtype = recipe.composition
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tracker = MaskRecorder(recipe.build(device=dev), (H, W))
+            build_s = time.perf_counter() - t0
+            inner = tracker.tracker
+            for fn in KERNEL_COUNTERS:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = run_sequence(tracker, seq)
+            run_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in KERNEL_COUNTERS}
+            want = dict.fromkeys(launches, 0)
+            peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+            extra = ({"memory_updates": inner.updates, "gn_steps": inner.optimizer_iters}
+                     if name == "lwl" else {"commits": inner.commits})
+            last = get_x_frame(seq.rgb_frames[-1], seq.x_frames[-1], seq.dtype, seq.depth_clip)
+            sites = host_sync_sites(lambda: [inner.track(last) for _ in range(DIMP_SYNC_FRAMES)])
+            rows, wall_s = profile_window(lambda: inner.track(last), 1)
+            dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+            ok = zoo_boxes_ok(name, res["boxes"], H, W)
+            log("lwl_stm", tracker=name, family=recipe.family, modality=recipe.modality,
+                composition=seq.dtype, dtype="f32", frames=OPE_FRAMES, frame=f"{W}x{H}",
+                sample_size=inner.rt.image_sample_size, boxes_ok=ok, masks_ok=tracker.masks_ok,
+                nonempty_masks=tracker.nonempty, launches=launches, expected=want,
+                init_ms=tracker.init_ms,
+                median_ms_per_frame=float(np.median(tracker.ms[ZOO_WARMUP:])),
+                first_frame_ms=tracker.ms[0], build_s=build_s, sequence_s=run_s, **extra,
+                host_syncs_per_frame=len(sites) / DIMP_SYNC_FRAMES,
+                sync_sites=sorted(set(sites)), peak_memory_mb=peak_mb,
+                profiled_frame_device_ms=dev_ms, profiled_frame_wall_ms=wall_s * 1e3,
+                device_idle_share=1.0 - dev_ms / (wall_s * 1e3),
+                profiled_frame_kernels=sum(e.count for e in rows),
+                top_kernels=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                             for e in rows[:6]], card=card_line())
+            if not ok or not tracker.masks_ok or launches != want:
+                raise AssertionError(f"lwl_stm {name}: boxes ok {ok}, masks ok "
+                                     f"{tracker.masks_ok}, launches {launches}")
+            # over the sequence: an LWL update from frame_num 3 on, 3 GN steps each;
+            # an STM commit where (frame_num - 1) % memory_skip_rate == 0
+            want_extra = ({"memory_updates": OPE_FRAMES - 2, "gn_steps": 3 * (OPE_FRAMES - 2)}
+                          if name == "lwl" else
+                          {"commits": (OPE_FRAMES - 1) // inner.rt.memory_skip_rate})
+            if extra != want_extra:
+                raise AssertionError(f"{name}: {extra}, want {want_extra}")
+            lwl_stm_card_vs_cpu(dev, name, inner, seq)
+            if name == LS_ENTRY:
+                save_result(result_path(res_in, "DepthTrack", name, seq.name), res,
+                            fmt=seq.save_fmt, delimiter=seq.save_delimiter,
+                            time_style=seq.time_style)
+            del tracker, inner
+            torch.cuda.empty_cache()
+        check_entries([LS_ENTRY], root, seq_dir, res_in, tmp)
+        lwl_vot_entry(dev, tmp)
+    log("lwl_stm_phase", seconds=time.perf_counter() - t_phase, recipes=len(LWL_STM))
+
+
+def lwl_stm_card_vs_cpu(dev, name: str, tracker, seq) -> None:
+    """lwl or stm on the card (TF32 off) against the same weights on the
+    CPU, where tests/test_torch_{lwl,stm}.py hold the runtimes against JAX:
+    the card tracks CARD_VS_CPU_FRAME - 1 frames, the CPU takes its state,
+    and both track the next (frame_num 11: an LWL update, an STM commit)."""
+    import copy
+
+    from mmtrack_torch.trackers.lwl_tracker import LWLTracker
+    from mmtrack_torch.trackers.stm_tracker import STMTracker
+
+    frames = _card_vs_cpu_frames(seq, CARD_VS_CPU_FRAME)
+    cls = LWLTracker if name == "lwl" else STMTracker
+    card = cls(tracker.model, dev, tracker.rt)
+    cpu = cls(copy.deepcopy(tracker.model), "cpu", tracker.rt)
+    card.initialize(frames[0], {"init_bbox": seq.gt[0].tolist()})
+    for f in frames[1:-1]:
+        card.track(f)
+    cpu.state = tree_to(card.state, torch.device("cpu"))
+    got = card.track(frames[-1])
+    t0 = time.perf_counter()
+    want = cpu.track(frames[-1])
+    cpu_s = time.perf_counter() - t0
+    diff = dict(box_max_abs_diff_px=float(np.abs(np.subtract(got["target_bbox"],
+                                                             want["target_bbox"])).max()),
+                max_prob_abs_diff=abs(got["best_score"] - want["best_score"]),
+                mask_pixels_differing=float((got["segmentation"] != want["segmentation"]).mean()),
+                mask_pixels_on=float(want["segmentation"].mean()))
+    same = True
+    if name == "lwl":
+        f_card, f_cpu = card.state["filter"].cpu(), cpu.state["filter"]
+        diff["filter_rel_diff"] = float((f_card - f_cpu).abs().max() / f_cpu.abs().max())
+        diff["updated_frames"] = (card.updates, cpu.updates)
+        same = diff["filter_rel_diff"] <= LS_FILTER_REL_BAR and cpu.updates == 1
+    else:
+        diff["commits"] = (card.commits, cpu.commits)
+        same = cpu.commits == 1
+    log("lwl_stm_card_vs_cpu", tracker=name, frame=CARD_VS_CPU_FRAME, **diff,
+        box_bar=MDNET_BOX_BAR, prob_bar=SCORE_BAR, mask_bar=LS_MASK_BAR,
+        filter_rel_bar=LS_FILTER_REL_BAR, cpu_frame_s=cpu_s,
+        tf32=torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32)
+    if not (same and diff["box_max_abs_diff_px"] <= MDNET_BOX_BAR
+            and diff["max_prob_abs_diff"] <= SCORE_BAR
+            and diff["mask_pixels_differing"] <= LS_MASK_BAR):
+        raise AssertionError(f"{name} card vs CPU beyond bars: {diff}")
+
+
+def lwl_vot_entry(dev, tmp: str) -> None:
+    """`python -m mmtrack_torch.eval.vot_entry` with MMTRACK_TRACKER=lwl and
+    MMTRACK_MASK=1 on the card, in its own process, answering a mask
+    session of LS_VOT_FRAMES 640x480 frames: exit 0, every state a
+    full-frame mask, and the masks equal to the same session's in process
+    (the init mask reaches the tracker verbatim; Alpha-Refine is not
+    built)."""
+    root = os.path.join(tmp, "vot_lwl")
+    os.makedirs(root)
+    colors, depths, (x, y, w, h) = vot_sequence(root, LS_VOT_FRAMES)
+    init_mask = np.zeros((int(h), int(w)), np.uint8)
+    init_mask[int(h) // 4:, :] = 1                   # not a rectangle's box
+    script = trax_script(colors, depths, _encode_region(Mask(int(x), int(y), init_mask)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    env.update(MMTRACK_TRACKER="lwl", MMTRACK_MASK="1")
+    env.pop("MMTRACK_DEVICE", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mmtrack_torch.eval.vot_entry"], cwd=tmp,
+                          env=env, input=script, capture_output=True, text=True, timeout=600)
+    entry_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"lwl VOT entry exited {proc.returncode}: {proc.stderr[-3000:]}")
+    got = [_decode_region(ln.split('"')[1]) for ln in proc.stdout.splitlines()
+           if ln.startswith("@@TRAX:state")]
+    built = []
+
+    def refine_factory():
+        built.append(1)
+        raise AssertionError("Alpha-Refine built for a mask tracker")
+
+    fout = io.StringIO()
+    run_vot_exp(lambda: build_tracker("lwl", device=dev), channels="rgbd", dtype="rgbcolormap",
+                fin=io.StringIO(script), fout=fout, mask=True, refine_factory=refine_factory)
+    want = [_decode_region(ln.split('"')[1]) for ln in fout.getvalue().splitlines()
+            if ln.startswith("@@TRAX:state")]
+    H, W = VOT_HW
+    ok = len(got) == len(want) == LS_VOT_FRAMES and all(
+        isinstance(s, Mask) and (s.x, s.y) == (0, 0) and s.mask.shape == (H, W) for s in got[1:])
+    equal = ok and all(np.array_equal(a.mask, b.mask) for a, b in zip(got[1:], want[1:]))
+    log("lwl_vot_entry", tracker="lwl", protocol="mask", frames=LS_VOT_FRAMES,
+        frame=f"{W}x{H}", seconds=entry_s, states=len(got), states_ok=ok,
+        masks_equal_in_process=equal, refiner_built=bool(built),
+        mask_area_fraction=[float(s.mask.mean()) for s in got[1:]] if ok else None)
+    if not ok or not equal or built:
+        raise AssertionError(f"lwl VOT entry: states ok {ok}, masks equal {equal}")
+
+
 def main() -> int:
     dev = require_cuda()
     card = card_line()
@@ -3283,6 +3481,7 @@ def main() -> int:
     atom_dcf_path(dev)
     mdnet_path(dev)
     keeptrack_kys_path(dev)
+    lwl_stm_path(dev)
 
     zoo_rows["crop_resize_normalized"] = [r for r in crop_rows if r["zoo"]]
 

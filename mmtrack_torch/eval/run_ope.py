@@ -21,7 +21,7 @@ models/convert.py::load_flax_npz), read through the weight bridge of the
 model's family (`FLAX_BRIDGES`; OSTrack-online's file also holds the
 score head's tree as `cls_params`); an orbax directory, a family
 without a bridge and a checkpoint for MOSSE or SCSRDCF (which have no
-learned weights) are refused. --tracker takes any of the forty recipes
+learned weights) are refused. --tracker takes any of the 42 recipes
 of mmtrack_torch/registry.py (`list_trackers()`); a recipe that names its
 own composition (promixtrack's rgbd_blend, ostrack_online's color) composes
 the dataset's frames so, the others as the dataset does. Without --dataset_root
@@ -66,7 +66,8 @@ def load_config(name: str):
 FLAX_BRIDGES = {"vipt": "vipt_state_dict_from_flax", "ostrack": "vipt_state_dict_from_flax",
                 "stark": "stark_state_dict_from_flax", "siamfc": "siamfc_state_dict_from_flax",
                 "mixformer": "mixformer_state_dict_from_flax", "dimp": "dimp_state_dict_from_flax",
-                "eco": "eco_state_dict_from_flax", "mdnet": "mdnet_state_dict_from_flax"}
+                "eco": "eco_state_dict_from_flax", "mdnet": "mdnet_state_dict_from_flax",
+                "lwl": "lwl_state_dict_from_flax"}
 
 
 def flax_state_dict(path: str, family: str) -> dict:

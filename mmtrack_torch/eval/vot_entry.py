@@ -9,7 +9,10 @@ Environment (the same variables as tools/run_vot_entry.py, plus the device):
   MMTRACK_DTYPE     frame composition (default: the recipe's, rgbcolormap)
   MMTRACK_CHANNELS  TraX image channels: rgbd (colour, depth) or rgbt
                     (colour, ir); default rgbd
-  MMTRACK_MASK      1: the VOT2020+ mask protocol, masks from Alpha-Refine
+  MMTRACK_MASK      1: the VOT2020+ mask protocol. The mask trackers (lwl,
+                    stm) get the init mask verbatim and report their own
+                    masks, and Alpha-Refine is never built; the other
+                    recipes' masks come from Alpha-Refine
   MMTRACK_AR_CKPT   flax Alpha-Refine variables (.npz, models/convert.py::
                     load_flax_npz); seeded random weights otherwise
   MMTRACK_DEVICE    cuda (default) or cpu

@@ -40,6 +40,11 @@ that converter reads, so the bridge only relabels and re-lays out:
                     the BatchNorm1d running statistics)
   ECO / C-COT       `eco_state_dict_from_flax` (ResNetVGGm1), the inverse
                     of convert_eco_backbone_checkpoint up to layer3
+  LWL / STM         `lwl_state_dict_from_flax`: an LWLNet tree (the inverse
+                    of convert_lwl_checkpoint; the box encoder, which the
+                    converter does not read, under `box_label_encoder.`)
+                    or, by `lwl_topology`, an STMNet tree (the inverse of
+                    convert_stm_checkpoint; the trunks stop at layer3)
   MDNet family      `mdnet_state_dict_from_flax`: MDNet single / dual and
                     MANet (the inverses of convert_mdnet_checkpoint and
                     convert_manet_checkpoint), APFNet (of
@@ -618,6 +623,79 @@ def gnet_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     return _tensors([("fc1.weight", _hwc_rows_to_chw(k1, (k1.shape[0] // 9,))),
                      ("fc1.bias", flat["fc1/bias"]), _dense("fc2", "kernel", flat["fc2/kernel"]),
                      _dense("fc2", "bias", flat["fc2/bias"])])
+
+
+def _leaf_at(prefix: str, leaf: str, value: np.ndarray):
+    """(name, value) of a conv or FrozenBatchNorm leaf under `prefix`."""
+    return _conv(prefix, leaf, value) if leaf in ("kernel", "bias") else _norm(prefix, leaf, value)
+
+
+# (flax module path, port module name) rewrites of LWLNet's heads
+_LWL_MODULES = (
+    (r"label_encoder/(conv_block|label_pred)/conv", r"label_encoder.\1.0"),
+    (r"label_encoder/(conv_block|label_pred)/bn", r"label_encoder.\1.1"),
+    (r"(box_label_encoder)/label_pred/conv", r"\1.label_pred.0"),
+    (r"(box_label_encoder)/label_pred/bn", r"\1.label_pred.1"),
+    (r"decoder/TSE_(\w+)/(reduce|transform)_(\d)", r"decoder.TSE.\1.\2.\3"),
+    (r"decoder/(RRB[12])_(\w+)/bblock_0", r"decoder.\1.\2.bblock.0"),
+    (r"decoder/(RRB[12])_(\w+)/bblock_bn", r"decoder.\1.\2.bblock.1"),
+    (r"decoder/(RRB[12])_(\w+)/bblock_2", r"decoder.\1.\2.bblock.3"),
+    (r"decoder/(RRB[12])_(\w+)/conv1x1", r"decoder.\1.\2.conv1x1"),
+    (r"decoder/CAB_(\w+)/convreluconv_(\d)", r"decoder.CAB.\1.convreluconv.\2"),
+    (r"decoder/proj_(\w+)", r"decoder.proj.\1.0"),
+    (r"decoder/project_(conv[12])", r"decoder.project.\1"),
+    (r"(label_encoder/(?:res[12]|samp_w_pred)|box_label_encoder/res_\d+)(/\w+)?", None),
+)
+
+
+def _lwl_leaf(p: str, value: np.ndarray):
+    """(port name, value) of one LWLNet flax leaf."""
+    top, _, rest = p.partition("/")
+    if top == "feature_extractor":
+        return _resnet_leaf("feature_extractor", rest, value)
+    if p == "filter_reg":
+        return "target_model.filter_optimizer.residual_module.filter_reg", value.reshape(1)
+    if p == "tm_features/final_conv/kernel":
+        return _conv("target_model.feature_extractor.0", "kernel", value)
+    mod, _, leaf = p.rpartition("/")
+    for pattern, name in _LWL_MODULES:
+        if re.fullmatch(pattern, mod):
+            return _leaf_at(mod.replace("/", ".") if name is None
+                            else re.sub(pattern, name, mod), leaf, value)
+    raise KeyError(f"no port counterpart for flax leaf {p}")
+
+
+def _stm_leaf(p: str, value: np.ndarray):
+    """(port name, value) of one STMNet flax leaf; None for a trunk's
+    layer4, which the port's trunks do not build."""
+    top, _, rest = p.partition("/")
+    if top in ("encoder_m", "encoder_q"):
+        if rest.startswith("layer4_"):
+            return None
+        return _resnet_leaf("Encoder_M" if top == "encoder_m" else "Encoder_Q", rest, value)
+    if m := re.fullmatch(r"conv1_(m|o)/kernel", p):
+        return _conv(f"Encoder_M.conv1_{m.group(1)}", "kernel", value)
+    if m := re.fullmatch(r"KV_(M|Q)_(Key|Value)/(kernel|bias)", p):
+        return _conv(f"KV_{m.group(1)}_r4.{m.group(2)}", m.group(3), value)
+    if m := re.fullmatch(r"dec_(.+)/(kernel|bias)", p):
+        return _conv("Decoder." + m.group(1).replace("/", "."), m.group(2), value)
+    raise KeyError(f"no port counterpart for flax leaf {p}")
+
+
+def lwl_topology(params: dict) -> str:
+    """'stm' for an STMNet flax tree (it has `encoder_q`), else 'lwl'."""
+    return "stm" if "encoder_q" in params else "lwl"
+
+
+def lwl_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax `params['params']` tree of the LWL family -> the port's state_dict
+    (f32 CPU tensors): an LWLNet's (the inverse of convert_lwl_checkpoint,
+    the box encoder too) or, by `lwl_topology`, an STMNet's (the inverse of
+    convert_stm_checkpoint without the trunks' layer4)."""
+    flat = {"/".join(k): v for k, v in _flatten(params).items()}
+    if lwl_topology(params) == "stm":
+        return _tensors(item for p, v in flat.items() if (item := _stm_leaf(p, v)) is not None)
+    return _tensors(_lwl_leaf(p, v) for p, v in flat.items())
 
 
 def load_flax_collections(path: str) -> dict:

@@ -11,7 +11,8 @@ its trunk stops there, and the weight bridge leaves the JAX tree's
 layer3/layer4 leaves out; STARK's ResNet-50 stops at `layer3`.
 
 Parameter names follow torchvision (`layer1.0.conv1.weight`,
-`layer2.0.downsample.{0,1}.*`).
+`layer2.0.downsample.{0,1}.*`). `forward`'s `conv1_add` is added to conv1's
+output before bn1, as STM's memory encoder needs (resnet.py:80-90).
 """
 
 from __future__ import annotations
@@ -111,9 +112,15 @@ class ResNet(nn.Module):
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             planes *= 2
 
-    def forward(self, x: torch.Tensor, out_layers: Sequence[str] = ("layer2",)) -> dict:
+    def forward(self, x: torch.Tensor, out_layers: Sequence[str] = ("layer2",),
+                conv1_add: torch.Tensor | None = None) -> dict:
+        """x (B, H, W, 3); conv1_add, when given, (B, H/2, W/2, 64) NHWC
+        like x, is added to conv1's output before bn1."""
         out = {}
-        y = torch.relu(self.bn1(self.conv1(x.permute(0, 3, 1, 2))))
+        y = self.conv1(x.permute(0, 3, 1, 2))
+        if conv1_add is not None:
+            y = y + conv1_add.permute(0, 3, 1, 2)
+        y = torch.relu(self.bn1(y))
         out["conv1"] = y
         y = F.max_pool2d(y, 3, stride=2, padding=1)
         for stage in range(self.n_stages):

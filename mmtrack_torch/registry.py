@@ -4,9 +4,10 @@ composition), port of mmtrack_tpu/registry.py (:19-141, :160-235,
 STARK-S, STARK-ST, SPT, SiamFC, MixFormer_RGBD, SAMF, ProMixTrack, the
 DiMP family (DiMP-50, the five DeT_DiMP50 merges, mfDiMP, PrDiMP-50),
 KeepTrack and KYS, ATOM with DeT's three RGB-D ATOMs, the DCF family
-(ECO, C-COT, MOSSE, SCSRDCF) and the MDNet family (MDNet, pyMDNet, pyVITAL, MANet and the
-RGB-T chassis APFNet, DAFNet, MaCNet; registry.py:239-299), with the JAX
-recipes' names, modalities, families, compositions and runtimes.
+(ECO, C-COT, MOSSE, SCSRDCF), the MDNet family (MDNet, pyMDNet, pyVITAL, MANet and the
+RGB-T chassis APFNet, DAFNet, MaCNet; registry.py:239-299) and the mask
+trackers LWL and STM (registry.py:144-156, 201-213): all 42 of the JAX
+recipes, with their names, modalities, families, compositions and runtimes.
 
 `build(seed, params, device)` returns a tracker with the reference
 BaseTracker API (initialize / track). Weights are seeded random unless
@@ -295,6 +296,36 @@ def _rgbt_chassis(kind: str) -> Callable:
     return build
 
 
+def _lwl() -> Callable:
+    """LWL at the published configuration (build_lwl_paper: 16 filters of
+    size 3) with LWL's runtime (registry.py:144-156)."""
+    def build(seed: int = 0, params: Optional[dict] = None, device="cuda"):
+        from mmtrack_torch.models.lwl import build_lwl_paper, init_lwl_weights
+        from mmtrack_torch.trackers.lwl_tracker import LWLRuntime, LWLTracker
+        model = build_lwl_paper()
+        if params is None:
+            init_lwl_weights(model, seed)
+        else:
+            model.load_state_dict(params)
+        return LWLTracker(model, device, LWLRuntime())
+    return build
+
+
+def _stm() -> Callable:
+    """STM with its runtime (registry.py:201-213)."""
+    def build(seed: int = 0, params: Optional[dict] = None, device="cuda"):
+        from mmtrack_torch.models.stm import build_stm
+        from mmtrack_torch.models.vipt import init_weights
+        from mmtrack_torch.trackers.stm_tracker import STMRuntime, STMTracker
+        model = build_stm()
+        if params is None:
+            init_weights(model, seed)
+        else:
+            model.load_state_dict(params)
+        return STMTracker(model, device, STMRuntime())
+    return build
+
+
 # recipes without learned weights: no checkpoint applies
 WEIGHTLESS = ("mosse", "scsrdcf")
 
@@ -353,6 +384,9 @@ TRACKER_REGISTRY: dict[str, TrackerRecipe] = {
     "apfnet": TrackerRecipe(_rgbt_chassis("apfnet"), "rgbt", "mdnet"),
     "dafnet": TrackerRecipe(_rgbt_chassis("dafnet"), "rgbt", "mdnet"),
     "macnet": TrackerRecipe(_rgbt_chassis("macnet"), "rgbt", "mdnet"),
+    # the mask trackers: few-shot segmentation and space-time memory
+    "lwl": TrackerRecipe(_lwl(), "rgb", "lwl"),
+    "stm": TrackerRecipe(_stm(), "rgb", "lwl"),
 }
 
 

@@ -288,7 +288,7 @@ def test_entry_refuses_what_it_cannot_run(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run_ope.main(["--dataset", "SYNTH", "--config", "deep_rgbd", "--synthetic"])
     with pytest.raises(SystemExit):
-        run_ope.main(["--dataset", "SYNTH", "--tracker", "lwl", "--device", "cpu",
+        run_ope.main(["--dataset", "SYNTH", "--tracker", "no_such_tracker", "--device", "cpu",
                       "--synthetic"])
     with pytest.raises(ValueError, match=r"\.pt file .* \.npz"):
         run_ope.load_checkpoint(str(tmp_path))

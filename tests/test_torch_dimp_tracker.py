@@ -19,9 +19,9 @@ raise every flag (and a tied peak); _update_memory over fills,
 replacements and masked frames, each update from JAX's state: the slot,
 the counts and the memory exact, the weights within 4 ulps (XLA's CPU sum
 adds the f32 weights left to right, PyTorch's vectorises, and they are
-normalised twice). The registry: every name, JAX's less the two not
-ported yet, builds on the CPU (MixFormer narrowed), the eight DiMP
-recipes with JAX's names,
+normalised twice). The registry: every one of JAX's 42 names builds on
+the CPU (MixFormer narrowed), lwl and stm with JAX's modality, family,
+composition and runtime, the eight DiMP recipes with JAX's names,
 modalities, family, compositions and runtimes.
 """
 
@@ -42,6 +42,8 @@ from mmtrack_tpu.data.synthetic import make_synthetic_sequence  # noqa: E402
 from mmtrack_tpu.models import dimp as jd  # noqa: E402
 from mmtrack_tpu.registry import TRACKER_REGISTRY as JAX_REGISTRY  # noqa: E402
 from mmtrack_tpu.trackers import dimp_tracker as jdt  # noqa: E402
+from mmtrack_tpu.trackers import lwl_tracker as jlwlt  # noqa: E402
+from mmtrack_tpu.trackers import stm_tracker as jstmt  # noqa: E402
 from mmtrack_torch import registry  # noqa: E402
 from mmtrack_torch.eval.run_ope import load_checkpoint  # noqa: E402
 from mmtrack_torch.models import dimp, mixformer  # noqa: E402
@@ -243,15 +245,18 @@ def test_update_memory_matches_jax(augmented):
 # ---------------------------------------------------------------- registry
 
 JAX_RUNTIMES = {"prdimp50": jdt.prdimp50_runtime()}
+# the mask trackers' JAX runtimes
+MASK_RECIPES = {"lwl": jlwlt.LWLRuntime, "stm": jstmt.STMRuntime}
 
 
 # the JAX registry's recipes the port does not build yet (ROADMAP queue 1)
-NOT_PORTED = {"lwl", "stm"}
+NOT_PORTED = set()
 
 
 def test_registry_builds_every_recipe_on_the_cpu(monkeypatch):
-    """Every name of the registry, JAX's less the ones not ported yet,
-    builds on the CPU (MixFormer-L narrowed); the DiMP recipes with JAX's
+    """Every name of the registry, JAX's less the ones not ported yet (none
+    now: all 42), builds on the CPU (MixFormer-L narrowed); lwl and stm
+    with JAX's modality, family, composition and runtime; the DiMP recipes with JAX's
     names, modality, family, composition and runtime, their networks of
     the recipe's kind, optimizer at JAX's init. (The other families' tests
     check their own recipes.)"""
@@ -263,6 +268,11 @@ def test_registry_builds_every_recipe_on_the_cpu(monkeypatch):
     assert set(names) == set(JAX_REGISTRY) - NOT_PORTED and set(DIMP_RECIPES) <= set(names)
     for name in names:
         tracker = registry.build_tracker(name, device="cpu")
+        if name in MASK_RECIPES:
+            r, j = registry.TRACKER_REGISTRY[name], JAX_REGISTRY[name]
+            assert (r.modality, r.family, r.composition) == (j.modality, j.family, j.composition)
+            assert dataclasses.asdict(tracker.rt) == dataclasses.asdict(MASK_RECIPES[name]())
+            assert tracker.predicts_segmentation_mask
         if name not in DIMP_RECIPES:
             continue
         r, j = registry.TRACKER_REGISTRY[name], JAX_REGISTRY[name]

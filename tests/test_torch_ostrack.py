@@ -261,4 +261,4 @@ def test_ostrack_online_npz_round_trips(tmp_path):
     for k, v in vipt_state_dict_from_flax(_np_tree(params["params"])).items():
         assert torch.equal(model.state_dict()[k], v), k
     with pytest.raises(ValueError, match="no flax weight bridge"):
-        load_checkpoint(path, "lwl")
+        load_checkpoint(path, "no_such_family")
