@@ -264,6 +264,20 @@ non-zero:
      selected id equal, KYS's fused map within 1e-4); and `run_ope
      --tracker kys --analyze` in its own process, its report equal to the
      in-process analysis.
+ 15. lwl_stm: LWL and STM from the registry on the same sequence, boxes
+     and masks, each on the card against the CPU, the stm entry and the
+     lwl mask-protocol VOT entry (`lwl_stm_path`).
+ 16. zoo_train: the dimp, det_dimp, stark (bbox, score), mixformer (bbox,
+     score) and siamfc scripts of train/run.py at full width, f32, on
+     seeded weights and synthetic batches through the entry's own crops,
+     model, trainable set, optimizer and step: 3 steps each at B=32
+     (MixFormer-L at B=8), the median ms of steps 2-3, the first and last
+     loss (finite), peak memory, no launch of any of the five kernels,
+     one profiled step (device ms, idle share, kernels); one f32 dimp
+     step on the card against the CPU on the same weights, batch and
+     proposal noise (loss within 1e-4 relative); and `python -m
+     mmtrack_torch.train.run --script det_dimp --synthetic` in its own
+     process, its checkpoint written.
 
 Every kernel in the `kernels` line carries bound_ms, the larger of its
 bytes over 3.35 TB/s and its operations over the peak rate of their type
@@ -286,6 +300,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3415,6 +3430,135 @@ def lwl_vot_entry(dev, tmp: str) -> None:
         raise AssertionError(f"lwl VOT entry: states ok {ok}, masks equal {equal}")
 
 
+# phase 16: the zoo's training scripts, (script, stage, B); MixFormer-L at
+# B=8 (its f32 step at B=32 would take the phase's whole budget)
+ZOO_TRAIN = (("dimp", "", 32), ("det_dimp", "", 32), ("stark", "bbox", 32),
+             ("stark", "score", 32), ("mixformer", "bbox", 8), ("mixformer", "score", 8),
+             ("siamfc", "", 32))
+ZOO_TRAIN_STEPS = 3                 # timed steps; the median of steps 2-3 is reported
+DIMP_CARD_VS_CPU_B = 2
+DIMP_LOSS_REL_BAR = 1e-4            # one f32 dimp step, card (TF32 off) vs CPU
+ZOO_TRAIN_ENTRY = ["--script", "det_dimp", "--batch", "2", "--samples", "2"]
+
+
+def zoo_train_batches(script: str, B: int, n: int, seed: int = 0) -> list:
+    """`n` batches of the synthetic corpus through the entry's own loader
+    and crops (train/run.py::zoo_loader)."""
+    from mmtrack_torch.train.run import zoo_loader
+
+    cfg = vipt_experiment_config("deep_rgbd")
+    cfg.TRAIN.BATCH_SIZE, cfg.DATA.TRAIN.SAMPLE_PER_EPOCH = B, B * n
+    return list(zoo_loader(script, [SyntheticVideoDataset(n_sequences=8, n_frames=60)], None,
+                           cfg, seed))
+
+
+def zoo_train_path(dev) -> None:
+    """Phase 16: the dimp, det_dimp, stark (bbox, score), mixformer (bbox,
+    score) and siamfc scripts of train/run.py at full width, f32 (TF32 off)
+    on seeded weights: ZOO_TRAIN_STEPS steps of each on synthetic batches
+    through the entry's own model, trainable set, optimizer and step, then
+    one profiled step; the five kernels launch 0 times. One dimp step on
+    the card against the CPU, and `python -m mmtrack_torch.train.run
+    --script det_dimp` in its own process."""
+    from mmtrack_torch.models.dimp import DiMPNet, init_dimp_weights
+    from mmtrack_torch.train import run
+    from mmtrack_torch.train.dimp_actor import N_PROPOSALS
+    from mmtrack_torch.train.optim import count_trainable
+
+    cfg = vipt_experiment_config("deep_rgbd")
+    t_phase = time.perf_counter()
+    for script, stage, B in ZOO_TRAIN:
+        t_script = time.perf_counter()
+        batches = zoo_train_batches(script, B, ZOO_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = run.build_zoo_model(script, stage, 0, dev)
+        trainable = run.zoo_trainable_mask(model, script, stage)
+        state = run.train_state(model, cfg, 1000, trainable)
+        step = run.make_zoo_step(script, stage, 0, torch.float32)
+        for fn in KERNEL_COUNTERS:
+            fn.launches = 0
+        ms, losses = [], []
+        for batch in batches[:ZOO_TRAIN_STEPS]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, stats = step(state, batch)
+            losses.append(float(stats["Loss/total"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {fn.__name__: fn.launches for fn in KERNEL_COUNTERS}
+        rows, wall_s = profile_window(lambda: step(state, batches[-1]), 1)
+        dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        n_trained = count_trainable(model, trainable) if trainable is not None else sum(
+            p.numel() for p in model.parameters())
+        ok = all(math.isfinite(v) for v in losses) and not any(launches.values())
+        log("zoo_train", script=script, stage=stage or None, B=B, dtype="f32",
+            crops=[batches[0]["template"].shape[1], batches[0]["search"].shape[1]],
+            trainable_params=n_trained, step_ms=ms,
+            median_step_ms=float(np.median(ms[1:])), first_loss=losses[0], last_loss=losses[-1],
+            samples_per_s=B / (float(np.median(ms[1:])) / 1e3),
+            peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20, launches=launches,
+            profiled_step_device_ms=dev_ms, profiled_step_wall_ms=wall_s * 1e3,
+            device_idle_share=1.0 - dev_ms / (wall_s * 1e3),
+            profiled_step_kernels=sum(e.count for e in rows),
+            top_kernels=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                         for e in rows[:5]], seconds=time.perf_counter() - t_script,
+            card=card_line())
+        if not ok:
+            raise AssertionError(f"zoo_train {script} {stage}: losses {losses}, "
+                                 f"launches {launches}")
+        del model, state, step, batches
+        torch.cuda.empty_cache()
+
+    # the entry in its own process, beside the card-vs-CPU step (untimed)
+    tmp = tempfile.mkdtemp()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t_entry = time.perf_counter()
+    entry = subprocess.Popen([sys.executable, "-m", "mmtrack_torch.train.run", "--synthetic",
+                              "--epochs", "1", "--save_dir", tmp] + ZOO_TRAIN_ENTRY,
+                             cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+
+    # one f32 dimp step, card against CPU, on the same weights, batch and noise
+    batch = zoo_train_batches("dimp", DIMP_CARD_VS_CPU_B, 1, seed=1)[0]
+    noise = torch.randn((DIMP_CARD_VS_CPU_B, N_PROPOSALS, 4),
+                        generator=torch.Generator().manual_seed(1))
+    weights = init_dimp_weights(DiMPNet(), 0).state_dict()
+    after = []
+    for d in (dev, torch.device("cpu")):
+        model = DiMPNet().to(d)
+        model.load_state_dict(weights)
+        state = run.train_state(model, cfg, 1000)
+        _, stats = run.make_zoo_step("dimp", "", 0, torch.float32)(state, batch, noise=noise)
+        after.append(({k: float(v) for k, v in stats.items()},
+                      {k: v.detach().cpu() for k, v in model.state_dict().items()}))
+    (card_stats, card_sd), (cpu_stats, cpu_sd) = after
+    rel = {k: abs(card_stats[k] - cpu_stats[k]) / abs(cpu_stats[k]) for k in cpu_stats}
+    d2 = sum(float(((card_sd[k] - cpu_sd[k]) ** 2).sum()) for k in cpu_sd)
+    n2 = sum(float((cpu_sd[k] ** 2).sum()) for k in cpu_sd)
+    log("zoo_train_card_vs_cpu", script="dimp", B=DIMP_CARD_VS_CPU_B, card=card_stats,
+        cpu=cpu_stats, rel=rel, bar=DIMP_LOSS_REL_BAR, params_rel_l2=(d2 / n2) ** 0.5)
+    if rel["Loss/total"] > DIMP_LOSS_REL_BAR:
+        raise AssertionError(f"dimp step card vs CPU: {rel}")
+
+    try:
+        out, err = entry.communicate(timeout=300)
+    finally:
+        if entry.poll() is None:
+            entry.kill()
+            entry.communicate()
+    ckpt = os.path.join(tmp, ZOO_TRAIN_ENTRY[1], "checkpoints", "epoch_0001.pt")
+    done = os.path.exists(ckpt)
+    shutil.rmtree(tmp)
+    log("zoo_train_entry", args=ZOO_TRAIN_ENTRY, seconds=time.perf_counter() - t_entry,
+        returncode=entry.returncode, checkpoint=done, stdout=out.splitlines()[-4:])
+    if entry.returncode != 0 or not done:
+        raise AssertionError(f"train entry {ZOO_TRAIN_ENTRY} exited {entry.returncode}: "
+                             f"{err[-3000:]}")
+    log("zoo_train_phase", seconds=time.perf_counter() - t_phase, scripts=len(ZOO_TRAIN))
+
+
 def main() -> int:
     dev = require_cuda()
     card = card_line()
@@ -3482,6 +3626,7 @@ def main() -> int:
     mdnet_path(dev)
     keeptrack_kys_path(dev)
     lwl_stm_path(dev)
+    zoo_train_path(dev)
 
     zoo_rows["crop_resize_normalized"] = [r for r in crop_rows if r["zoo"]]
 

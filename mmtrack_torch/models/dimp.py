@@ -504,6 +504,14 @@ class AtomIoUNet(nn.Module):
         xywh crop coordinates -> IoU (N, P)."""
         return self.predict_modulated(self.modulate(modulation, feats), proposals_xywh)
 
+    def forward(self, ref_feats, test_feats, bb_xywh: torch.Tensor,
+                proposals_xywh: torch.Tensor) -> torch.Tensor:
+        """The training forward (dimp.py:474-478, one reference frame per
+        sequence): reference features and boxes (N, 4), test features and
+        their proposals (N, P, 4) -> IoU (N, P)."""
+        return self.predict_iou(self.get_modulation(ref_feats, bb_xywh),
+                                self.get_iou_feat(test_feats), proposals_xywh)
+
 
 # ---------------------------------------------------------------- full nets
 
@@ -515,7 +523,9 @@ class DiMPNet(nn.Module):
 
     Methods as the JAX model's: extract_backbone, extract_classification_feat,
     get_filter, optimize_filter (also the hinge's optimize_filter_hinge),
-    classify, and the IoUNet under `bb_regressor`."""
+    classify, the IoUNet under `bb_regressor`, and the training-style
+    `forward`. Autograd runs through all of them: the training step
+    differentiates through the unrolled filter optimizer and PrRoI."""
 
     def __init__(self, filter_size: int = 4, out_feature_dim: int = 512, optim_iter: int = 5,
                  feat_stride: int = 16, merge_type: Optional[str] = None,
@@ -580,6 +590,42 @@ class DiMPNet(nn.Module):
 
     def classify(self, weights: torch.Tensor, clf_feat: torch.Tensor) -> torch.Tensor:
         return apply_filter(clf_feat, weights)
+
+    def _train_labels(self, clf_feat: torch.Tensor, bb_xywh: torch.Tensor) -> torch.Tensor:
+        """Gaussian labels (N, H', W') on the score grid for the hinge
+        optimizer in the training forward (dimp.py:575-593): sigma a
+        quarter of the target size, the grid end-padded for an even
+        kernel and measured from the map's centre."""
+        N, H, W, _ = clf_feat.shape
+        fs = self.classifier.filter_initializer.filter_size
+        stride = self.classifier.filter_initializer.feature_stride
+        end_pad = (fs + 1) % 2
+        dev = clf_feat.device
+        ky = torch.arange(H + end_pad, dtype=torch.float32, device=dev) - (H - 1) / 2
+        kx = torch.arange(W + end_pad, dtype=torch.float32, device=dev) - (W - 1) / 2
+        center = (div_const(bb_xywh[:, :2] + bb_xywh[:, 2:] / 2, stride).flip(1)
+                  - torch.tensor([(H - 1) / 2, (W - 1) / 2], device=dev) + 0.5 * end_pad)
+        sigma = div_const(0.25 * torch.sqrt(bb_xywh[:, 2] * bb_xywh[:, 3]), stride)
+        gy = torch.exp(-0.5 * ((ky[None, :] - center[:, 0:1]) / sigma[:, None]) ** 2)
+        gx = torch.exp(-0.5 * ((kx[None, :] - center[:, 1:2]) / sigma[:, None]) ** 2)
+        return gy[:, :, None] * gx[:, None, :]
+
+    def forward(self, train_im, test_im, train_bb, test_proposals) -> dict:
+        """The training-style forward (dimp.py:598-616): the filter learned
+        on all train frames as one sequence, its scores on the test frames
+        and the IoUs of the test proposals. train_bb (N, 4), test_proposals
+        (N, P, 4) in crop pixels -> {'target_scores', 'iou_pred'}."""
+        train_feat = self.extract_backbone(train_im)
+        test_feat = self.extract_backbone(test_im)
+        train_clf = self.extract_classification_feat(train_feat)
+        test_clf = self.extract_classification_feat(test_feat)
+        target = (self._train_labels(train_clf, train_bb) if self.optimizer_type == "hinge"
+                  else train_bb)
+        w = self.optimize_filter(self.get_filter(train_clf, train_bb), train_clf, target)
+        iou_pred = self.bb_regressor([train_feat["layer2"], train_feat["layer3"]],
+                                     [test_feat["layer2"], test_feat["layer3"]],
+                                     train_bb, test_proposals)
+        return {"target_scores": self.classify(w, test_clf), "iou_pred": iou_pred}
 
 
 def build_dimp50() -> DiMPNet:

@@ -1,5 +1,6 @@
-"""Training losses of the ViPT objective, port of mmtrack_tpu/ops/losses.py
-(:14-49; ViPT lib/utils/focal_loss.py:8-35, lib/train/actors/vipt.py:86-123)."""
+"""Training losses of the ViPT and DiMP objectives, port of
+mmtrack_tpu/ops/losses.py (:14-49, :79-89; ViPT lib/utils/focal_loss.py:8-63,
+lib/train/actors/vipt.py:86-123)."""
 
 from __future__ import annotations
 
@@ -38,3 +39,13 @@ def giou_loss(pred_xyxy: torch.Tensor,
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (pred - target).abs().mean()
+
+
+def lb_hinge_loss(pred: torch.Tensor, label: torch.Tensor,
+                  threshold: float = 0.05) -> torch.Tensor:
+    """Lower-bound hinge MSE of DiMP's classifier: where the label is below
+    `threshold` (background) only a positive prediction is an error."""
+    negative = (label < threshold).to(pred.dtype)
+    positive = 1.0 - negative
+    pred_eff = negative * torch.clamp(pred, min=0.0) + positive * pred
+    return ((pred_eff - positive * label) ** 2).mean()

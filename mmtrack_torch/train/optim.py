@@ -25,6 +25,12 @@ def prompt_only_mask(model: nn.Module) -> dict[str, bool]:
     return {name: "prompt" in name for name, _ in model.named_parameters()}
 
 
+def prefix_mask(model: nn.Module, prefix: str) -> dict[str, bool]:
+    """True (trainable) for the parameters under the module `prefix`
+    (e.g. 'cls_head.', STARK's score head)."""
+    return {name: name.startswith(prefix) for name, _ in model.named_parameters()}
+
+
 def count_trainable(model: nn.Module, mask: dict[str, bool]) -> int:
     return sum(p.numel() for name, p in model.named_parameters() if mask[name])
 

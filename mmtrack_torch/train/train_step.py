@@ -10,6 +10,7 @@ uninterrupted run's masks.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable
 
@@ -35,6 +36,14 @@ def drop_path_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s)
 
 
+def compute_context(device, dtype: torch.dtype):
+    """The zoo steps' bf16 compute over f32 parameters (autocast on
+    `device`), or no context for f32."""
+    if dtype == torch.float32:
+        return contextlib.nullcontext()
+    return torch.autocast(torch.device(device).type, dtype=dtype)
+
+
 def batch_to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(batch[k], device=device)
             for k in ("template", "search", "search_anno")}
@@ -57,16 +66,23 @@ def make_train_step(*, box_mask_z, ce_keep_lens, weights=(2.0, 5.0, 1.0),
             model, batch_to_device(batch, device), box_mask_z=box_mask_z,
             ce_keep_lens=ce_keep_lens, weights=weights, search_size=search_size,
             stride=stride, generator=gen)
-        state.optimizer.zero_grad(set_to_none=False)
-        loss.backward()
-        group = state.optimizer.param_groups[0]
-        for p in group["params"]:
-            if p.grad is None:          # optax updates every trainable leaf
-                p.grad = torch.zeros_like(p)
-        clip_by_global_norm_([p.grad for p in group["params"]], group["grad_clip_norm"])
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        return state, {k: v.detach() for k, v in stats.items()}
+        return apply_update(state, loss, stats)
 
     return train_step
+
+
+def apply_update(state: TrainState, loss: torch.Tensor, stats: dict):
+    """Backward of `loss`, optax's global-norm clip over the trainable
+    parameters, the optimizer and schedule steps: the update every train
+    step of the port ends with. Returns (state, detached stats)."""
+    state.optimizer.zero_grad(set_to_none=False)
+    loss.backward()
+    group = state.optimizer.param_groups[0]
+    for p in group["params"]:
+        if p.grad is None:          # optax updates every trainable leaf
+            p.grad = torch.zeros_like(p)
+    clip_by_global_norm_([p.grad for p in group["params"]], group["grad_clip_norm"])
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    return state, {k: v.detach() for k, v in stats.items()}

@@ -17,6 +17,7 @@ made from numpy seeds. Tolerances:
     within 1e-4.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import numpy as np
 import pytest
 

@@ -33,6 +33,7 @@ fills, replacements and masked frames, each update from JAX's state (the
 weights within 4 ulps, as for DiMP's memory).
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 import os
 import sys

@@ -25,6 +25,7 @@ a last test checks in exact arithmetic that this is the correctly rounded
 division for the probabilities' range.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 from fractions import Fraction
 
 import numpy as np

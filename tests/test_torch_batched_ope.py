@@ -18,6 +18,7 @@ the tests write with cv2:
   cannot import jax, flax or mmtrack_tpu, and refuses what it cannot run.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import json
 import os
 import subprocess

@@ -17,6 +17,7 @@ the loader's build from source when the tracked library does not load,
 and its report when nothing loads.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import numpy as np
 import pytest
 

@@ -5,6 +5,7 @@ every leaf of `p` bit for bit, and the bridge's names and shapes must be
 exactly the port model's state_dict.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import numpy as np
 import pytest
 

@@ -17,6 +17,7 @@ The wrapper must refuse boxes, mean or std that are not f32 tensors on the
 frames' device, before any build.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import math
 from fractions import Fraction
 

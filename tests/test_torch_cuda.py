@@ -38,6 +38,7 @@ path's frozen weights) and for the weights too; a CUDA output made under
 grad mode must have a grad_fn.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import pytest
 
 torch = pytest.importorskip("torch")

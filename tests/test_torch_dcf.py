@@ -25,6 +25,7 @@ cannot import jax, flax or mmtrack_tpu. (ECO's full-size init takes ~40 s
 on two CPU threads; chip_smoke.py phase 12 runs its entry on the card.)
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 import os
 import shlex

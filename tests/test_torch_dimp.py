@@ -22,6 +22,7 @@ JAX's convert_dimp_checkpoint to the flax tree leaf for leaf; the only
 leaves it lacks are the trunks' layer4, which DiMP never reads.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import math
 
 import numpy as np

@@ -25,6 +25,7 @@ composition and runtime, the eight DiMP recipes with JAX's names,
 modalities, family, compositions and runtimes.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 import os
 import sys

@@ -29,6 +29,7 @@ amplifies rounding (tests/test_torch_atom.py measures it for ATOM), and
 leaves ECO's projection 1.9e-4 apart, C-COT's carried state 2.1e-4.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 import os
 import sys

@@ -8,6 +8,7 @@ within 1e-12, result files are byte-identical in each format, and the
 sequential driver resumes as the JAX one does.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 import os
 

@@ -16,6 +16,7 @@ gauss_label_spectrum, reg_filter with and without pad_to), max2d_wrapped
 on maps with tied maxima, and a dead CG iteration freezing the carry.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 from functools import partial
 
 import numpy as np

@@ -9,6 +9,7 @@ bad shape, dtype or alignment before the library is built or a kernel
 launched, and the plain GEMM must be the half-block's own arithmetic.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import math
 
 import pytest

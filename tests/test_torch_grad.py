@@ -15,6 +15,7 @@
     bf16 model: which kernel wrapper each block calls, per forward.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import numpy as np
 import pytest
 

@@ -3,6 +3,7 @@ chip_smoke.py imports jax, flax or the JAX package (mmtrack_tpu), at any
 level of a module (inside functions too). Each file is parsed with `ast`,
 so docstrings and comments that name the JAX package do not count."""
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import ast
 import os
 

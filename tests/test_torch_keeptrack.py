@@ -33,6 +33,7 @@ are 240 x 320 and the box small enough that inside_major's shrink stays
 off its integer boundary (see test_torch_dimp_tracker.py).
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 import os
 import sys

@@ -17,6 +17,7 @@ The kernels themselves run only on the card (chip_smoke.py); the tests at
 the end pin the no-fallback rule on a machine without CUDA.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import os
 import shutil
 import subprocess

@@ -26,6 +26,7 @@ centre, so the centre shift (the box outside the central region) is held
 by one step from JAX's state with the previous box moved out of it.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 import os
 import sys

@@ -9,6 +9,7 @@ gives frames equal to its directory twin read by the decoder the backend
 uses (cv2). Tolerances: none.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import os
 
 import cv2

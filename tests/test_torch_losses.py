@@ -3,6 +3,7 @@ JAX package at f32: values within 1e-6 (relative 1e-5 for the losses) and
 gradients from autograd against jax.grad within 1e-5 relative, on
 numpy-seeded boxes and score maps."""
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import numpy as np
 import pytest
 

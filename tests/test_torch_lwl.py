@@ -38,6 +38,7 @@ the state). The box-encoder init (narrow model) is held against JAX's
 jitted init.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 from functools import partial
 

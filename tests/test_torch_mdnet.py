@@ -19,6 +19,7 @@ convert_apfnet_checkpoint exactly; flax .npz files of every topology
 through run_ope's loader.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 from functools import partial
 

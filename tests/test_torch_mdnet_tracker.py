@@ -24,6 +24,7 @@ MDNetTracker with JaxDraws: boxes within 0.05 px and the same success on
 every frame.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 import functools
 import os

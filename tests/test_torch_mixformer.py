@@ -17,6 +17,7 @@ names, modality, family, composition and runtime; `run_ope --tracker
 promixtrack` without jax.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 import json
 import os

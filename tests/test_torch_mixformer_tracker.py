@@ -14,6 +14,7 @@ test_mixformer_ring_grows_like_reference asserts. The host-crop harness
 step (mixformer_step_from_patch) on injected patches against JAX's.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import os
 import sys
 

@@ -18,6 +18,7 @@ mask protocol with a tracker that predicts its own masks.
     reaches the tracker verbatim.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import os
 import subprocess
 import sys

@@ -8,6 +8,7 @@ transcendental (cos in the Hann window) differs by an ulp between the two
 libraries.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import numpy as np
 import pytest
 

@@ -11,6 +11,7 @@ head's port state_dict goes back to the JAX tree through JAX's
 convert_score_head_checkpoint.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import os
 import sys
 

@@ -17,6 +17,7 @@ state_dict through JAX's convert_peak_matching_checkpoint gives the flax
 trees exactly, and back.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import functools
 
 import numpy as np

@@ -10,6 +10,7 @@ within 1e-4; the tracker free from frame 0 within 0.05 px; `run_ope
 import jax, flax or mmtrack_tpu.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import json
 import os
 import subprocess

@@ -14,6 +14,7 @@ frame by frame; the port state_dicts go back to the JAX trees through
 JAX's convert_stark_checkpoint.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import os
 import sys
 

@@ -24,6 +24,7 @@ process where jax, flax and mmtrack_tpu cannot be imported (the recipe's
 runtime narrowed to 64 px crops).
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 import os
 import subprocess

@@ -9,6 +9,7 @@ port's scan is its step loop bit for bit; the CUDA graph of the scan
 (`make_track_scan`) runs on the card only (tests/test_torch_cuda.py).
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import os
 from functools import partial
 

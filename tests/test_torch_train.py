@@ -18,6 +18,7 @@ are made from numpy seeds. Tolerances:
   * resume and fail-safe restart: bit-equal to an uninterrupted run.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import json
 import os
 import subprocess

@@ -11,6 +11,7 @@ bit for bit. The corpus writers here also serve tests/test_torch_lmdb.py
 and tests/test_torch_train_disk.py.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import json
 import os
 import sys

@@ -25,6 +25,7 @@ never reaches. JAX's step still moves it, by AdamW's weight decay alone
 (p * (1 - lr * wd)); the port's step must move every leaf the same way.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import json
 import os
 import subprocess
@@ -234,7 +235,7 @@ def test_entry_trains_from_disk_without_jax(tmp_path):
     under a temporary HOME: --script ostrack on the RGB mix (two steps),
     then --script vipt on DepthTrack with --init from its checkpoint (two
     steps); a corpus without a root raises FileNotFoundError naming the
-    settings file; --script dimp is refused."""
+    settings file; --script mdnet (not ported yet) is refused."""
     import yaml
 
     data = str(tmp_path / "data")
@@ -266,8 +267,8 @@ prior = {os.path.join(ws, "ostrack-mix", "checkpoints", "epoch_0001.pt")!r}
 assert run.main(["--config", {str(tmp_path / "tiny.json")!r}, "--init", prior] + common) == 0
 with pytest.raises(FileNotFoundError, match="trackingnet_dir in {settings}"):
     run.main(["--config", {str(tmp_path / "tnet.json")!r}] + common)
-with pytest.raises(NotImplementedError, match="dimp"):
-    run.main(["--script", "dimp"] + common)
+with pytest.raises(NotImplementedError, match="mdnet"):
+    run.main(["--script", "mdnet"] + common)
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'mmtrack_tpu')]
 assert not bad, bad
 """

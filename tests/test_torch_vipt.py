@@ -8,6 +8,7 @@ candidate-elimination indices. The full-width deep_rgbd forward is the
 slow test, held to 1e-4 on the maps as well.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 
 import numpy as np

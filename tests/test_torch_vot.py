@@ -19,6 +19,7 @@ module) against the JAX package's, at f32 on the CPU.
     (default device) fails before it answers.
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import io
 import os
 import shlex

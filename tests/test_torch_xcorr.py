@@ -12,6 +12,7 @@ unit-normal products, whose f32 rounding in another order stays below that
 (at 6 x 6 x 32, 1152 products, the two orders differ by 1.4e-4).
 """
 
+import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import numpy as np
 import pytest
 
