@@ -144,17 +144,17 @@ non-zero:
      ostrack_online, stark_s, stark_st, spt, siamfc, mixformer_rgbd, samf,
      promixtrack), each from the registry at f32 on seeded weights (the
      MixFormers at MixFormer-L's full width), through
-     eval/ope.py::run_sequence over one 33-frame 640x480 sequence of phase
+     eval/ope.py::run_sequence over one 21-frame 640x480 sequence of phase
      9's fixture composed as the recipe asks. Every box finite and inside
      its frame (SiamFC, which does not clip its box, its centre); crop
-     launches exactly 33 + the template refreshes the tracker reported
+     launches exactly 21 + the template refreshes the tracker reported
      (none for SiamFC, whose pyramid is plain PyTorch), for the MixFormers
-     1 + 32 x scales + the nominations; median ms per frame after 3
+     1 + 20 x scales + the nominations; median ms per frame after 3
      warm-up frames; for the MixFormers also the nominations, the ring
      writes and the card's idle share over one profiled frame; one
      full-width mixformer_rgbd forward on the card against the same
      weights on the CPU (boxes within 1e-4, logits within 1e-3). The
-     device rgbcolormap compose (ops/compose.py) of the sequence's 33
+     device rgbcolormap compose (ops/compose.py) of the sequence's 21
      frames, from the decoded RGB and raw 16-bit depth, bit-equal to the
      host composition. OSTrack-online at bf16 (build_ostrack's dtype): one
      dual-template forward with the kernels against use_kernels=False,
@@ -190,32 +190,32 @@ non-zero:
      GOT-10k's images (data/minilmdb.py's writer), whose frames must equal
      the directory's. The decoder (native or cv2) and the LMDB reader (the C
      lmdb package or minilmdb) that ran are printed; then the loader's
-     seconds per B=32 batch for each corpus (names2datasets -> sampler ->
+     seconds of one B=32 batch for each corpus (names2datasets -> sampler ->
      ViPTProcessing -> BatchLoader, one producer thread). deep_rgbd at
      B=32, bf16 compute, f32 parameters, drop path with CE keep 0.7: the
      first DepthTrack batch's loss and prompt gradients with the kernels
      against the plain versions within phase 6's bars (same decode at the
-     plain run's argmax); prompt-only steps from disk, a warm-up and 4
-     counted, then 2 under torch.profiler (the card's idle share over the
-     from-disk window), then 4 on the first batch resident on the card:
+     plain run's argmax); prompt-only steps from disk, a warm-up and 2
+     counted, then 1 under torch.profiler (the card's idle share over the
+     from-disk window), then 2 on the first batch resident on the card:
      ms/step, samples/s, the wait on the loader and peak memory, launches
      exactly 8 / 1 / 1 (flash_mhsa_qkv / attn_block_fused /
      mlp_block_fused) a step, every prompt leaf moved and every frozen leaf
      unchanged. OSTrack (every parameter trainable) from the RGB mix
-     (LaSOT + GOT-10k at 1:1, 3-channel crops): a warm-up and 2 counted
-     steps, launches 8 / 1 / 1 a step, every leaf moved but the auxiliary
+     (LaSOT + GOT-10k at 1:1, 3-channel crops): a warm-up and 1 counted
+     step, launches 8 / 1 / 1 a step, every leaf moved but the auxiliary
      patch embedding, which 3-channel input never reaches and which must
      equal its start times (1 - lr wd) per step (weight decay alone).
      Last, `python -m mmtrack_torch.train.run --script ostrack --config
      rgb_mix.json --bf16` and then `--script vipt --config deep_rgbd --bf16
      --init <its checkpoint>`, each in its own process with the roots in a
-     local.yaml under a temporary HOME, two B=32 steps each: exit 0, a
+     local.yaml under a temporary HOME, one B=32 step each: exit 0, a
      checkpoint written, and the --init's printed counts (missing = the
      prompt leaves, unexpected = 0).
  12. atom_dcf: the ATOM and DCF families, the eight recipes atom,
      det_atom_{max,mean,mc} (rgbcolormap frames), eco, ccot, mosse and
      scsrdcf (colour frames) from the registry at f32 on seeded weights
-     over a 33-frame 640x480 sequence of phase 9's fixture: every box
+     over a 21-frame 640x480 sequence of phase 9's fixture: every box
      finite and inside its frame (ATOM's, which its IoU refinement does
      not clip, its centre), no launch of any of the five kernels (the
      crops are the plain `crop_at`, the FFTs torch.fft), the median ms per
@@ -233,7 +233,7 @@ non-zero:
      dafnet and macnet (rgbrgb frames of a one-sequence LasHeR layout of
      the same frames: the colour beside phase 10's 8-bit thermal stand-in
      of the depth, both as JPEG) from the registry at f32 on seeded
-     weights over the 33 frames at 640x480: every box finite and inside
+     weights over the 21 frames at 640x480: every box finite and inside
      its frame, no launch of any of the five kernels (the candidate crops
      are the plain four-tap gather, the networks cuDNN and cuBLAS), the
      init in ms, the median ms per frame, the long-term and short-term
@@ -248,7 +248,7 @@ non-zero:
      equal to the in-process analysis.
 
  14. keeptrack_kys: KeepTrack and KYS, keep_track and kys from the
-     registry at f32 on seeded weights over phase 10's 33-frame 640x480
+     registry at f32 on seeded weights over phase 10's 21-frame 640x480
      sequence: every box finite and its centre inside its frame (the IoU
      refinement comes after the step's clamp), no launch of any of the
      five kernels (the sample crop is `crop_at`, the matcher, the cost
@@ -267,17 +267,26 @@ non-zero:
  15. lwl_stm: LWL and STM from the registry on the same sequence, boxes
      and masks, each on the card against the CPU, the stm entry and the
      lwl mask-protocol VOT entry (`lwl_stm_path`).
+ 15b. zoo_entries: the `run_ope` entries of phases 10 and 12-15 (spt,
+     samf, det_dimp50_max, eco, apfnet, kys, stm), queued by each phase
+     with a copy of its sequence and in-process results, run side by side
+     in their own processes after phase 15, each held as its phase says.
  16. zoo_train: the dimp, det_dimp, stark (bbox, score), mixformer (bbox,
-     score) and siamfc scripts of train/run.py at full width, f32, on
-     seeded weights and synthetic batches through the entry's own crops,
-     model, trainable set, optimizer and step: 3 steps each at B=32
-     (MixFormer-L at B=8), the median ms of steps 2-3, the first and last
-     loss (finite), peak memory, no launch of any of the five kernels,
-     one profiled step (device ms, idle share, kernels); one f32 dimp
-     step on the card against the CPU on the same weights, batch and
-     proposal noise (loss within 1e-4 relative); and `python -m
-     mmtrack_torch.train.run --script det_dimp --synthetic` in its own
-     process, its checkpoint written.
+     score), siamfc, mdnet, apfnet (stages 1 at attribute 2, 2 and 3) and
+     kys scripts of train/run.py at full width, f32, on seeded weights and
+     synthetic batches through the entry's own crops, model, trainable
+     set, optimizer and step: 2 steps each at B=32 (MixFormer-L at B=8,
+     APFNet at B=16), the ms of the second, the first and last loss
+     (finite), peak memory, no launch of any of the five kernels, one
+     profiled step (device ms, idle share, kernels); one f32 step each of dimp, mdnet
+     and kys on the card against the CPU on the same weights, batch and
+     draws (each loss term within 1e-4 relative, the trained leaves'
+     relative L2 printed); and `python -m mmtrack_torch.train.run --script
+     det_dimp --synthetic` and `--script apfnet --stage 1 --attribute 2`,
+     each in its own process, their checkpoints written.
+
+Every phase prints its seconds (a `<phase>_phase` line), and the last
+phase line the seconds of all of them.
 
 Every kernel in the `kernels` line carries bound_ms, the larger of its
 bytes over 3.35 TB/s and its operations over the peak rate of their type
@@ -1540,8 +1549,8 @@ OPE_KERNELS = {"attention": (ATTENTION_KERNELS, 9), "gemm": ((GEMM_KERNEL,), GEM
 OPE_COUNTERS = (attn_block_fused, mlp_block_fused, crop_resize_normalized)
 
 
-def ope_fixture(root: str, n_seqs: int = OPE_SEQS) -> None:
-    """n_seqs DepthTrack-layout sequences of OPE_FRAMES frames under root:
+def ope_fixture(root: str, n_seqs: int = OPE_SEQS, n_frames: int = OPE_FRAMES) -> None:
+    """n_seqs DepthTrack-layout sequences of n_frames frames under root:
     color/*.jpg (cv2's default quality and 4:2:0) and 16-bit depth/*.png
     made from data/synthetic.py's frames (RGB from the first triplet; depth
     a seeded base, nearer where the target's aux triplet is bright), and a
@@ -1554,7 +1563,7 @@ def ope_fixture(root: str, n_seqs: int = OPE_SEQS) -> None:
         rng = np.random.RandomState(100 + i)
         box0 = (rng.uniform(60, W - 160), rng.uniform(50, H - 120),
                 rng.uniform(48, 96), rng.uniform(40, 72))
-        frames, gt = make_synthetic_sequence(n_frames=OPE_FRAMES, height=H, width=W,
+        frames, gt = make_synthetic_sequence(n_frames=n_frames, height=H, width=W,
                                              seed=100 + i, box0=box0,
                                              velocity=tuple(rng.uniform(-4, 4, 2)))
         base = (2000 + 3000 * np.linspace(0, 1, H)[:, None]
@@ -1563,7 +1572,7 @@ def ope_fixture(root: str, n_seqs: int = OPE_SEQS) -> None:
         for sub in ("color", "depth"):
             os.makedirs(os.path.join(seq, sub))
         np.savetxt(os.path.join(seq, "groundtruth.txt"), gt, delimiter=",", fmt="%.4f")
-        for t in range(OPE_FRAMES):
+        for t in range(n_frames):
             depth = (base - 6 * frames[t, :, :, 3].astype(np.int32)).clip(0, 65535)
             jobs.append((os.path.join(seq, "color", f"{t:08d}.jpg"),
                          cv2.cvtColor(frames[t, :, :, :3], cv2.COLOR_RGB2BGR)))
@@ -1890,6 +1899,10 @@ class FrameRecorder:
         return out
 
 
+# frames of the one sequence each zoo recipe runs over (phases 10, 12-15):
+# the first 21 of phase 9's 33 (its fixture's frames 0-20), which keeps the
+# 10th frame's card-vs-CPU checks and 18 frames after ZOO_WARMUP
+ZOO_FRAMES = 21
 ZOO = ("ostrack", "ostrack_online", "stark_s", "stark_st", "spt", "siamfc",
        "mixformer_rgbd", "samf", "promixtrack")
 # run_ope --tracker in its own process (eco in phase 12)
@@ -1974,7 +1987,7 @@ def zoo_path(dev) -> dict:
     counted = dict.fromkeys(ope_counts(), 0)
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "DepthTrack")
-        ope_fixture(root, n_seqs=1)
+        ope_fixture(root, n_seqs=1, n_frames=ZOO_FRAMES)
         seq_dir = list_sequences(root, "DepthTrack")[0]
         res_in = os.path.join(tmp, "in_process")
         for name in ZOO:
@@ -1990,7 +2003,7 @@ def zoo_path(dev) -> dict:
             if recipe.family == "mixformer":
                 # the template, one search crop per scale a frame, one per nomination
                 inner = tracker.tracker
-                crops = (1 + (OPE_FRAMES - 1) * len(inner.rt.scale_factors)
+                crops = (1 + (ZOO_FRAMES - 1) * len(inner.rt.scale_factors)
                          + inner.nominations)
                 extra = dict(scales=list(inner.rt.scale_factors), nominations=inner.nominations,
                              ring_updates=inner.ring_updates, n_online=inner.state["n_online"])
@@ -2006,12 +2019,12 @@ def zoo_path(dev) -> dict:
                              top_kernels=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
                                           for e in rows[:6]])
             else:
-                crops = 0 if name == "siamfc" else OPE_FRAMES + tracker.updates
+                crops = 0 if name == "siamfc" else ZOO_FRAMES + tracker.updates
             want = {"attn_block_fused": 0, "mlp_block_fused": 0,   # f32: the plain blocks
                     "crop_resize_normalized": crops}
             ok = zoo_boxes_ok(name, res["boxes"], H, W)
             log("zoo", tracker=name, family=recipe.family, modality=recipe.modality,
-                composition=recipe.composition, dtype="f32", frames=OPE_FRAMES,
+                composition=recipe.composition, dtype="f32", frames=ZOO_FRAMES,
                 frame=f"{W}x{H}", boxes_ok=ok, template_updates=tracker.updates,
                 launches=launches, expected=want,
                 median_ms_per_frame=float(np.median(tracker.ms[ZOO_WARMUP:])),
@@ -2036,7 +2049,7 @@ def zoo_path(dev) -> dict:
         seq = load_sequence(seq_dir, "DepthTrack")
         seq.dtype = "color"
         frames = [get_x_frame(seq.rgb_frames[t], seq.x_frames[t], "color", seq.depth_clip)
-                  for t in range(OPE_FRAMES)]
+                  for t in range(ZOO_FRAMES)]
         rt = OSTrackOnlineRuntime()
         model = build_ostrack(template_size=128, search_size=320, dtype=torch.bfloat16,
                               device=dev, seed=0)
@@ -2062,9 +2075,9 @@ def zoo_path(dev) -> dict:
         tracker.updates, tracker.ms = 0, []
         res = run_sequence(tracker, seq, frame_loader=frames.__getitem__)
         launches = ope_counts()
-        steps = OPE_FRAMES - 1
+        steps = ZOO_FRAMES - 1
         want = {"attn_block_fused": 9 * steps, "mlp_block_fused": 12 * steps,
-                "crop_resize_normalized": OPE_FRAMES + tracker.updates}
+                "crop_resize_normalized": ZOO_FRAMES + tracker.updates}
         # the branches over OO_PROFILE_FRAMES profiled frames; a window now
         # and then loses an event, so up to three windows
         want_branches = {k: n * OO_PROFILE_FRAMES for k, (_, n) in OO_ATTENTION.items()}
@@ -2075,7 +2088,7 @@ def zoo_path(dev) -> dict:
             if branches == want_branches:
                 break
         ok = zoo_boxes_ok("ostrack_online", res["boxes"], H, W)
-        log("zoo_oo_bf16", tracker="ostrack_online", dtype="bf16", frames=OPE_FRAMES,
+        log("zoo_oo_bf16", tracker="ostrack_online", dtype="bf16", frames=ZOO_FRAMES,
             frame=f"{W}x{H}", boxes_ok=ok, template_updates=tracker.updates,
             launches=launches, expected=want, profiled_frames=OO_PROFILE_FRAMES,
             attention_branches=branches, expected_branches=want_branches,
@@ -2093,57 +2106,86 @@ def zoo_path(dev) -> dict:
         # to the host composition that mixformer_rgbd and samf read
         compose_check(dev, load_sequence(seq_dir, "DepthTrack"))
 
-        # the entries, as a user runs them, each in its own process
-        check_entries([n for n in ZOO_ENTRIES if n in ZOO + DIMP_ZOO], root, seq_dir, res_in,
-                      tmp)
+        # the entries, as a user runs them, each in its own process (after phase 15)
+        defer_entries([n for n in ZOO_ENTRIES if n in ZOO + DIMP_ZOO], root, seq_dir, res_in)
     return counted
 
 
-def check_entries(names, root: str, seq_dir: str, res_in: str, tmp: str,
+# the run_ope entries of phases 10 and 12-15, (names, root, sequence dir,
+# in-process results, their directory, dataset), run by zoo_entries_path
+DEFERRED_ENTRIES: list = []
+
+
+def defer_entries(names, root: str, seq_dir: str, res_in: str,
                   dataset: str = "DepthTrack") -> None:
-    """`python -m mmtrack_torch.eval.run_ope --tracker <name> --analyze` for
-    each name, each in its own process over the `dataset` layout at root:
-    exit 0, a result file, and a report equal to the analysis of the
-    in-process run's results under res_in."""
-    from mmtrack_torch.eval.analysis import analyze_fscore, analyze_ope
+    """Queue `run_ope --tracker <name>` for each name over a copy of the
+    `dataset` layout at root and of the in-process results under res_in;
+    zoo_entries_path runs and checks the queue."""
+    keep = tempfile.mkdtemp()
+    data = shutil.copytree(root, os.path.join(keep, "data"))
+    DEFERRED_ENTRIES.append((names, data, os.path.join(data, os.path.relpath(seq_dir, root)),
+                             shutil.copytree(res_in, os.path.join(keep, "in_process")), keep,
+                             dataset))
+
+
+def zoo_entries_path() -> None:
+    """The entries of phases 10 and 12-15 side by side, each `python -m
+    mmtrack_torch.eval.run_ope --tracker <name> --analyze` in its own
+    process over its phase's sequence: exit 0, a result file, and a report
+    equal to the analysis of the phase's in-process results."""
     from mmtrack_torch.eval.datasets import load_sequence
-    from mmtrack_torch.eval.ope import result_path
 
     env = dict(os.environ)
     here = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
-    seqs = [load_sequence(seq_dir, dataset)]
-    for name in names:
-        entry_root = os.path.join(tmp, f"entry_{name}")
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "mmtrack_torch.eval.run_ope",
-                               "--tracker", name, "--dataset", dataset,
-                               "--dataset_root", root, "--analyze",
-                               "--results_root", entry_root],
-                              cwd=tmp, env=env, capture_output=True, text=True,
-                              timeout=600)
-        entry_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"{name} entry exited {proc.returncode}: "
-                                 f"{proc.stderr[-3000:]}")
-        path = result_path(entry_root, dataset, name, seqs[0].name)
-        written = os.path.exists(path)
-        with open(os.path.join(entry_root, dataset, f"{name}_report.json")) as f:
-            report = json.load(f)
-        ope_in = analyze_ope(seqs, res_in, dataset, name)["overall"]
-        want = {"ope": {k: v for k, v in ope_in.items() if np.isscalar(v)},
-                "fscore": analyze_fscore(seqs, res_in, dataset, name)}
-        same = report == json.loads(json.dumps(want))
-        box_diff = float(np.abs(
-            np.loadtxt(path, delimiter=seqs[0].save_delimiter)
-            - np.loadtxt(result_path(res_in, dataset, name, seqs[0].name),
-                         delimiter=seqs[0].save_delimiter)).max())
-        log("zoo_entry", tracker=name, seconds=entry_s, result_file=written,
-            stdout=proc.stdout.splitlines()[-6:], report_equal=same,
-            boxes_max_abs_diff_vs_in_process_px=box_diff)
-        if not written or not same:
-            raise AssertionError(f"{name} entry: result file {written}, report equal "
-                                 f"{same}: {report} vs {want}")
+    t0 = time.perf_counter()
+    started = [(name, subprocess.Popen(
+        [sys.executable, "-m", "mmtrack_torch.eval.run_ope", "--tracker", name, "--dataset",
+         dataset, "--dataset_root", root, "--analyze", "--results_root",
+         os.path.join(keep, f"entry_{name}")], cwd=keep, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), seq_dir, res_in, keep, dataset)
+        for names, root, seq_dir, res_in, keep, dataset in DEFERRED_ENTRIES for name in names]
+    try:
+        for name, proc, seq_dir, res_in, keep, dataset in started:
+            check_entry(proc, name, dataset, [load_sequence(seq_dir, dataset)], res_in, keep, t0)
+    finally:
+        for _, proc, *_ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        for entry in DEFERRED_ENTRIES:
+            shutil.rmtree(entry[4])
+        DEFERRED_ENTRIES.clear()
+
+
+def check_entry(proc, name: str, dataset: str, seqs, res_in: str, tmp: str, t0: float) -> None:
+    """Wait for one run_ope entry of zoo_entries_path and hold its files."""
+    from mmtrack_torch.eval.analysis import analyze_fscore, analyze_ope
+    from mmtrack_torch.eval.ope import result_path
+
+    stdout, stderr = proc.communicate(timeout=600)
+    entry_s = time.perf_counter() - t0
+    entry_root = os.path.join(tmp, f"entry_{name}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{name} entry exited {proc.returncode}: {stderr[-3000:]}")
+    path = result_path(entry_root, dataset, name, seqs[0].name)
+    written = os.path.exists(path)
+    with open(os.path.join(entry_root, dataset, f"{name}_report.json")) as f:
+        report = json.load(f)
+    ope_in = analyze_ope(seqs, res_in, dataset, name)["overall"]
+    want = {"ope": {k: v for k, v in ope_in.items() if np.isscalar(v)},
+            "fscore": analyze_fscore(seqs, res_in, dataset, name)}
+    same = report == json.loads(json.dumps(want))
+    box_diff = float(np.abs(
+        np.loadtxt(path, delimiter=seqs[0].save_delimiter)
+        - np.loadtxt(result_path(res_in, dataset, name, seqs[0].name),
+                     delimiter=seqs[0].save_delimiter)).max())
+    log("zoo_entry", tracker=name, seconds=entry_s, result_file=written,
+        stdout=stdout.splitlines()[-6:], report_equal=same,
+        boxes_max_abs_diff_vs_in_process_px=box_diff)
+    if not written or not same:
+        raise AssertionError(f"{name} entry: result file {written}, report equal "
+                             f"{same}: {report} vs {want}")
 
 
 def host_sync_sites(fn) -> list:
@@ -2228,14 +2270,14 @@ def dimp_path(dev, seq_dir: str, res_in: str) -> None:
             extra["parts"] = dimp_parts(inner, last)
         ok = zoo_boxes_ok(name, res["boxes"], H, W)
         log("zoo_dimp", tracker=name, family=recipe.family, modality=recipe.modality,
-            composition=recipe.composition, dtype="f32", frames=OPE_FRAMES, frame=f"{W}x{H}",
+            composition=recipe.composition, dtype="f32", frames=ZOO_FRAMES, frame=f"{W}x{H}",
             sample_size=inner.rt.image_sample_size, boxes_ok=ok, launches=launches,
             expected=want, median_ms_per_frame=float(np.median(tracker.ms[ZOO_WARMUP:])),
             first_frame_ms=tracker.ms[0], build_s=build_s, sequence_s=run_s,
             host_syncs_per_frame=syncs / DIMP_SYNC_FRAMES, flags=flags, optimizer_iters=iters,
-            optimizer_iters_computed=(OPE_FRAMES - 1) * inner.rt.max_update_iter, **extra,
+            optimizer_iters_computed=(ZOO_FRAMES - 1) * inner.rt.max_update_iter, **extra,
             card=card_line())
-        if not ok or launches != want or sum(flags.values()) != OPE_FRAMES - 1:
+        if not ok or launches != want or sum(flags.values()) != ZOO_FRAMES - 1:
             raise AssertionError(f"zoo {name}: boxes ok {ok}, launches {launches}, "
                                  f"flags {flags}")
         if name == "det_dimp50_max":
@@ -2386,11 +2428,11 @@ def compose_check(dev, seq) -> None:
 
 DISK_SEQS = 8                       # DepthTrack and LasHeR sequences of OPE_FRAMES, 640x480
 RGB_SEQS, RGB_HW = 4, (720, 1280)   # LaSOT and GOT-10k sequences each, 1280x720
-LOADER_BATCHES = 2                  # B=32 batches timed per corpus
-DISK_STEPS = 4                      # counted vipt steps from disk (and on a resident batch)
-DISK_PROFILED = 2                   # vipt steps from disk under torch.profiler
-OSTRACK_STEPS = 2                   # counted ostrack steps from disk
-ENTRY_SAMPLES = 2 * TRAIN_B         # two steps per entry run
+LOADER_BATCHES = 1                  # B=32 batches timed per corpus
+DISK_STEPS = 2                      # counted vipt steps from disk (and on a resident batch)
+DISK_PROFILED = 1                   # vipt steps from disk under torch.profiler
+OSTRACK_STEPS = 1                   # counted ostrack steps from disk
+ENTRY_SAMPLES = TRAIN_B             # one step per entry run
 DISK_PER_STEP = {"flash_mhsa_qkv": 8, "attn_block_fused": 1, "mlp_block_fused": 1}
 RGB_MIX = {"DATA": {"TRAIN": {"DATASETS_NAME": ["LASOT", "GOT10K_vottrain"],
                               "DATASETS_RATIO": [1, 1]}}}
@@ -2498,8 +2540,8 @@ def train_entries(tmp: str, roots: dict) -> None:
     """`python -m mmtrack_torch.train.run` as a user runs it, each in its
     own process, with the roots in a local.yaml under a temporary HOME:
     --script ostrack on the RGB mix (a JSON override), then --script vipt
-    --config deep_rgbd with --init from the ostrack checkpoint; bf16, two
-    B=32 steps each. Both must exit 0 and write their checkpoint, and the
+    --config deep_rgbd with --init from the ostrack checkpoint; bf16, one
+    B=32 step each. Both must exit 0 and write their checkpoint, and the
     --init must load every name but the prompts' (missing = the prompt
     leaves, unexpected = 0)."""
     import yaml
@@ -2732,7 +2774,7 @@ def tree_to(x, dev):
 
 def atom_dcf_path(dev) -> None:
     """Phase 12: the eight ATOM and DCF recipes from the registry at f32 on
-    seeded weights over phase 10's 33-frame 640x480 sequence: boxes, the
+    seeded weights over phase 10's 21-frame 640x480 sequence: boxes, the
     median ms per frame after ZOO_WARMUP frames, host syncs per frame, the
     flags (ATOM) and CG iterations run, no kernel launch; one profiled
     frame of det_atom_max and eco; both on the card against the CPU; the
@@ -2744,7 +2786,7 @@ def atom_dcf_path(dev) -> None:
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "DepthTrack")
-        ope_fixture(root, n_seqs=1)
+        ope_fixture(root, n_seqs=1, n_frames=ZOO_FRAMES)
         seq_dir = list_sequences(root, "DepthTrack")[0]
         res_in = os.path.join(tmp, "in_process")
         for name in ATOM_DCF:
@@ -2777,7 +2819,7 @@ def atom_dcf_path(dev) -> None:
                                           for e in rows[:6]])
             ok = zoo_boxes_ok(name, res["boxes"], H, W)
             log("atom_dcf", tracker=name, family=recipe.family, modality=recipe.modality,
-                composition=recipe.composition, dtype="f32", frames=OPE_FRAMES,
+                composition=recipe.composition, dtype="f32", frames=ZOO_FRAMES,
                 frame=f"{W}x{H}", sample_size=inner.geom.sample_sz if hasattr(inner, "geom")
                 else inner.rt.image_sample_size, boxes_ok=ok, launches=launches, expected=want,
                 median_ms_per_frame=float(np.median(tracker.ms[ZOO_WARMUP:])),
@@ -2788,7 +2830,7 @@ def atom_dcf_path(dev) -> None:
                               float((res["boxes"][:, 0] + res["boxes"][:, 2]).max()),
                               float((res["boxes"][:, 1] + res["boxes"][:, 3]).max())],
                 **extra, card=card_line())
-            if not ok or launches != want or (flags and sum(flags.values()) != OPE_FRAMES - 1):
+            if not ok or launches != want or (flags and sum(flags.values()) != ZOO_FRAMES - 1):
                 raise AssertionError(f"atom_dcf {name}: boxes ok {ok}, launches {launches}, "
                                      f"flags {flags}")
             if name == "det_atom_max":
@@ -2801,7 +2843,7 @@ def atom_dcf_path(dev) -> None:
                             time_style=seq.time_style)
             del tracker, inner
             torch.cuda.empty_cache()
-        check_entries([n for n in ZOO_ENTRIES if n in ATOM_DCF], root, seq_dir, res_in, tmp)
+        defer_entries([n for n in ZOO_ENTRIES if n in ATOM_DCF], root, seq_dir, res_in)
     log("atom_dcf_phase", seconds=time.perf_counter() - t_phase, recipes=len(ATOM_DCF))
 
 
@@ -2923,7 +2965,7 @@ def lasher_fixture(seq, root: str) -> str:
 
 def mdnet_path(dev) -> None:
     """Phase 13: the seven MDNet-family recipes from the registry at f32 on
-    seeded weights over phase 10's 33-frame 640x480 sequence (mdnet on its
+    seeded weights over phase 10's 21-frame 640x480 sequence (mdnet on its
     rgbcolormap frames, the others on rgbrgb frames of its LasHeR twin):
     boxes, the init and median ms per frame, the updates and failures,
     host syncs per frame, peak memory, no kernel launch; one profiled
@@ -2936,7 +2978,7 @@ def mdnet_path(dev) -> None:
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "DepthTrack")
-        ope_fixture(root, n_seqs=1)
+        ope_fixture(root, n_seqs=1, n_frames=ZOO_FRAMES)
         depth_dir = list_sequences(root, "DepthTrack")[0]
         lasher_root = os.path.join(tmp, "LasHeR")
         lasher_dir = lasher_fixture(load_sequence(depth_dir, "DepthTrack"), lasher_root)
@@ -2984,7 +3026,7 @@ def mdnet_path(dev) -> None:
                                           for e in rows[:6]])
             ok = zoo_boxes_ok(name, res["boxes"], H, W)
             log("mdnet", tracker=name, family=recipe.family, modality=recipe.modality,
-                composition=seq.dtype, dtype="f32", frames=OPE_FRAMES, frame=f"{W}x{H}",
+                composition=seq.dtype, dtype="f32", frames=ZOO_FRAMES, frame=f"{W}x{H}",
                 model=type(inner.model).__name__, candidates=inner.rt.n_samples,
                 boxes_ok=ok, launches=launches, expected=want, init_ms=tracker.init_ms,
                 median_ms_per_frame=float(np.median(tracker.ms[ZOO_WARMUP:])),
@@ -3005,7 +3047,7 @@ def mdnet_path(dev) -> None:
                             time_style=seq.time_style)
             del tracker, inner
         torch.cuda.empty_cache()
-        check_entries([MDNET_ENTRY], lasher_root, lasher_dir, res_in, tmp, dataset="LasHeR")
+        defer_entries([MDNET_ENTRY], lasher_root, lasher_dir, res_in, dataset="LasHeR")
     log("mdnet_phase", seconds=time.perf_counter() - t_phase, recipes=len(MDNET_ZOO))
 
 
@@ -3097,7 +3139,7 @@ def keeptrack_forced_match(tracker, frame) -> dict:
 
 def keeptrack_kys_path(dev) -> None:
     """Phase 14: keep_track and kys from the registry at f32 on seeded
-    weights over phase 10's 33-frame 640x480 sequence: boxes, the init and
+    weights over phase 10's 21-frame 640x480 sequence: boxes, the init and
     median ms per frame, flags, KeepTrack's branches and matcher passes,
     KYS's shifted frames, host syncs per frame with their sites, peak
     memory, no kernel launch; the match branch forced once if no frame took
@@ -3110,7 +3152,7 @@ def keeptrack_kys_path(dev) -> None:
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "DepthTrack")
-        ope_fixture(root, n_seqs=1)
+        ope_fixture(root, n_seqs=1, n_frames=ZOO_FRAMES)
         seq_dir = list_sequences(root, "DepthTrack")[0]
         res_in = os.path.join(tmp, "in_process")
         for name in KEEPTRACK_KYS:
@@ -3141,7 +3183,7 @@ def keeptrack_kys_path(dev) -> None:
             dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
             ok = zoo_boxes_ok(name, res["boxes"], H, W)
             log("keeptrack_kys", tracker=name, family=recipe.family, modality=recipe.modality,
-                composition=seq.dtype, dtype="f32", frames=OPE_FRAMES, frame=f"{W}x{H}",
+                composition=seq.dtype, dtype="f32", frames=ZOO_FRAMES, frame=f"{W}x{H}",
                 sample_size=inner.rt.image_sample_size, boxes_ok=ok, launches=launches,
                 expected=want, init_ms=tracker.init_ms,
                 median_ms_per_frame=float(np.median(tracker.ms[ZOO_WARMUP:])),
@@ -3157,7 +3199,7 @@ def keeptrack_kys_path(dev) -> None:
                 profiled_frame_kernels=sum(e.count for e in rows),
                 top_kernels=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
                              for e in rows[:6]], card=card_line())
-            if not ok or launches != want or sum(flags.values()) != OPE_FRAMES - 1:
+            if not ok or launches != want or sum(flags.values()) != ZOO_FRAMES - 1:
                 raise AssertionError(f"keeptrack_kys {name}: boxes ok {ok}, launches {launches}, "
                                      f"flags {flags}")
             if name == "keep_track" and inner.matcher_passes == 0:
@@ -3175,7 +3217,7 @@ def keeptrack_kys_path(dev) -> None:
                             time_style=seq.time_style)
             del tracker, inner
             torch.cuda.empty_cache()
-        check_entries([KK_ENTRY], root, seq_dir, res_in, tmp)
+        defer_entries([KK_ENTRY], root, seq_dir, res_in)
     log("keeptrack_kys_phase", seconds=time.perf_counter() - t_phase,
         recipes=len(KEEPTRACK_KYS))
 
@@ -3258,7 +3300,7 @@ class MaskRecorder(FrameRecorder):
 
 def lwl_stm_path(dev) -> None:
     """Phase 15: lwl and stm from the registry at f32 on seeded weights over
-    phase 10's 33-frame 640x480 sequence: boxes and masks, the init and
+    phase 10's 21-frame 640x480 sequence: boxes and masks, the init and
     median ms per frame, LWL's updates and GN steps, STM's commits, host
     syncs per frame with their sites, peak memory, no kernel launch; one
     profiled frame of each; each on the card against the CPU; the stm
@@ -3270,7 +3312,7 @@ def lwl_stm_path(dev) -> None:
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "DepthTrack")
-        ope_fixture(root, n_seqs=1)
+        ope_fixture(root, n_seqs=1, n_frames=ZOO_FRAMES)
         seq_dir = list_sequences(root, "DepthTrack")[0]
         res_in = os.path.join(tmp, "in_process")
         for name in LWL_STM:
@@ -3300,7 +3342,7 @@ def lwl_stm_path(dev) -> None:
             dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
             ok = zoo_boxes_ok(name, res["boxes"], H, W)
             log("lwl_stm", tracker=name, family=recipe.family, modality=recipe.modality,
-                composition=seq.dtype, dtype="f32", frames=OPE_FRAMES, frame=f"{W}x{H}",
+                composition=seq.dtype, dtype="f32", frames=ZOO_FRAMES, frame=f"{W}x{H}",
                 sample_size=inner.rt.image_sample_size, boxes_ok=ok, masks_ok=tracker.masks_ok,
                 nonempty_masks=tracker.nonempty, launches=launches, expected=want,
                 init_ms=tracker.init_ms,
@@ -3318,9 +3360,9 @@ def lwl_stm_path(dev) -> None:
                                      f"{tracker.masks_ok}, launches {launches}")
             # over the sequence: an LWL update from frame_num 3 on, 3 GN steps each;
             # an STM commit where (frame_num - 1) % memory_skip_rate == 0
-            want_extra = ({"memory_updates": OPE_FRAMES - 2, "gn_steps": 3 * (OPE_FRAMES - 2)}
+            want_extra = ({"memory_updates": ZOO_FRAMES - 2, "gn_steps": 3 * (ZOO_FRAMES - 2)}
                           if name == "lwl" else
-                          {"commits": (OPE_FRAMES - 1) // inner.rt.memory_skip_rate})
+                          {"commits": (ZOO_FRAMES - 1) // inner.rt.memory_skip_rate})
             if extra != want_extra:
                 raise AssertionError(f"{name}: {extra}, want {want_extra}")
             lwl_stm_card_vs_cpu(dev, name, inner, seq)
@@ -3330,7 +3372,7 @@ def lwl_stm_path(dev) -> None:
                             time_style=seq.time_style)
             del tracker, inner
             torch.cuda.empty_cache()
-        check_entries([LS_ENTRY], root, seq_dir, res_in, tmp)
+        defer_entries([LS_ENTRY], root, seq_dir, res_in)
         lwl_vot_entry(dev, tmp)
     log("lwl_stm_phase", seconds=time.perf_counter() - t_phase, recipes=len(LWL_STM))
 
@@ -3431,14 +3473,23 @@ def lwl_vot_entry(dev, tmp: str) -> None:
 
 
 # phase 16: the zoo's training scripts, (script, stage, B); MixFormer-L at
-# B=8 (its f32 step at B=32 would take the phase's whole budget)
+# B=8 (its f32 step at B=32 would take the phase's whole budget), APFNet
+# at the largest B of 32, 16, 8 that stays under ~70 GB: its stage-3 step
+# peaked at 27.3 GiB at B=8 (1,024 patches), so B=32 would need ~109
 ZOO_TRAIN = (("dimp", "", 32), ("det_dimp", "", 32), ("stark", "bbox", 32),
              ("stark", "score", 32), ("mixformer", "bbox", 8), ("mixformer", "score", 8),
-             ("siamfc", "", 32))
-ZOO_TRAIN_STEPS = 3                 # timed steps; the median of steps 2-3 is reported
-DIMP_CARD_VS_CPU_B = 2
-DIMP_LOSS_REL_BAR = 1e-4            # one f32 dimp step, card (TF32 off) vs CPU
-ZOO_TRAIN_ENTRY = ["--script", "det_dimp", "--batch", "2", "--samples", "2"]
+             ("siamfc", "", 32), ("mdnet", "", 32), ("apfnet", "1", 16), ("apfnet", "2", 16),
+             ("apfnet", "3", 16), ("kys", "", 32))
+ZOO_TRAIN_STEPS = 2                 # timed steps; the second is reported
+APFNET_ATTRIBUTE = 2                # the attribute APFNet's stage 1 trains
+TRAIN_CARD_VS_CPU_B = 2
+TRAIN_LOSS_CARD_VS_CPU_BAR = 1e-4   # one f32 step, card (TF32 off) vs CPU: each loss term
+# the scripts stepped on the card and on the CPU, and their loss terms held to the bar
+TRAIN_CARD_VS_CPU = (("dimp", ("Loss/total",)), ("mdnet", ("Loss/total",)),
+                     ("kys", ("Loss/test_clf", "Loss/is_target")))
+ZOO_TRAIN_ENTRIES = (["--script", "det_dimp", "--batch", "2", "--samples", "2"],
+                     ["--script", "apfnet", "--stage", "1", "--attribute", "2", "--batch", "2",
+                      "--samples", "2"])
 
 
 def zoo_train_batches(script: str, B: int, n: int, seed: int = 0) -> list:
@@ -3452,17 +3503,53 @@ def zoo_train_batches(script: str, B: int, n: int, seed: int = 0) -> list:
                            cfg, seed))
 
 
-def zoo_train_path(dev) -> None:
-    """Phase 16: the dimp, det_dimp, stark (bbox, score), mixformer (bbox,
-    score) and siamfc scripts of train/run.py at full width, f32 (TF32 off)
-    on seeded weights: ZOO_TRAIN_STEPS steps of each on synthetic batches
-    through the entry's own model, trainable set, optimizer and step, then
-    one profiled step; the five kernels launch 0 times. One dimp step on
-    the card against the CPU, and `python -m mmtrack_torch.train.run
-    --script det_dimp` in its own process."""
-    from mmtrack_torch.models.dimp import DiMPNet, init_dimp_weights
+def train_card_vs_cpu(dev, cfg, script: str, terms) -> None:
+    """One f32 step of `script` on the card and on the CPU from the same
+    seeded weights, batch and draws: each loss term in `terms` within
+    TRAIN_LOSS_CARD_VS_CPU_BAR relative; the trained leaves' relative L2
+    after the step printed."""
     from mmtrack_torch.train import run
     from mmtrack_torch.train.dimp_actor import N_PROPOSALS
+    from mmtrack_torch.train.zoo_actors import mdnet_box_noise
+
+    B = TRAIN_CARD_VS_CPU_B
+    batch = zoo_train_batches(script, B, 1, seed=1)[0]
+    gen = torch.Generator().manual_seed(1)
+    draws = {"dimp": lambda: {"noise": torch.randn((B, N_PROPOSALS, 4), generator=gen)},
+             "mdnet": lambda: {"noise": mdnet_box_noise(gen, B, 32, 96, "cpu")}}
+    kw = draws.get(script, dict)()
+    after = []
+    for d in (dev, torch.device("cpu")):
+        model = run.build_zoo_model(script, "", 0, d)
+        trainable = run.zoo_trainable_mask(model, script, "")
+        state = run.train_state(model, cfg, 1000, trainable)
+        t0 = time.perf_counter()
+        _, stats = run.make_zoo_step(script, "", 0, torch.float32)(state, batch, **kw)
+        stats = {k: float(v) for k, v in stats.items()}
+        after.append((stats, {k: p.detach().cpu() for k, p in model.named_parameters()
+                              if p.requires_grad}, time.perf_counter() - t0))
+    (card_stats, card_p, _), (cpu_stats, cpu_p, cpu_s) = after
+    rel = {k: abs(card_stats[k] - cpu_stats[k]) / abs(cpu_stats[k]) for k in cpu_stats}
+    d2 = sum(float(((card_p[k] - cpu_p[k]) ** 2).sum()) for k in cpu_p)
+    n2 = sum(float((cpu_p[k] ** 2).sum()) for k in cpu_p)
+    log("zoo_train_card_vs_cpu", script=script, B=B, card=card_stats, cpu=cpu_stats, rel=rel,
+        bar=TRAIN_LOSS_CARD_VS_CPU_BAR, trained_params_rel_l2=(d2 / n2) ** 0.5,
+        cpu_step_s=cpu_s)
+    if any(rel[k] > TRAIN_LOSS_CARD_VS_CPU_BAR for k in terms):
+        raise AssertionError(f"{script} step card vs CPU: {rel}")
+
+
+def zoo_train_path(dev) -> None:
+    """Phase 16: the dimp, det_dimp, stark (bbox, score), mixformer (bbox,
+    score), siamfc, mdnet, apfnet (stages 1-3) and kys scripts of
+    train/run.py at full width, f32 (TF32 off) on seeded weights:
+    ZOO_TRAIN_STEPS steps of each on synthetic batches through the entry's
+    own model, trainable set, optimizer and step, then one profiled step;
+    the five kernels launch 0 times. One dimp, mdnet and kys step each on
+    the card against the CPU, and `python -m mmtrack_torch.train.run
+    --script det_dimp` and `--script apfnet --stage 1` each in its own
+    process."""
+    from mmtrack_torch.train import run
     from mmtrack_torch.train.optim import count_trainable
 
     cfg = vipt_experiment_config("deep_rgbd")
@@ -3470,11 +3557,12 @@ def zoo_train_path(dev) -> None:
     for script, stage, B in ZOO_TRAIN:
         t_script = time.perf_counter()
         batches = zoo_train_batches(script, B, ZOO_TRAIN_STEPS)
+        loader_s = time.perf_counter() - t_script
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         model = run.build_zoo_model(script, stage, 0, dev)
-        trainable = run.zoo_trainable_mask(model, script, stage)
+        trainable = run.zoo_trainable_mask(model, script, stage, APFNET_ATTRIBUTE)
         state = run.train_state(model, cfg, 1000, trainable)
         step = run.make_zoo_step(script, stage, 0, torch.float32)
         for fn in KERNEL_COUNTERS:
@@ -3493,6 +3581,7 @@ def zoo_train_path(dev) -> None:
             p.numel() for p in model.parameters())
         ok = all(math.isfinite(v) for v in losses) and not any(launches.values())
         log("zoo_train", script=script, stage=stage or None, B=B, dtype="f32",
+            attribute=APFNET_ATTRIBUTE if (script, stage) == ("apfnet", "1") else None,
             crops=[batches[0]["template"].shape[1], batches[0]["search"].shape[1]],
             trainable_params=n_trained, step_ms=ms,
             median_step_ms=float(np.median(ms[1:])), first_loss=losses[0], last_loss=losses[-1],
@@ -3502,64 +3591,57 @@ def zoo_train_path(dev) -> None:
             device_idle_share=1.0 - dev_ms / (wall_s * 1e3),
             profiled_step_kernels=sum(e.count for e in rows),
             top_kernels=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
-                         for e in rows[:5]], seconds=time.perf_counter() - t_script,
-            card=card_line())
+                         for e in rows[:5]], loader_s=loader_s,
+            seconds=time.perf_counter() - t_script, card=card_line())
         if not ok:
             raise AssertionError(f"zoo_train {script} {stage}: losses {losses}, "
                                  f"launches {launches}")
         del model, state, step, batches
         torch.cuda.empty_cache()
 
-    # the entry in its own process, beside the card-vs-CPU step (untimed)
+    # the entries in their own processes, beside the card-vs-CPU steps (untimed)
     tmp = tempfile.mkdtemp()
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t_entry = time.perf_counter()
-    entry = subprocess.Popen([sys.executable, "-m", "mmtrack_torch.train.run", "--synthetic",
-                              "--epochs", "1", "--save_dir", tmp] + ZOO_TRAIN_ENTRY,
-                             cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                             text=True)
-
-    # one f32 dimp step, card against CPU, on the same weights, batch and noise
-    batch = zoo_train_batches("dimp", DIMP_CARD_VS_CPU_B, 1, seed=1)[0]
-    noise = torch.randn((DIMP_CARD_VS_CPU_B, N_PROPOSALS, 4),
-                        generator=torch.Generator().manual_seed(1))
-    weights = init_dimp_weights(DiMPNet(), 0).state_dict()
-    after = []
-    for d in (dev, torch.device("cpu")):
-        model = DiMPNet().to(d)
-        model.load_state_dict(weights)
-        state = run.train_state(model, cfg, 1000)
-        _, stats = run.make_zoo_step("dimp", "", 0, torch.float32)(state, batch, noise=noise)
-        after.append(({k: float(v) for k, v in stats.items()},
-                      {k: v.detach().cpu() for k, v in model.state_dict().items()}))
-    (card_stats, card_sd), (cpu_stats, cpu_sd) = after
-    rel = {k: abs(card_stats[k] - cpu_stats[k]) / abs(cpu_stats[k]) for k in cpu_stats}
-    d2 = sum(float(((card_sd[k] - cpu_sd[k]) ** 2).sum()) for k in cpu_sd)
-    n2 = sum(float((cpu_sd[k] ** 2).sum()) for k in cpu_sd)
-    log("zoo_train_card_vs_cpu", script="dimp", B=DIMP_CARD_VS_CPU_B, card=card_stats,
-        cpu=cpu_stats, rel=rel, bar=DIMP_LOSS_REL_BAR, params_rel_l2=(d2 / n2) ** 0.5)
-    if rel["Loss/total"] > DIMP_LOSS_REL_BAR:
-        raise AssertionError(f"dimp step card vs CPU: {rel}")
-
+    entries = [(args, subprocess.Popen(
+        [sys.executable, "-m", "mmtrack_torch.train.run", "--synthetic", "--epochs", "1",
+         "--save_dir", os.path.join(tmp, str(i))] + args, cwd=tmp, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for i, args in enumerate(ZOO_TRAIN_ENTRIES)]
     try:
-        out, err = entry.communicate(timeout=300)
+        for script, terms in TRAIN_CARD_VS_CPU:
+            train_card_vs_cpu(dev, cfg, script, terms)
+        for i, (args, entry) in enumerate(entries):
+            out, err = entry.communicate(timeout=300)
+            stage = args[args.index("--stage") + 1] if "--stage" in args else None
+            run_dir = f"{args[1]}-{stage}" if stage else args[1]
+            ckpt = os.path.join(tmp, str(i), run_dir, "checkpoints", "epoch_0001.pt")
+            done = os.path.exists(ckpt)
+            log("zoo_train_entry", args=args, seconds=time.perf_counter() - t_entry,
+                returncode=entry.returncode, checkpoint=done, stdout=out.splitlines()[-4:])
+            if entry.returncode != 0 or not done:
+                raise AssertionError(f"train entry {args} exited {entry.returncode}: "
+                                     f"{err[-3000:]}")
     finally:
-        if entry.poll() is None:
-            entry.kill()
-            entry.communicate()
-    ckpt = os.path.join(tmp, ZOO_TRAIN_ENTRY[1], "checkpoints", "epoch_0001.pt")
-    done = os.path.exists(ckpt)
-    shutil.rmtree(tmp)
-    log("zoo_train_entry", args=ZOO_TRAIN_ENTRY, seconds=time.perf_counter() - t_entry,
-        returncode=entry.returncode, checkpoint=done, stdout=out.splitlines()[-4:])
-    if entry.returncode != 0 or not done:
-        raise AssertionError(f"train entry {ZOO_TRAIN_ENTRY} exited {entry.returncode}: "
-                             f"{err[-3000:]}")
+        for _, entry in entries:
+            if entry.poll() is None:
+                entry.kill()
+                entry.communicate()
+        shutil.rmtree(tmp)
     log("zoo_train_phase", seconds=time.perf_counter() - t_phase, scripts=len(ZOO_TRAIN))
 
 
+def timed(phase: str, fn, *args):
+    """fn(*args), then a line with the phase's seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"{phase}_phase", seconds=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
+    t_main = time.perf_counter()
     dev = require_cuda()
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3578,6 +3660,7 @@ def main() -> int:
         raise AssertionError(f"GEMM kernels: no HGMMA/UTMALDG in the SASS or a spill: {checks}")
 
     gen = torch.Generator().manual_seed(0)
+    t_kernels = time.perf_counter()
     with torch.inference_mode():
         attn_rows = compare_blocks("attn_block_fused", attn_block_fused,
                                    attn_block_fused_plain, 768, 3 * 768, 768,
@@ -3595,38 +3678,40 @@ def main() -> int:
         compare_gemms(dev, gen)
         compare_layernorm(dev, gen)
         crop_rows = compare_crops(dev, gen)
-        xcorr_rows = compare_xcorr(dev, gen)
+        log("kernels_phase", seconds=time.perf_counter() - t_kernels)
+        xcorr_rows = timed("xcorr", compare_xcorr, dev, gen)
 
     cfg = vipt_experiment_config("deep_rgbd")
     rt = ViPTRuntime.from_config(cfg)
     frames, box0 = synthetic_frames(STEPS + 1, np.random.RandomState(0))
     frames = torch.from_numpy(frames).to(dev)
-    model, tracker, launches = main_path(cfg, rt, dev, frames, box0)
-    full_forward(cfg, rt, dev, model, tracker, frames)
-    for name, n in scan_path(rt, dev, model, frames, box0).items():
+    model, tracker, launches = timed("main_path", main_path, cfg, rt, dev, frames, box0)
+    timed("full_forward", full_forward, cfg, rt, dev, model, tracker, frames)
+    for name, n in timed("scan", scan_path, rt, dev, model, frames, box0).items():
         launches[name] += n
     del model, tracker
     torch.cuda.empty_cache()
 
+    t_train = time.perf_counter()
     with torch.inference_mode():
         mhsa_rows = compare_mhsa(dev, gen, TRAIN_B)
     time_functions(dev, gen)
     for name, n in train_path(cfg, dev).items():
         launches[name] = launches.get(name, 0) + n
-    train_kernels_vs_plain(cfg, dev)
-    for name, n in vot_path(dev).items():
-        launches[name] = launches.get(name, 0) + n
-    for name, n in ope_path(dev, cfg, rt).items():
-        launches[name] = launches.get(name, 0) + n
-    for name, n in zoo_path(dev).items():
-        launches[name] = launches.get(name, 0) + n
-    for name, n in train_disk_path(cfg, dev).items():
-        launches[name] = launches.get(name, 0) + n
+    log("train_phase", seconds=time.perf_counter() - t_train)
+    timed("train_check", train_kernels_vs_plain, cfg, dev)
+    for phase, counts in (("vot", lambda: vot_path(dev)), ("ope", lambda: ope_path(dev, cfg, rt)),
+                          ("zoo", lambda: zoo_path(dev)),
+                          ("train_disk", lambda: train_disk_path(cfg, dev))):
+        for name, n in timed(phase, counts).items():
+            launches[name] = launches.get(name, 0) + n
     atom_dcf_path(dev)
     mdnet_path(dev)
     keeptrack_kys_path(dev)
     lwl_stm_path(dev)
+    timed("zoo_entries", zoo_entries_path)
     zoo_train_path(dev)
+    log("phases", seconds=time.perf_counter() - t_main)
 
     zoo_rows["crop_resize_normalized"] = [r for r in crop_rows if r["zoo"]]
 

@@ -156,15 +156,17 @@ class SyntheticVideoDataset(VideoDataset):
     name = "Synthetic"
 
     def __init__(self, n_sequences: int = 4, n_frames: int = 30, height: int = 120,
-                 width: int = 160, modality: str = "both"):
+                 width: int = 160, modality: str = "both", distractor: bool = False):
         # "both": the target is drawn in both triplets; "rgb_only": only in
-        # RGB; "aux_only": only in the auxiliary modality
+        # RGB; "aux_only": only in the auxiliary modality. distractor: a
+        # second square of the target's look crosses it in every sequence
+        # (the KYS / KeepTrack training setting)
         kw = {"both": {}, "rgb_only": {"target_aux": None},
               "aux_only": {"target_rgb": None}}[modality]
         self._seqs = [make_synthetic_sequence(
             n_frames=n_frames, height=height, width=width,
             box0=(20.0 + 10 * i, 15.0 + 5 * i, 30.0, 24.0), velocity=(2.0 + i, 1.5),
-            seed=i, **kw) for i in range(n_sequences)]
+            seed=i, distractor=distractor, **kw) for i in range(n_sequences)]
 
     def num_sequences(self) -> int:
         return len(self._seqs)

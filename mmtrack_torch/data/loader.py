@@ -1,6 +1,7 @@
 """Batch loader: sampler -> numpy training batches, prefetched on one thread.
 
-Port of mmtrack_tpu/data/loader.py (collate, BatchLoader; :20-82) without
+Port of mmtrack_tpu/data/loader.py (collate, collate_pair, BatchLoader;
+:20-82) without
 its host-allocator tuning. Sampling errors are relayed to the consumer
 instead of ending the epoch early.
 """
@@ -24,11 +25,22 @@ def collate(samples: list[dict]) -> dict:
     }
 
 
+def collate_pair(samples: list[dict]) -> dict:
+    """collate + the previous search frame of KYSPairProcessing
+    (search_prev / search_prev_anno, cropped at the current frame's box)."""
+    out = collate(samples)
+    out["search_prev"] = np.stack([s["search_prev_images"][0] for s in samples])
+    out["search_prev_anno"] = np.stack([s["search_prev_anno"][0] for s in samples])
+    return out
+
+
 class BatchLoader:
-    """Iterates `batches_per_epoch` batches of size `batch_size`."""
+    """Iterates `batches_per_epoch` batches of size `batch_size`, each
+    stacked by `collate_fn`."""
 
     def __init__(self, sampler, batch_size: int, batches_per_epoch: int | None = None,
-                 prefetch: int = 2):
+                 prefetch: int = 2, collate_fn=collate):
+        self.collate_fn = collate_fn
         self.sampler = sampler
         self.batch_size = batch_size
         self.batches_per_epoch = (batches_per_epoch if batches_per_epoch is not None
@@ -38,7 +50,7 @@ class BatchLoader:
     def _produce(self, q: queue.Queue, n: int):
         try:
             for _ in range(n):
-                q.put(collate([self.sampler.sample() for _ in range(self.batch_size)]))
+                q.put(self.collate_fn([self.sampler.sample() for _ in range(self.batch_size)]))
             q.put(None)
         except BaseException as e:  # noqa: BLE001 - relayed to the consumer
             q.put(e)

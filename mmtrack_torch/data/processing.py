@@ -1,8 +1,8 @@
 """Training-time processing: box jitter, jittered centre crop, augmentation.
 
 numpy/cv2 port of mmtrack_tpu/data/processing.py (ViPTProcessing,
-jitter_box, transform_box_to_crop_np, grayscale_6ch, from_config;
-:24-130, :204) and of mmtrack_tpu/ops/crop.py::sample_target_np (:254).
+KYSPairProcessing, jitter_box, transform_box_to_crop_np, grayscale_6ch,
+from_config; :24-200, :204) and of mmtrack_tpu/ops/crop.py::sample_target_np (:254).
 The JAX modules are numpy/cv2 code too, but importing them imports the JAX
 ops package. The reference is ViPTProcessing (ViPT
 lib/train/data/processing.py:40-138) with the transform chain of
@@ -166,6 +166,72 @@ class ViPTProcessing:
             data[s + "_images"] = np.stack(crops)
             data[s + "_anno"] = np.stack(boxes)
 
+        data["valid"] = True
+        return data
+
+
+class KYSPairProcessing:
+    """Serve-geometry crops for KYS's propagation training (MotionTrackerActor,
+    keep_track_vot2021/ltr/actors/tracking_motion.py:51-78): the GRU state
+    is seeded from the previous search frame's label and the current
+    frame's fused response is supervised, so both search frames are cropped
+    at ONE box, jittered around the previous frame's target, as the
+    tracker crops the current frame where the previous one put the target.
+    No flips: one on a single crop would scramble the cost volume between
+    the two.
+
+    Takes 1 template and 2 ordered search frames; emits the template and
+    search crops in ViPTProcessing's layout plus search_prev_images /
+    search_prev_anno. Draws: the template jitter, the previous jitter, then
+    one brightness factor per crop (template, previous, current).
+    """
+
+    def __init__(self, search_area_factor: float = 5.0, output_sz: int = 288,
+                 template_jitter=(0.25, 0.0), prev_jitter=(0.25, 0.05),
+                 brightness_jitter: float = 0.2, train_mode: bool = True):
+        self.search_area_factor = search_area_factor
+        self.output_sz = output_sz
+        self.template_jitter = template_jitter
+        self.prev_jitter = prev_jitter
+        self.brightness_jitter = brightness_jitter
+        self.train_mode = train_mode
+
+    def _crop(self, frame, crop_box, gt, rng):
+        crop, rf, _ = sample_target_np(frame, crop_box, self.search_area_factor,
+                                       output_sz=self.output_sz)
+        box = transform_box_to_crop_np(gt, crop_box, rf, self.output_sz, normalize=True)
+        crop = crop.astype(np.float32) / 255.0
+        if self.train_mode:
+            factor = rng.uniform(max(0.0, 1 - self.brightness_jitter),
+                                 1 + self.brightness_jitter)
+            crop = np.clip(crop * factor, 0.0, 1.0)
+        c = crop.shape[-1]
+        return (crop - MEAN_6[:c]) / STD_6[:c], box
+
+    def __call__(self, data: dict, rng: np.random.Generator) -> dict:
+        t_img = data["template_images"][0]
+        t_box = np.asarray(data["template_anno"][0], np.float32)
+        p_img, c_img = data["search_images"][0], data["search_images"][1]
+        p_box = np.asarray(data["search_anno"][0], np.float32)
+        c_box = np.asarray(data["search_anno"][1], np.float32)
+
+        jt = jitter_box(t_box, *self.template_jitter, rng)
+        jp = jitter_box(p_box, *self.prev_jitter, rng)
+        for jb in (jt, jp):
+            if math.ceil(math.sqrt(max(jb[2] * jb[3], 0.0)) * self.search_area_factor) < 1:
+                data["valid"] = False
+                return data
+
+        crop_t, anno_t = self._crop(t_img, jt, t_box, rng)
+        crop_p, anno_p = self._crop(p_img, jp, p_box, rng)
+        crop_c, anno_c = self._crop(c_img, jp, c_box, rng)      # the same crop box
+
+        data["template_images"] = np.stack([crop_t])
+        data["template_anno"] = np.stack([anno_t])
+        data["search_prev_images"] = np.stack([crop_p])
+        data["search_prev_anno"] = np.stack([anno_p])
+        data["search_images"] = np.stack([crop_c])
+        data["search_anno"] = np.stack([anno_c])
         data["valid"] = True
         return data
 

@@ -15,6 +15,10 @@ which mmtrack_tpu/models/convert.py::convert_apfnet_checkpoint reads:
 `ensemble{s}_skconv.ensemble{s}_skconv_fc{f}.0`,
 `transformer{s}_{encoder1..3,decoder1..2}.transformer{s}_<role>_{WK,WV,
 fc_reduce,fc_rise}.0`, `fc.fc4.0`, `fc.fc5.1`, `branches.{k}.1`.
+`stage_mask` selects the parameters each of the three training stages
+trains. The JAX model's stage-1 topology (`active_attribute`: one
+attribute branch, additive fusion, no transformers) is reached by no
+script and is not ported.
 """
 
 from __future__ import annotations
@@ -187,3 +191,32 @@ class APFNet(MDNetHead):
 
     def forward(self, patches, branch: int = 0):
         return self.score(self.extract_features(patches), branch)
+
+
+def stage_mask(model: APFNet, stage: int, attribute: int | None = None) -> dict[str, bool]:
+    """The trainable parameters of APFNet's three training stages
+    (train_stage{1,2,3}.py; mmtrack_tpu/models/apfnet.py:231-254):
+
+      1  one attribute's fusion branch at every stage (`parallel{s}.{a}.*`,
+         `parallel{s}_skconv.{a}.*`), run once per attribute;
+      2  the aggregation: the 5-way ensembles and the transformers
+         (`ensemble{s}_skconv.*`, `transformer{s}_*`);
+      3  every parameter;
+
+    fc4 / fc5 / fc6 (`fc.*`, `branches.*`) train in every stage. The
+    forward is the tracking topology in every stage, as JAX's step runs
+    it."""
+    if stage not in (1, 2, 3):
+        raise ValueError(f"APFNet trains in stages 1, 2 and 3, not {stage}")
+    if stage == 1 and attribute not in range(len(ATTRIBUTES)):
+        raise ValueError(f"stage 1 trains one attribute of 0-{len(ATTRIBUTES) - 1}, "
+                         f"not {attribute}")
+    if stage == 3:
+        own = ("",)
+    elif stage == 1:
+        own = tuple(f"parallel{s}{part}.{attribute}." for s in (1, 2, 3)
+                    for part in ("", "_skconv"))
+    else:
+        own = tuple(p for s in (1, 2, 3) for p in (f"ensemble{s}_skconv.", f"transformer{s}_"))
+    return {name: name.startswith(("fc.", "branches.") + own)
+            for name, _ in model.named_parameters()}

@@ -22,8 +22,10 @@ and writes each row through a shared copy of it; `crop_plan` sizes both. The wra
 std must already be f32 tensors on the frames' card, so a step can be
 captured in a CUDA graph (trackers/vipt_tracker.py::make_track_scan).
 
-Two more crop helpers are plain PyTorch, as the JAX package computes them
-outside any kernel: `crop_att_mask`, STARK's padded-pixel mask for the
+Three more crop helpers are plain PyTorch, as the JAX package computes
+them outside any kernel: `crop_resize`, the same crop of N boxes per image
+without the normalisation (crop.py:25-83; MDNet's training patches),
+`crop_att_mask`, STARK's padded-pixel mask for the
 crop's geometry (crop.py:217-252), and `crop_at`, the crop of a given
 centre and side with a replicate or zero border (crop.py:170-215; SiamFC's
 pyramid).
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from mmtrack_torch.kernels.build import load_library, stream_handle
@@ -71,17 +74,20 @@ def crop_plan(H: int, W: int, C: int, S: int) -> CropPlan:
     return CropPlan(min(CROP_MAX_THREADS, -(-S // 32) * 32), row_bytes, smem)
 
 
-def crop_resize_normalized_plain(frames: torch.Tensor, boxes: torch.Tensor,
-                                 search_area_factor: float, out_size: int,
-                                 mean: torch.Tensor, std: torch.Tensor
-                                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of `crop_resize_normalized`, any device."""
-    B, H, W, C = frames.shape
-    dev = frames.device
+def crop_resize(images: torch.Tensor, boxes: torch.Tensor, search_area_factor: float,
+                out_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Square crops of N boxes per image, resized, not normalised: the
+    JAX package's `crop_resize` (crop.py:25-83) batched over images and
+    boxes, plain PyTorch on any device.
+
+    images (B, H, W, C) any real dtype, boxes (B, N, 4) xywh. Returns
+    (crops (B, N, out, out, C) f32, resize_factor (B, N) f32). The factor
+    is rounded to f32 first, where JAX rounds a Python float."""
+    B, H, W, C = images.shape
+    dev = images.device
     f32 = torch.float32
-    boxes = boxes.to(f32)
-    x, y, w, h = boxes.unbind(1)                                   # (B,)
-    crop_sz = torch.ceil(torch.sqrt(w * h) * search_area_factor)
+    x, y, w, h = boxes.to(f32).unbind(-1)                          # (B, N)
+    crop_sz = torch.ceil(torch.sqrt(w * h) * float(np.float32(search_area_factor)))
     crop_sz = torch.clamp(crop_sz, min=1.0)
     x1 = torch.round(x + 0.5 * w - crop_sz * 0.5)
     y1 = torch.round(y + 0.5 * h - crop_sz * 0.5)
@@ -89,30 +95,41 @@ def crop_resize_normalized_plain(frames: torch.Tensor, boxes: torch.Tensor,
     resize_factor = size / crop_sz
 
     j = torch.arange(out_size, dtype=f32, device=dev) + 0.5
-    s = j[None, :] * (crop_sz / size)[:, None] - 0.5                # (B, S)
-    s = torch.minimum(torch.clamp(s, min=0.0), (crop_sz - 1.0)[:, None])
-    xs = x1[:, None] + s
-    ys = y1[:, None] + s
+    s = j * (crop_sz / size)[..., None] - 0.5                       # (B, N, S)
+    s = torch.minimum(torch.clamp(s, min=0.0), (crop_sz - 1.0)[..., None])
+    xs = x1[..., None] + s
+    ys = y1[..., None] + s
     x0 = torch.floor(xs)
     y0 = torch.floor(ys)
-    fx = (xs - x0)[:, None, :, None]                                # (B, 1, S, 1)
-    fy = (ys - y0)[:, :, None, None]                                # (B, S, 1, 1)
+    fx = (xs - x0)[..., None, :, None]                              # (B, N, 1, S, 1)
+    fy = (ys - y0)[..., :, None, None]                              # (B, N, S, 1, 1)
     x0 = x0.long()
     y0 = y0.long()
-    bidx = torch.arange(B, device=dev)[:, None, None]
+    bidx = torch.arange(B, device=dev)[:, None, None, None]
 
     def tap(yi, xi):
-        valid = (((yi >= 0) & (yi < H - 1))[:, :, None]
-                 & ((xi >= 0) & (xi < W - 1))[:, None, :])          # (B, S, S)
-        v = frames[bidx, yi.clamp(0, H - 1)[:, :, None], xi.clamp(0, W - 1)[:, None, :]]
+        valid = (((yi >= 0) & (yi < H - 1))[..., :, None]
+                 & ((xi >= 0) & (xi < W - 1))[..., None, :])        # (B, N, S, S)
+        v = images[bidx, yi.clamp(0, H - 1)[..., :, None], xi.clamp(0, W - 1)[..., None, :]]
         return torch.where(valid[..., None], v.to(f32), 0.0)
 
     gy, gx = 1 - fy, 1 - fx
     out = (gy * gx * tap(y0, x0) + gy * fx * tap(y0, x0 + 1)
            + fy * gx * tap(y0 + 1, x0) + fy * fx * tap(y0 + 1, x0 + 1))
-    den = torch.full((C,), 255.0, dtype=f32, device=dev)
-    out = (out / den - mean.to(device=dev, dtype=f32)) / std.to(device=dev, dtype=f32)
     return out, resize_factor
+
+
+def crop_resize_normalized_plain(frames: torch.Tensor, boxes: torch.Tensor,
+                                 search_area_factor: float, out_size: int,
+                                 mean: torch.Tensor, std: torch.Tensor
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of `crop_resize_normalized`, any device:
+    `crop_resize` of one box per frame, then (x / 255 - mean) / std."""
+    C, dev, f32 = frames.shape[-1], frames.device, torch.float32
+    out, resize_factor = crop_resize(frames, boxes[:, None], search_area_factor, out_size)
+    den = torch.full((C,), 255.0, dtype=f32, device=dev)
+    out = (out[:, 0] / den - mean.to(device=dev, dtype=f32)) / std.to(device=dev, dtype=f32)
+    return out, resize_factor[:, 0]
 
 
 def crop_resize_normalized(frames: torch.Tensor, boxes: torch.Tensor,

@@ -1,9 +1,10 @@
 """Training entry point of the port: the vipt, ostrack, dimp, det_dimp,
-stark, mixformer and siamfc branches of tools/train.py (:25-240, :244-520)
-on one device.
+stark, mixformer, siamfc, mdnet, apfnet and kys branches of tools/train.py
+(:25-240, :244-520) on one device.
 
-    python -m mmtrack_torch.train.run [--script vipt|ostrack|dimp|det_dimp|stark|mixformer|siamfc] \\
-        [--stage bbox|score] --config deep_rgbd [--synthetic] [--init prior.pt|prior.npz] \\
+    python -m mmtrack_torch.train.run [--script vipt|ostrack|dimp|det_dimp|stark|mixformer|siamfc|mdnet|apfnet|kys] \\
+        [--stage bbox|score|1|2|3] [--attribute 0-4] [--channels 3|6] --config deep_rgbd \\
+        [--synthetic [--synthetic_distractor]] [--init prior.pt|prior.npz] \\
         [--epochs N --batch B --samples S] [--bf16] [--full_tune] [--device cpu]
 
 --config is an experiment name (deep_rgbd, ...) or a JSON file of
@@ -37,8 +38,19 @@ siamfc (127 / 255) train the 6-channel models of train/zoo_actors.py;
 --stage score (stark, mixformer; default bbox) trains only the score head
 (STARK's cls_head, MixFormer's score_branch), usually from --init of the
 bbox stage; checkpoints under <save_dir>/<script>-<stage or 'base'>/.
-Weights are seeded from --seed. The other scripts of tools/train.py
-(mdnet, apfnet, kys, lwl, lwl_box) are not ported yet and are refused.
+--script mdnet (MDNet-dual) and apfnet train on 32 positive and 96
+negative 107-px patches a sample, cut from 320-px search crops at a
+search area of 3; apfnet's --stage 1 (one attribute's fusion branches,
+--attribute 0-4), 2 (the aggregation) or 3 (everything, the default)
+sets what trains, fc4-fc6 always. --script kys trains the KYS predictor
+alone on pairs of consecutive search frames cropped at one box (288 px,
+search area 5, at most 5 frames apart), the DiMP base frozen; --channels
+6 passes the 6-channel crops, whose DiMP base reads the first three, as
+JAX's does. --synthetic_distractor adds a crossing twin of the target to
+every synthetic sequence. --init reads a flax .npz of these through
+the 'mdnet' (mdnet, apfnet) and 'dimp' (kys) bridges. Weights are
+seeded from --seed. The other scripts of tools/train.py (lwl, lwl_box)
+are not ported yet and are refused.
 """
 
 from __future__ import annotations
@@ -49,18 +61,27 @@ import os
 
 import torch
 
-SCRIPTS = ("vipt", "ostrack", "dimp", "det_dimp", "stark", "mixformer", "siamfc")
+SCRIPTS = ("vipt", "ostrack", "dimp", "det_dimp", "stark", "mixformer", "siamfc", "mdnet",
+           "apfnet", "kys")
 # tools/train.py's other scripts, refused by name
-UNPORTED_SCRIPTS = ("mdnet", "apfnet", "kys", "lwl", "lwl_box")
+UNPORTED_SCRIPTS = ("lwl", "lwl_box")
 
 # the zoo's crops (tools/train.py:262-279): template / search size and
 # search area factor
 ZOO_SIZES = {"stark": dict(template=128, search=320, tf=2.0, sf=5.0),
              "mixformer": dict(template=128, search=320, tf=2.0, sf=5.0),
-             "siamfc": dict(template=127, search=255, tf=2.0, sf=4.0)}
+             "siamfc": dict(template=127, search=255, tf=2.0, sf=4.0),
+             "mdnet": dict(template=107, search=320, tf=1.2, sf=3.0),
+             "apfnet": dict(template=107, search=320, tf=1.2, sf=3.0),
+             "kys": dict(template=288, search=288, tf=5.0, sf=5.0)}
 DIMP_IMAGE_SZ = 288
+KYS_MAX_GAP = 5                     # frames between KYS's two search frames, at most
 # the parameters a score stage trains (tools/train.py:321-347)
 SCORE_HEADS = {"stark": "cls_head.", "mixformer": "score_branch."}
+# each script's stages, the default first
+STAGES = {"stark": ("bbox", "score"), "mixformer": ("bbox", "score"), "apfnet": ("3", "1", "2")}
+# the flax bridge --init reads a .npz through (run_ope.FLAX_BRIDGES)
+INIT_FAMILY = {"apfnet": "mdnet", "kys": "dimp"}
 
 
 def load_init(model: torch.nn.Module, path: str, family: str) -> tuple[list, list]:
@@ -87,8 +108,13 @@ def load_init(model: torch.nn.Module, path: str, family: str) -> tuple[list, lis
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Train a tracker with the PyTorch port")
     p.add_argument("--script", default="vipt", choices=SCRIPTS + UNPORTED_SCRIPTS)
-    p.add_argument("--stage", default=None, choices=["bbox", "score"],
-                   help="stark / mixformer: the box stage or the score-head stage")
+    p.add_argument("--stage", default=None, choices=["bbox", "score", "1", "2", "3"],
+                   help="stark / mixformer: the box stage or the score-head stage; "
+                        "apfnet: training stage 1, 2 or 3")
+    p.add_argument("--attribute", type=int, default=0, choices=range(5),
+                   help="apfnet stage 1: the attribute branch that trains")
+    p.add_argument("--channels", type=int, default=3, choices=[3, 6],
+                   help="kys: the crops' channels passed to the network")
     p.add_argument("--config", default="deep_rgbd",
                    help="experiment name (e.g. deep_rgbd) or a JSON file of overrides")
     p.add_argument("--save_dir", default="./workspace")
@@ -101,6 +127,8 @@ def main(argv=None) -> int:
                    help="train on synthetic data (no dataset roots needed)")
     p.add_argument("--synthetic_modality", default="both",
                    choices=["both", "rgb_only", "aux_only"])
+    p.add_argument("--synthetic_distractor", action="store_true",
+                   help="synthetic corpus: a crossing twin of the target in every sequence")
     p.add_argument("--init", default=None, metavar="CHECKPOINT",
                    help="initialize the parameters from a prior stage's .pt or flax .npz")
     p.add_argument("--full_tune", action="store_true",
@@ -112,8 +140,9 @@ def main(argv=None) -> int:
         raise NotImplementedError(f"--script {args.script}: its training is not ported yet "
                                   "(ROADMAP.md queue 1, zoo training); the port trains "
                                   f"{', '.join(SCRIPTS)}")
-    if args.stage is not None and args.script not in SCORE_HEADS:
-        raise ValueError(f"--stage is for {' and '.join(SCORE_HEADS)}, not --script {args.script}")
+    if args.stage is not None and args.stage not in STAGES.get(args.script, ()):
+        raise ValueError(f"--stage {args.stage} is not a stage of --script {args.script} "
+                         f"(stages: {STAGES})")
 
     from mmtrack_torch.config import merge_overrides, vipt_experiment_config
 
@@ -148,7 +177,8 @@ def _datasets(args, cfg):
 
     if args.synthetic:
         return [SyntheticVideoDataset(n_sequences=8, n_frames=60,
-                                      modality=args.synthetic_modality)], None
+                                      modality=args.synthetic_modality,
+                                      distractor=args.synthetic_distractor)], None
     env = load_env_settings()
     names = cfg.DATA.TRAIN.DATASETS_NAME
     return (names2datasets(names, {n: env.dataset_root(n) for n in names}),
@@ -195,15 +225,23 @@ def train_state(model, cfg, steps_per_epoch: int, trainable=None):
 
 
 def build_zoo_model(script: str, stage: str, seed: int, device) -> torch.nn.Module:
-    """The seeded 6-channel model a zoo script trains (tools/train.py:
-    300-352, :496-500)."""
+    """The seeded model a zoo script trains (tools/train.py:300-352,
+    :413-428, :496-500): 6-channel, but KYS, whose DiMP base reads RGB."""
     from mmtrack_torch.models.vipt import init_weights
 
-    if script in ("dimp", "det_dimp"):
+    if script in ("dimp", "det_dimp", "kys"):
         from mmtrack_torch.models.dimp import DiMPNet, init_dimp_weights
+        from mmtrack_torch.models.kys import build_kysnet
 
-        model = DiMPNet(merge_type="max" if script == "det_dimp" else None)
+        model = (build_kysnet() if script == "kys"
+                 else DiMPNet(merge_type="max" if script == "det_dimp" else None))
         return init_dimp_weights(model, seed).to(device)
+    if script in ("mdnet", "apfnet"):
+        from mmtrack_torch.models.apfnet import APFNet
+        from mmtrack_torch.models.mdnet import MDNet
+
+        model = APFNet() if script == "apfnet" else MDNet(mode="dual")
+        return init_weights(model, seed).to(device)
     if script == "stark":
         from mmtrack_torch.models.stark import STARK
 
@@ -219,10 +257,18 @@ def build_zoo_model(script: str, stage: str, seed: int, device) -> torch.nn.Modu
     return init_weights(model, seed)
 
 
-def zoo_trainable_mask(model: torch.nn.Module, script: str, stage: str):
-    """The score stage's trainable set (None: every parameter trains)."""
+def zoo_trainable_mask(model: torch.nn.Module, script: str, stage: str, attribute: int = 0):
+    """The trainable set of a script's stage (None: every parameter
+    trains): a score stage's head, APFNet's stage (stage 1: `attribute`'s
+    branches), KYS's predictor."""
     from mmtrack_torch.train.optim import prefix_mask
 
+    if script == "apfnet":
+        from mmtrack_torch.models.apfnet import stage_mask
+
+        return stage_mask(model, int(stage), attribute if stage == "1" else None)
+    if script == "kys":
+        return prefix_mask(model, "predictor.")
     if stage != "score":
         return None
     mask = prefix_mask(model, SCORE_HEADS[script])
@@ -232,12 +278,17 @@ def zoo_trainable_mask(model: torch.nn.Module, script: str, stage: str):
     return mask
 
 
-def make_zoo_step(script: str, stage: str, seed: int, dtype: torch.dtype):
+def make_zoo_step(script: str, stage: str, seed: int, dtype: torch.dtype, channels: int = 3):
     from mmtrack_torch.train import zoo_actors
     from mmtrack_torch.train.dimp_actor import make_dimp_train_step
 
     if script in ("dimp", "det_dimp"):
         return make_dimp_train_step(image_sz=DIMP_IMAGE_SZ, seed=seed, dtype=dtype)
+    if script in ("mdnet", "apfnet"):
+        return zoo_actors.make_mdnet_train_step(seed=seed, dtype=dtype)
+    if script == "kys":
+        return zoo_actors.make_kys_train_step(ZOO_SIZES["kys"]["search"], channels=channels,
+                                              dtype=dtype)
     if script == "stark":
         return zoo_actors.make_stark_train_step(stage, dtype=dtype)
     if script == "mixformer":
@@ -247,8 +298,11 @@ def make_zoo_step(script: str, stage: str, seed: int, dtype: torch.dtype):
 
 def zoo_processing(script: str):
     """The crops of a zoo script (tools/train.py:262-297, :461-466)."""
-    from mmtrack_torch.data.processing import ViPTProcessing
+    from mmtrack_torch.data.processing import KYSPairProcessing, ViPTProcessing
 
+    if script == "kys":
+        return KYSPairProcessing(search_area_factor=ZOO_SIZES["kys"]["sf"],
+                                 output_sz=ZOO_SIZES["kys"]["search"])
     if script in ("dimp", "det_dimp"):
         sizes = dict(template=DIMP_IMAGE_SZ, search=DIMP_IMAGE_SZ, tf=5.0, sf=5.0)
         jitter = (0.25, 3.0)
@@ -264,39 +318,44 @@ def zoo_processing(script: str):
 
 def zoo_loader(script: str, datasets, ratios, cfg, seed: int):
     """Batches of cfg.TRAIN.BATCH_SIZE pairs of the datasets through the
-    script's crops, cfg.DATA.TRAIN.SAMPLE_PER_EPOCH samples an epoch."""
-    from mmtrack_torch.data.loader import BatchLoader
+    script's crops, cfg.DATA.TRAIN.SAMPLE_PER_EPOCH samples an epoch;
+    KYS's samples hold two search frames at most KYS_MAX_GAP apart."""
+    from mmtrack_torch.data.loader import BatchLoader, collate, collate_pair
     from mmtrack_torch.data.sampler import TrackingSampler
 
+    kys = script == "kys"
+    max_gap = cfg.DATA.MAX_SAMPLE_INTERVAL
     sampler = TrackingSampler(datasets, ratios,
                               samples_per_epoch=cfg.DATA.TRAIN.SAMPLE_PER_EPOCH,
-                              max_gap=cfg.DATA.MAX_SAMPLE_INTERVAL,
+                              max_gap=min(max_gap, KYS_MAX_GAP) if kys else max_gap,
+                              num_search_frames=2 if kys else 1,
                               processing=zoo_processing(script), seed=seed)
-    return BatchLoader(sampler, cfg.TRAIN.BATCH_SIZE)
+    return BatchLoader(sampler, cfg.TRAIN.BATCH_SIZE,
+                       collate_fn=collate_pair if kys else collate)
 
 
 def _train_zoo(args, cfg, device, dtype) -> int:
     """tools/train.py's _train_dimp (:454-520) and the stark / mixformer /
-    siamfc branches of _train_zoo (:244-452)."""
+    siamfc / kys / mdnet / apfnet branches of _train_zoo (:244-452)."""
     loader = zoo_loader(args.script, *_datasets(args, cfg), cfg, args.seed)
     dimp = args.script in ("dimp", "det_dimp")
-    stage = args.stage or ("bbox" if args.script in SCORE_HEADS else "")
+    stage = args.stage or STAGES.get(args.script, ("",))[0]
     model = build_zoo_model(args.script, stage, args.seed, device)
     if args.init:
         if dimp:
             raise ValueError("--init: tools/train.py's DiMP branch takes no prior stage")
-        load_init(model, args.init, args.script)
-    trainable = zoo_trainable_mask(model, args.script, stage)
+        load_init(model, args.init, INIT_FAMILY.get(args.script, args.script))
+    trainable = zoo_trainable_mask(model, args.script, stage, args.attribute)
     if trainable is not None:
         from mmtrack_torch.train.optim import count_trainable
 
-        print(f"{args.script} {stage} stage: "
+        print(f"{args.script} {stage or 'base'} stage: "
               f"{count_trainable(model, trainable) / 1e6:.2f}M trainable parameters")
     state = train_state(model, cfg, len(loader), trainable)
     save_dir = os.path.join(args.save_dir, args.script if dimp
                             else f"{args.script}-{stage or 'base'}")
-    return _run(cfg, save_dir, make_zoo_step(args.script, stage, args.seed, dtype),
-                state, loader)
+    return _run(cfg, save_dir, make_zoo_step(args.script, stage, args.seed, dtype,
+                                             args.channels), state, loader)
 
 
 def _train_vipt(args, cfg, cfg_name: str, device, dtype) -> int:

@@ -1,5 +1,5 @@
-"""Training objectives of STARK, MixFormer and SiamFC, port of
-mmtrack_tpu/train/zoo_actors.py (:39-175).
+"""Training objectives of STARK, MixFormer, SiamFC, the MDNet family and
+KYS, port of mmtrack_tpu/train/zoo_actors.py (:39-317, :422-442).
 
   - STARK (SPT/lib/train, actors/stark_s.py + stark_st.py): stage 'bbox'
     is GIoU (2.0) + L1 (5.0) on the corner-decoded box; stage 'score' is
@@ -13,6 +13,19 @@ mmtrack_tpu/train/zoo_actors.py (:39-175).
     +1 / -1 labels within 16 px of the target centre, on crops taken back
     from the loader's ImageNet normalisation to [0, 1], as the tracker
     feeds them.
+  - MDNet / APFNet (pyMDNet train_mdnet.py, APFNet train_stage{1,2,3}.py):
+    the 2-way softmax cross-entropy of 32 positive and 96 negative 107-px
+    patches a sample, cropped from the search crop taken back to 0..255
+    around gaussian jitters of the target box (positives: centre 0.1,
+    scale 0.1; negatives: 1.0, 0.5), fc6 branch 0, no dropout. The box
+    draws come from a generator seeded from (seed, step), or are given
+    (`noise=`), as dimp_actor.py's proposals are.
+  - KYS (MotionTrackerActor, tracking_motion.py:10-163): the DiMP base is
+    frozen and runs without gradient (one filter per sequence from its
+    train frame, applied to the current frame); the predictor's state is
+    seeded from the previous frame's label and its fused response on the
+    current frame is held to LBHinge + 0.25 x the BCE of the state's
+    is-target map against label > 0.25.
 
 Each `make_*_train_step` returns `train_step(state, batch) -> (state,
 stats)` over the sampler's batch (template (B, T, T, C), search (B, S, S,
@@ -27,12 +40,15 @@ import torch.nn.functional as F
 
 from mmtrack_torch.data.processing import MEAN_6, STD_6
 from mmtrack_torch.ops.box import box_cxcywh_to_xyxy, box_xywh_to_xyxy
-from mmtrack_torch.ops.losses import giou_loss, l1_loss
+from mmtrack_torch.ops.crop import crop_resize
+from mmtrack_torch.ops.losses import giou_loss, l1_loss, lb_hinge_loss
+from mmtrack_torch.train.dimp_actor import gaussian_label_map, per_sequence_scores
 from mmtrack_torch.train.train_step import (
     TrainState,
     apply_update,
     batch_to_device,
     compute_context,
+    drop_path_generator,
 )
 
 
@@ -40,6 +56,12 @@ def _bce_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean of optax's sigmoid_binary_cross_entropy:
     -y log_sigmoid(x) - (1 - y) log_sigmoid(-x)."""
     return (-labels * F.logsigmoid(logits) - (1.0 - labels) * F.logsigmoid(-logits)).mean()
+
+
+def _unnormalise(x: torch.Tensor) -> torch.Tensor:
+    """The loader's crop x taken back to [0, 1]: x * std + mean."""
+    c = x.shape[-1]
+    return x * torch.from_numpy(STD_6[:c]).to(x.device) + torch.from_numpy(MEAN_6[:c]).to(x.device)
 
 
 def _logit(p: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -132,11 +154,8 @@ def make_siamfc_train_step(search_size: int = 255, total_stride: int = 8,
     def train_step(state: TrainState, batch: dict):
         model = state.model
         b = batch_to_device(batch, next(model.parameters()).device)
-        c = b["search"].shape[-1]
-        std = torch.from_numpy(STD_6[:c]).to(b["search"].device)
-        mean = torch.from_numpy(MEAN_6[:c]).to(b["search"].device)
         with compute_context(b["search"].device, dtype):
-            resp = model(b["template"] * std + mean, b["search"] * std + mean).float()
+            resp = model(_unnormalise(b["template"]), _unnormalise(b["search"])).float()
             y = siamfc_response_labels(b["search_anno"], search_size, resp.shape[-1],
                                        total_stride)
             ll = torch.logaddexp(torch.zeros_like(resp), -y * resp)
@@ -146,5 +165,148 @@ def make_siamfc_train_step(search_size: int = 255, total_stride: int = 8,
             loss = 0.5 * ((ll * pos).sum() / n_pos + (ll * neg).sum() / n_neg)
             stats = {"Loss/total": loss, "Resp/pos_mean": (resp * pos).sum() / n_pos}
         return apply_update(state, loss, stats)
+
+    return train_step
+
+
+# ------------------------------------------------------------ MDNet family
+
+MDNET_PATCH = 107
+# 16 px of context on each side at the 107-px patch (the runtime's
+# RegionExtractor), a Python float that JAX rounds to f32 where it is used
+MDNET_CONTEXT = (MDNET_PATCH + 32) / MDNET_PATCH
+# (centre sigma x mean(w, h), log-scale sigma) of the positive and negative boxes
+MDNET_JITTER = {"pos": (0.1, 0.1), "neg": (1.0, 0.5)}
+
+
+def mdnet_box_noise(generator: torch.Generator, batch: int, n_pos: int, n_neg: int,
+                    device) -> dict:
+    """The standard normal draws of one step's patch boxes: per sign, the
+    centre noise (B, n, 2) and the log-scale noise (B, n, 1)."""
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=device)
+
+    return {"pos": (normal(batch, n_pos, 2), normal(batch, n_pos, 1)),
+            "neg": (normal(batch, n_neg, 2), normal(batch, n_neg, 1))}
+
+
+def mdnet_sample_boxes(anno_xywh: torch.Tensor, search_sz: int, noise: dict) -> torch.Tensor:
+    """Positive then negative patch boxes (B, n_pos + n_neg, 4) xywh in
+    search-crop pixels around the normalised boxes (B, 4)
+    (zoo_actors.py:176-200): centre + N x sigma_c x mean(w, h), size x
+    exp(N x sigma_s)."""
+    box = (anno_xywh * search_sz)[:, None]                          # (B, 1, 4)
+    out = []
+    for sign in ("pos", "neg"):
+        c_noise, s_noise = noise[sign]
+        pos_std, scale_std = MDNET_JITTER[sign]
+        mean_wh = (box[..., 2] + box[..., 3]) / 2
+        wh = box[..., 2:] * torch.exp(s_noise * scale_std)
+        ctr = box[..., :2] + box[..., 2:] / 2 + c_noise * pos_std * mean_wh[..., None]
+        out.append(torch.cat([ctr - wh / 2, wh], dim=-1))
+    return torch.cat(out, dim=1)
+
+
+def mdnet_training_patches(raw: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """(B x N, 107, 107, C) patches of the 0..255 search crops (B, S, S, C)
+    at their boxes (B, N, 4), with MDNet's 16 px of context
+    (zoo_actors.py:202-206)."""
+    patches, _ = crop_resize(raw, boxes, MDNET_CONTEXT, MDNET_PATCH)
+    return patches.flatten(0, 1)
+
+
+def make_mdnet_train_step(n_pos: int = 32, n_neg: int = 96, branch: int = 0, seed: int = 0,
+                          dtype: torch.dtype = torch.float32):
+    """The MDNet family's step (zoo_actors.py:212-243) for MDNet-dual and
+    APFNet: `train_step(state, batch, noise=None)`, `noise` as
+    mdnet_box_noise gives it."""
+
+    def train_step(state: TrainState, batch: dict, noise=None):
+        model = state.model
+        b = batch_to_device(batch, next(model.parameters()).device)
+        search = b["search"]
+        B, S, dev = search.shape[0], search.shape[1], search.device
+        if noise is None:
+            noise = mdnet_box_noise(drop_path_generator(seed, state.step, dev), B, n_pos,
+                                    n_neg, dev)
+        noise = {k: tuple(torch.as_tensor(t, device=dev) for t in v) for k, v in noise.items()}
+        raw = _unnormalise(search) * 255.0
+        patches = mdnet_training_patches(raw, mdnet_sample_boxes(b["search_anno"], S, noise))
+        labels = torch.cat([torch.ones(n_pos, device=dev), torch.zeros(n_neg, device=dev)])
+        labels = labels.repeat(B)
+        with compute_context(dev, dtype):
+            logits = model((patches - 128.0).permute(0, 3, 1, 2), branch).float()
+            logp = torch.log_softmax(logits, dim=-1)
+            loss = -(labels * logp[:, 1] + (1 - labels) * logp[:, 0]).mean()
+            acc = ((logits[:, 1] > logits[:, 0]) == (labels > 0.5)).float().mean()
+        return apply_update(state, loss, {"Loss/total": loss, "Acc": acc})
+
+    return train_step
+
+
+# ------------------------------------------------------------------- KYS
+
+KYS_FEAT_STRIDE = 16
+
+
+def kys_pair_adapt_batch(batch: dict, search_sz: int, feat_stride: int = KYS_FEAT_STRIDE,
+                         channels: int = 3) -> dict:
+    """A collate_pair batch of tensors (KYSPairProcessing: the previous and
+    current search frames in one crop) as KYS's step reads it
+    (zoo_actors.py:422-442): the template is the filter's train frame, its
+    box in crop pixels; Gaussian labels (kernel 4) of both search frames on
+    the stride-16 grid; the first `channels` channels of each crop."""
+    hS = search_sz // feat_stride
+    return {
+        "train_images": batch["template"][..., :channels],
+        "train_anno": batch["template_anno"] * search_sz,
+        "test_prev": batch["search_prev"][..., :channels],
+        "test_cur": batch["search"][..., :channels],
+        "label_prev": gaussian_label_map(batch["search_prev_anno"] * search_sz, hS, search_sz,
+                                         kernel_sz=4),
+        "label_cur": gaussian_label_map(batch["search_anno"] * search_sz, hS, search_sz,
+                                        kernel_sz=4),
+    }
+
+
+KYS_BATCH_KEYS = ("template", "template_anno", "search", "search_anno", "search_prev",
+                  "search_prev_anno")
+
+
+def make_kys_train_step(image_sz: int = 288, channels: int = 3, clf_weight: float = 1.0,
+                        is_target_weight: float = 0.25, filter_optim_iter: int = 5,
+                        dtype: torch.dtype = torch.float32):
+    """KYS's step (zoo_actors.py:247-317) on collate_pair batches at
+    `image_sz`: the DiMP base under no_grad (JAX's stop_gradient), the
+    predictor from the previous frame's label to the current frame's fused
+    response. Only the predictor should be trainable (tools/train.py:
+    362-366)."""
+
+    def train_step(state: TrainState, batch: dict):
+        model = state.model
+        dev = next(model.parameters()).device
+        b = kys_pair_adapt_batch({k: torch.as_tensor(batch[k], device=dev)
+                                  for k in KYS_BATCH_KEYS}, image_sz, channels=channels)
+        label_cur = b["label_cur"]
+        S = label_cur.shape[-1]
+        with compute_context(dev, dtype):
+            with torch.no_grad():
+                bf_tr = model.extract_backbone(b["train_images"])
+                bf_c = model.extract_backbone(b["test_cur"])
+                score_cur = per_sequence_scores(
+                    model, model.extract_classification_feat(bf_tr),
+                    model.extract_classification_feat(bf_c), b["train_anno"],
+                    filter_optim_iter)[:, :S, :S]
+                feat_p = model.motion_feat(model.extract_backbone(b["test_prev"]))
+                feat_c = model.motion_feat(bf_c)
+            state0 = model.init_motion_state(b["label_prev"])
+            fused, state1, _ = model.predict_response(feat_p, feat_c, state0, score_cur)
+            fused = fused.float()
+            loss_clf = lb_hinge_loss(fused, label_cur)
+            is_target = model.predictor.predictor.is_target(state1).float()
+            loss_aux = _bce_logits(is_target, (label_cur > 0.25).float())
+            loss = clf_weight * loss_clf + is_target_weight * loss_aux
+        return apply_update(state, loss, {"Loss/total": loss, "Loss/test_clf": loss_clf,
+                                          "Loss/is_target": loss_aux})
 
     return train_step

@@ -235,7 +235,7 @@ def test_entry_trains_from_disk_without_jax(tmp_path):
     under a temporary HOME: --script ostrack on the RGB mix (two steps),
     then --script vipt on DepthTrack with --init from its checkpoint (two
     steps); a corpus without a root raises FileNotFoundError naming the
-    settings file; --script mdnet (not ported yet) is refused."""
+    settings file; --script lwl (not ported yet) is refused."""
     import yaml
 
     data = str(tmp_path / "data")
@@ -267,8 +267,8 @@ prior = {os.path.join(ws, "ostrack-mix", "checkpoints", "epoch_0001.pt")!r}
 assert run.main(["--config", {str(tmp_path / "tiny.json")!r}, "--init", prior] + common) == 0
 with pytest.raises(FileNotFoundError, match="trackingnet_dir in {settings}"):
     run.main(["--config", {str(tmp_path / "tnet.json")!r}] + common)
-with pytest.raises(NotImplementedError, match="mdnet"):
-    run.main(["--script", "mdnet"] + common)
+with pytest.raises(NotImplementedError, match="lwl"):
+    run.main(["--script", "lwl"] + common)
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'mmtrack_tpu')]
 assert not bad, bad
 """

@@ -254,7 +254,7 @@ assert run.main(["--script", "dimp"] + common) == 0
 assert run.main(["--script", "mixformer"] + common) == 0
 prior = {os.path.join(ws, "mixformer-bbox", "checkpoints", "epoch_0001.pt")!r}
 assert run.main(["--script", "mixformer", "--stage", "score", "--init", prior] + common) == 0
-for bad in (["--script", "mdnet"], ["--script", "lwl_box"]):
+for bad in (["--script", "lwl"], ["--script", "lwl_box"]):
     with pytest.raises(NotImplementedError, match=bad[1]):
         run.main(bad + common)
 with pytest.raises(ValueError, match="--stage"):
