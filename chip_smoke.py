@@ -91,17 +91,17 @@ non-zero:
      events over back-to-back calls and from the profiler's device time,
      and the bound.
   8. vot: the VOT entry's loop (mmtrack_torch.eval.vot.run_vot_exp) over
-     in-memory TraX sessions on 20 synthetic 640x480 RGB-D frames written
+     in-memory TraX sessions on 12 synthetic 640x480 RGB-D frames written
      as PNG files: vipt_deep_rgbd at full width (f32, seeded weights, from
      the port's registry) and Alpha-Refine at input size 256, the mask
      protocol and then the rectangle protocol, after one short warm-up
-     session. Launch counts must be exact: per mask session 2 x 20 crops
-     (ViPT template + 19 searches, Alpha-Refine template + 19 searches) and
-     19 correlations; per rectangle session 20 crops and none. Then one
-     rectangle session each of ostrack_online (colour frames; 20 crops +
-     one per template refresh) and spt (20 crops) from the registry, and
+     session. Launch counts must be exact: per mask session 2 x 12 crops
+     (ViPT template + 11 searches, Alpha-Refine template + 11 searches) and
+     11 correlations; per rectangle session 12 crops and none. Then one
+     rectangle session each of ostrack_online (colour frames; 12 crops +
+     one per template refresh) and spt (12 crops) from the registry, and
      one mask session of promixtrack (rgbd_blend frames, Alpha-Refine
-     masks): 2 x 20 crops + one per nomination, 19 correlations; then,
+     masks): 2 x 12 crops + one per nomination, 11 correlations; then,
      after a 3-frame warm-up, one 10-frame rectangle session of
      det_dimp50_max (DeT, rgbcolormap frames), which launches no kernel
      of the port. Every state must decode to a frame-sized mask (or a
@@ -110,7 +110,7 @@ non-zero:
      frame and box: probabilities within AR_PROB_BAR. Prints ms per frame
      split into read+compose, tracker step, refine and encode.
   9. ope: the streamed OPE path (mmtrack_torch.eval.batched_ope) at the
-     JAX bench's streamed cell shape, B=8 sequences of 33 frames of 640x480
+     JAX bench's streamed cell shape, B=8 sequences of 21 frames of 640x480
      written as a DepthTrack layout (colour JPEG + 16-bit depth PNG, from
      data/synthetic.py over a seeded depth base), deep_rgbd in bf16 on
      seeded weights, one shared make_track_scan (each step a one-frame CUDA
@@ -139,22 +139,22 @@ non-zero:
      SR/PR/NPR and F-score equal the analysis of the rgb + index wire's
      files. Last, ViPTTracker(host_preproc=True) on one sequence at f32
      against the crop kernel's tracker, on frames composed beforehand: ms
-     per frame, IoU, crop launches (none and 33).
+     per frame, IoU, crop launches (none and 21).
  10. zoo: the nine recipes the port added beside ViPT (ostrack,
      ostrack_online, stark_s, stark_st, spt, siamfc, mixformer_rgbd, samf,
      promixtrack), each from the registry at f32 on seeded weights (the
      MixFormers at MixFormer-L's full width), through
-     eval/ope.py::run_sequence over one 21-frame 640x480 sequence of phase
+     eval/ope.py::run_sequence over one 13-frame 640x480 sequence of phase
      9's fixture composed as the recipe asks. Every box finite and inside
      its frame (SiamFC, which does not clip its box, its centre); crop
-     launches exactly 21 + the template refreshes the tracker reported
+     launches exactly 13 + the template refreshes the tracker reported
      (none for SiamFC, whose pyramid is plain PyTorch), for the MixFormers
-     1 + 20 x scales + the nominations; median ms per frame after 3
+     1 + 12 x scales + the nominations; median ms per frame after 3
      warm-up frames; for the MixFormers also the nominations, the ring
      writes and the card's idle share over one profiled frame; one
      full-width mixformer_rgbd forward on the card against the same
      weights on the CPU (boxes within 1e-4, logits within 1e-3). The
-     device rgbcolormap compose (ops/compose.py) of the sequence's 21
+     device rgbcolormap compose (ops/compose.py) of the sequence's 13
      frames, from the decoded RGB and raw 16-bit depth, bit-equal to the
      host composition. OSTrack-online at bf16 (build_ostrack's dtype): one
      dual-template forward with the kernels against use_kernels=False,
@@ -184,10 +184,10 @@ non-zero:
      --analyze` in its own process, its report equal to the in-process
      analysis.
  11. train_disk: training from disk. Corpora written in their own
-     layouts by 8 threads: phase 9's DepthTrack fixture (8 sequences of 33
-     640x480 frames), a LasHeR layout of the same size, LaSOT and GOT-10k
-     layouts of 4 sequences of 33 1280x720 frames each, and an LMDB twin of
-     GOT-10k's images (data/minilmdb.py's writer), whose frames must equal
+     layouts by 8 threads: a DepthTrack fixture as phase 9's (4 sequences
+     of 21 640x480 frames), a LasHeR layout of the same size, LaSOT and
+     GOT-10k layouts of 4 sequences of 21 1280x720 frames each, and an LMDB
+     twin of GOT-10k's images (data/minilmdb.py's writer), whose frames must equal
      the directory's. The decoder (native or cv2) and the LMDB reader (the C
      lmdb package or minilmdb) that ran are printed; then the loader's
      seconds of one B=32 batch for each corpus (names2datasets -> sampler ->
@@ -215,7 +215,7 @@ non-zero:
  12. atom_dcf: the ATOM and DCF families, the eight recipes atom,
      det_atom_{max,mean,mc} (rgbcolormap frames), eco, ccot, mosse and
      scsrdcf (colour frames) from the registry at f32 on seeded weights
-     over a 21-frame 640x480 sequence of phase 9's fixture: every box
+     over a 13-frame 640x480 sequence of phase 9's fixture: every box
      finite and inside its frame (ATOM's, which its IoU refinement does
      not clip, its centre), no launch of any of the five kernels (the
      crops are the plain `crop_at`, the FFTs torch.fft), the median ms per
@@ -233,7 +233,7 @@ non-zero:
      dafnet and macnet (rgbrgb frames of a one-sequence LasHeR layout of
      the same frames: the colour beside phase 10's 8-bit thermal stand-in
      of the depth, both as JPEG) from the registry at f32 on seeded
-     weights over the 21 frames at 640x480: every box finite and inside
+     weights over the 13 frames at 640x480: every box finite and inside
      its frame, no launch of any of the five kernels (the candidate crops
      are the plain four-tap gather, the networks cuDNN and cuBLAS), the
      init in ms, the median ms per frame, the long-term and short-term
@@ -248,7 +248,7 @@ non-zero:
      equal to the in-process analysis.
 
  14. keeptrack_kys: KeepTrack and KYS, keep_track and kys from the
-     registry at f32 on seeded weights over phase 10's 21-frame 640x480
+     registry at f32 on seeded weights over phase 10's 13-frame 640x480
      sequence: every box finite and its centre inside its frame (the IoU
      refinement comes after the step's clamp), no launch of any of the
      five kernels (the sample crop is `crop_at`, the matcher, the cost
@@ -272,18 +272,27 @@ non-zero:
      with a copy of its sequence and in-process results, run side by side
      in their own processes after phase 15, each held as its phase says.
  16. zoo_train: the dimp, det_dimp, stark (bbox, score), mixformer (bbox,
-     score), siamfc, mdnet, apfnet (stages 1 at attribute 2, 2 and 3) and
-     kys scripts of train/run.py at full width, f32, on seeded weights and
-     synthetic batches through the entry's own crops, model, trainable
-     set, optimizer and step: 2 steps each at B=32 (MixFormer-L at B=8,
-     APFNet at B=16), the ms of the second, the first and last loss
-     (finite), peak memory, no launch of any of the five kernels, one
-     profiled step (device ms, idle share, kernels); one f32 step each of dimp, mdnet
-     and kys on the card against the CPU on the same weights, batch and
-     draws (each loss term within 1e-4 relative, the trained leaves'
-     relative L2 printed); and `python -m mmtrack_torch.train.run --script
-     det_dimp --synthetic` and `--script apfnet --stage 1 --attribute 2`,
-     each in its own process, their checkpoints written.
+     score), siamfc, mdnet, apfnet (stages 1 at attribute 2, 2 and 3),
+     kys, lwl and lwl_box scripts of train/run.py at full width, f32, on
+     seeded weights and synthetic batches through the entry's own crops,
+     model, trainable set, optimizer and step: 2 steps each at B=32
+     (MixFormer-L at B=8, APFNet at B=16), the ms of the second, the first
+     and last loss (finite), peak memory, no launch of any of the five
+     kernels, one profiled step (device ms, idle share, kernels); one f32
+     step each of dimp, mdnet, kys and lwl on the card against the CPU on
+     the same weights, batch and draws (each loss term within 1e-4
+     relative, the trained leaves' relative L2 printed); and `python -m
+     mmtrack_torch.train.run --script det_dimp --synthetic` and `--script
+     apfnet --stage 1 --attribute 2`, each in its own process, their
+     checkpoints written.
+ 17. learning_demo: `python -m mmtrack_torch.train.learning_demo
+     --lwl_only` in its own process: LWL trained on the card through the
+     entry (4 epochs of 64 synthetic samples at B=8) and its mask tracker
+     run on 4 held-out sequences of 40 frames before and after; the phase
+     fails unless the process exits 0 with the AUC gate passed (+0.02).
+     It prints AUC, mean IoU and SR@0.5 before and after, the training's
+     seconds, the crop kernel's launches and the masks by kind (empty,
+     partial, full).
 
 Every phase prints its seconds (a `<phase>_phase` line), and the last
 phase line the seconds of all of them.
@@ -381,7 +390,7 @@ from mmtrack_torch.trackers.vipt_tracker import (
 from mmtrack_torch.utils.device import require_cuda
 
 B = 16
-OPE_SEQS, OPE_FRAMES, OPE_HW = 8, 33, (480, 640)   # the JAX bench's streamed cell, bench.py:47-55
+OPE_SEQS, OPE_FRAMES, OPE_HW = 8, 21, (480, 640)   # the JAX bench's streamed cell, bench.py:47-55
 BATCHES = (B, OPE_SEQS)            # the tracking batches: phase 3's and phase 9's
 TOKENS = (320, 244, 190, 153)      # 64 template + 256 / 180 / 126 / 89 search tokens
 OO_B = 2                           # OSTrack-online's template batch
@@ -409,7 +418,7 @@ MHSA_ULPS = 2                      # flash_mhsa_qkv: bf16 ulps of the row's larg
 # loss 2.7e-5 relative, prompt gradients 0.0217 relative L2
 TRAIN_LOSS_REL_BAR = 5e-4
 TRAIN_GRAD_REL_BAR = 5e-2
-VOT_FRAMES = 20
+VOT_FRAMES = 12
 VOT_HW = (480, 640)
 AR_PROB_BAR = 1e-3                 # Alpha-Refine probabilities, card (TF32 off) vs CPU
 # H100 SXM peaks (NVIDIA data sheet; dense, 700 W)
@@ -1900,9 +1909,9 @@ class FrameRecorder:
 
 
 # frames of the one sequence each zoo recipe runs over (phases 10, 12-15):
-# the first 21 of phase 9's 33 (its fixture's frames 0-20), which keeps the
-# 10th frame's card-vs-CPU checks and 18 frames after ZOO_WARMUP
-ZOO_FRAMES = 21
+# 13 frames of a phase-9 fixture, which keeps the 10th frame's card-vs-CPU
+# checks and 10 frames after ZOO_WARMUP
+ZOO_FRAMES = 13
 ZOO = ("ostrack", "ostrack_online", "stark_s", "stark_st", "spt", "siamfc",
        "mixformer_rgbd", "samf", "promixtrack")
 # run_ope --tracker in its own process (eco in phase 12)
@@ -2426,7 +2435,7 @@ def compose_check(dev, seq) -> None:
         raise AssertionError(f"device rgbcolormap compose: {differ} pixels differ from the host's")
 
 
-DISK_SEQS = 8                       # DepthTrack and LasHeR sequences of OPE_FRAMES, 640x480
+DISK_SEQS = 4                       # DepthTrack and LasHeR sequences of OPE_FRAMES, 640x480
 RGB_SEQS, RGB_HW = 4, (720, 1280)   # LaSOT and GOT-10k sequences each, 1280x720
 LOADER_BATCHES = 1                  # B=32 batches timed per corpus
 DISK_STEPS = 2                      # counted vipt steps from disk (and on a resident batch)
@@ -3479,14 +3488,14 @@ def lwl_vot_entry(dev, tmp: str) -> None:
 ZOO_TRAIN = (("dimp", "", 32), ("det_dimp", "", 32), ("stark", "bbox", 32),
              ("stark", "score", 32), ("mixformer", "bbox", 8), ("mixformer", "score", 8),
              ("siamfc", "", 32), ("mdnet", "", 32), ("apfnet", "1", 16), ("apfnet", "2", 16),
-             ("apfnet", "3", 16), ("kys", "", 32))
+             ("apfnet", "3", 16), ("kys", "", 32), ("lwl", "", 32), ("lwl_box", "", 32))
 ZOO_TRAIN_STEPS = 2                 # timed steps; the second is reported
 APFNET_ATTRIBUTE = 2                # the attribute APFNet's stage 1 trains
 TRAIN_CARD_VS_CPU_B = 2
 TRAIN_LOSS_CARD_VS_CPU_BAR = 1e-4   # one f32 step, card (TF32 off) vs CPU: each loss term
 # the scripts stepped on the card and on the CPU, and their loss terms held to the bar
 TRAIN_CARD_VS_CPU = (("dimp", ("Loss/total",)), ("mdnet", ("Loss/total",)),
-                     ("kys", ("Loss/test_clf", "Loss/is_target")))
+                     ("kys", ("Loss/test_clf", "Loss/is_target")), ("lwl", ("Loss/segm",)))
 ZOO_TRAIN_ENTRIES = (["--script", "det_dimp", "--batch", "2", "--samples", "2"],
                      ["--script", "apfnet", "--stage", "1", "--attribute", "2", "--batch", "2",
                       "--samples", "2"])
@@ -3541,14 +3550,14 @@ def train_card_vs_cpu(dev, cfg, script: str, terms) -> None:
 
 def zoo_train_path(dev) -> None:
     """Phase 16: the dimp, det_dimp, stark (bbox, score), mixformer (bbox,
-    score), siamfc, mdnet, apfnet (stages 1-3) and kys scripts of
-    train/run.py at full width, f32 (TF32 off) on seeded weights:
-    ZOO_TRAIN_STEPS steps of each on synthetic batches through the entry's
-    own model, trainable set, optimizer and step, then one profiled step;
-    the five kernels launch 0 times. One dimp, mdnet and kys step each on
-    the card against the CPU, and `python -m mmtrack_torch.train.run
-    --script det_dimp` and `--script apfnet --stage 1` each in its own
-    process."""
+    score), siamfc, mdnet, apfnet (stages 1-3), kys, lwl and lwl_box
+    scripts of train/run.py at full width, f32 (TF32 off) on seeded
+    weights: ZOO_TRAIN_STEPS steps of each on synthetic batches through
+    the entry's own model, trainable set, optimizer and step, then one
+    profiled step; the five kernels launch 0 times. One dimp, mdnet, kys
+    and lwl step each on the card against the CPU, and `python -m
+    mmtrack_torch.train.run --script det_dimp` and `--script apfnet
+    --stage 1` each in its own process."""
     from mmtrack_torch.train import run
     from mmtrack_torch.train.optim import count_trainable
 
@@ -3632,6 +3641,52 @@ def zoo_train_path(dev) -> None:
     log("zoo_train_phase", seconds=time.perf_counter() - t_phase, scripts=len(ZOO_TRAIN))
 
 
+DEMO_TIMEOUT_S = 600
+
+
+def learning_demo_path() -> None:
+    """Phase 17: the learning demo's LWL phase (`python -m
+    mmtrack_torch.train.learning_demo --lwl_only`) in its own process on
+    the card; it must exit 0 with `improved` true."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, "demo.json")
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    # its own session, so a timeout ends the demo and the training run it started
+    proc = subprocess.Popen([sys.executable, "-m", "mmtrack_torch.train.learning_demo",
+                             "--lwl_only", "--out", out, "--workdir", os.path.join(tmp, "ws")],
+                            cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=DEMO_TIMEOUT_S)
+        phase = None
+        if os.path.exists(out):
+            with open(out) as f:
+                phase = json.load(f).get("lwl_segmentation")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+        shutil.rmtree(tmp)
+    if phase is None:
+        raise AssertionError(f"learning demo --lwl_only exited {proc.returncode} without its "
+                             f"result: {stderr[-3000:]}")
+    keys = ("auc", "mean_iou", "sr50", "crop_launches", "masks")
+    log("learning_demo", demo_phase="lwl_segmentation", returncode=proc.returncode,
+        improved=phase["improved"], epochs=phase["epochs"],
+        before={k: phase["before"].get(k) for k in keys},
+        after={k: phase["after"].get(k) for k in keys},
+        partial_masks_after=phase["after"].get("masks", {}).get("partial", 0),
+        train_seconds=phase["train_seconds"], demo_seconds=phase["seconds"],
+        train_epochs=[ln for ln in stdout.splitlines() if ln.startswith("epoch ")],
+        card=card_line())
+    if proc.returncode != 0 or not phase["improved"]:
+        raise AssertionError(f"learning demo --lwl_only exited {proc.returncode}, improved "
+                             f"{phase['improved']}: {stderr[-3000:]}")
+    log("learning_demo_phase", seconds=time.perf_counter() - t_phase)
+
+
 def timed(phase: str, fn, *args):
     """fn(*args), then a line with the phase's seconds."""
     t0 = time.perf_counter()
@@ -3711,6 +3766,7 @@ def main() -> int:
     lwl_stm_path(dev)
     timed("zoo_entries", zoo_entries_path)
     zoo_train_path(dev)
+    learning_demo_path()
     log("phases", seconds=time.perf_counter() - t_main)
 
     zoo_rows["crop_resize_normalized"] = [r for r in crop_rows if r["zoo"]]

@@ -414,6 +414,17 @@ _KYS_BASE = {"feature_extractor.": "backbone_feature_extractor.",
              "classifier.": "dimp_classifier."}
 
 
+def kys_base_from_dimp(state_dict: dict) -> dict:
+    """A DiMPNet state_dict under KYSNet's upstream names of its DiMP base
+    (`feature_extractor.` -> `backbone_feature_extractor.`, `classifier.`
+    -> `dimp_classifier.`, `bb_regressor.` as it is)."""
+    out = {}
+    for k, v in state_dict.items():
+        pre = next((p for p in _KYS_BASE if k.startswith(p)), None)
+        out[_KYS_BASE[pre] + k[len(pre):] if pre else k] = v
+    return out
+
+
 def _kys_predictor_leaf(p: str, value: np.ndarray):
     """(port name, value) of one ResponsePredictor flax leaf: the conv
     blocks' `conv` / `bn` as the Sequential children `.0` / `.1`."""
@@ -438,10 +449,7 @@ def kys_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     the port's KYSNet state_dict, named as the upstream kys.pth (f32 CPU
     tensors); the inverse of convert_kys_checkpoint. The DiMP base goes
     through `dimp_state_dict_from_flax` and is renamed."""
-    out = {}
-    for k, v in dimp_state_dict_from_flax(params["dimp"]).items():
-        pre = next((p for p in _KYS_BASE if k.startswith(p)), None)
-        out[_KYS_BASE[pre] + k[len(pre):] if pre else k] = v
+    out = kys_base_from_dimp(dimp_state_dict_from_flax(params["dimp"]))
     out.update(_tensors(_kys_predictor_leaf("/".join(path), v)
                         for path, v in _flatten(params["predictor"]).items()))
     return out

@@ -329,18 +329,21 @@ class LWLNet(nn.Module):
     """LWTLNet (lwl.py:407-513) at the JAX package's configuration: the
     DiMP clf-feature pattern (a 3x3 conv to 512, no blocks) on layer3, the
     decoder over layer4..layer1, filter_reg from 0.01. Public maps are
-    NHWC."""
+    NHWC. `in_channels` is the backbone's input width: flax infers it from
+    the init's images, so tools/train.py's `--script lwl --channels 6`
+    builds a 6-channel conv1."""
 
     out_feature_dim = 512
     target_model_input_layer = "layer3"
 
     def __init__(self, filter_size: int = 1, num_filters: int = 1, optim_iter: int = 3,
                  label_encoder_dims: Sequence[int] = (16, 32, 64), decoder_mdim: int = 64,
-                 use_box_encoder: bool = False, box_label_encoder_dims: Sequence[int] = (64, 32)):
+                 use_box_encoder: bool = False, box_label_encoder_dims: Sequence[int] = (64, 32),
+                 in_channels: int = 3):
         super().__init__()
         self.filter_size, self.num_filters, self.optim_iter = filter_size, num_filters, optim_iter
         self.use_box_encoder = use_box_encoder
-        self.feature_extractor = resnet50("layer4")
+        self.feature_extractor = resnet50("layer4", in_channels=in_channels)
         self.target_model = _TargetModel(
             TargetModelFeatures(LAYER_CHANNELS["layer3"], self.out_feature_dim, filter_size),
             0.01)
@@ -355,7 +358,7 @@ class LWLNet(nn.Module):
         return self.target_model.filter_optimizer.residual_module.filter_reg
 
     def extract_backbone(self, im: torch.Tensor) -> dict:
-        """im (N, H, W, 3) normalised -> layer1..layer4, NHWC."""
+        """im (N, H, W, in_channels) normalised -> layer1..layer4, NHWC."""
         return self.feature_extractor(im, ("layer1", "layer2", "layer3", "layer4"))
 
     def extract_target_model_features(self, bfeat: dict) -> torch.Tensor:
@@ -368,7 +371,7 @@ class LWLNet(nn.Module):
                    num_iter: Optional[int] = None) -> torch.Tensor:
         """FilterInitializerZero + GN steepest descent (lwl.py:471-480)."""
         filt = torch.zeros((self.num_filters, self.filter_size, self.filter_size,
-                            self.out_feature_dim), dtype=torch.float32, device=feat.device)
+                            self.out_feature_dim), dtype=feat.dtype, device=feat.device)
         return optimize_lwl_filter(filt, feat, label, spatial_weight, sample_weight,
                                    self.filter_reg, self.optim_iter if num_iter is None
                                    else num_iter)

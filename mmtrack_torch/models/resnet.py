@@ -87,18 +87,20 @@ class ResNet(nn.Module):
     maps.
 
     `last_layer` is the deepest stage built ('conv1', 'layer1'..'layer4');
-    forward(x (B, H, W, 3), out_layers) selects among the built ones.
-    Strides and widths match torchvision (layer2: stride 8, 128 channels
-    for BasicBlocks, 512 for Bottlenecks).
+    forward(x (B, H, W, in_channels), out_layers) selects among the built
+    ones. Strides and widths match torchvision (layer2: stride 8, 128
+    channels for BasicBlocks, 512 for Bottlenecks). `in_channels` is
+    conv1's input width, which flax infers from the init's input (LWL's
+    `--channels 6` builds a 6-channel stem).
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2), last_layer: str = "layer4",
-                 dtype=torch.float32, device=None, block: str = "basic"):
+                 dtype=torch.float32, device=None, block: str = "basic", in_channels: int = 3):
         super().__init__()
         Block = Bottleneck if block == "bottleneck" else BasicBlock
         self.dtype = dtype
         self.n_stages = LAYERS.index(last_layer)
-        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, dtype=dtype, device=device,
+        self.conv1 = Conv2d(in_channels, 64, 7, stride=2, padding=3, dtype=dtype, device=device,
                             bias=False)
         self.bn1 = FrozenBatchNorm(64, device=device)
         in_ch, planes = 64, 64
@@ -114,7 +116,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor, out_layers: Sequence[str] = ("layer2",),
                 conv1_add: torch.Tensor | None = None) -> dict:
-        """x (B, H, W, 3); conv1_add, when given, (B, H/2, W/2, 64) NHWC
+        """x (B, H, W, in_channels); conv1_add, when given, (B, H/2, W/2, 64) NHWC
         like x, is added to conv1's output before bn1."""
         out = {}
         y = self.conv1(x.permute(0, 3, 1, 2))
@@ -133,6 +135,7 @@ def resnet18(last_layer: str = "layer4", dtype=torch.float32, device=None) -> Re
     return ResNet(stage_sizes=(2, 2, 2, 2), last_layer=last_layer, dtype=dtype, device=device)
 
 
-def resnet50(last_layer: str = "layer4", dtype=torch.float32, device=None) -> ResNet:
+def resnet50(last_layer: str = "layer4", dtype=torch.float32, device=None,
+             in_channels: int = 3) -> ResNet:
     return ResNet(stage_sizes=(3, 4, 6, 3), last_layer=last_layer, dtype=dtype, device=device,
-                  block="bottleneck")
+                  block="bottleneck", in_channels=in_channels)

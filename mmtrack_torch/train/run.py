@@ -1,8 +1,8 @@
-"""Training entry point of the port: the vipt, ostrack, dimp, det_dimp,
-stark, mixformer, siamfc, mdnet, apfnet and kys branches of tools/train.py
-(:25-240, :244-520) on one device.
+"""Training entry point of the port: every script of tools/train.py (vipt,
+ostrack, dimp, det_dimp, stark, mixformer, siamfc, mdnet, apfnet, kys, lwl,
+lwl_box; :25-240, :244-520) on one device.
 
-    python -m mmtrack_torch.train.run [--script vipt|ostrack|dimp|det_dimp|stark|mixformer|siamfc|mdnet|apfnet|kys] \\
+    python -m mmtrack_torch.train.run [--script vipt|ostrack|dimp|det_dimp|stark|mixformer|siamfc|mdnet|apfnet|kys|lwl|lwl_box] \\
         [--stage bbox|score|1|2|3] [--attribute 0-4] [--channels 3|6] --config deep_rgbd \\
         [--synthetic [--synthetic_distractor]] [--init prior.pt|prior.npz] \\
         [--epochs N --batch B --samples S] [--bf16] [--full_tune] [--device cpu]
@@ -47,10 +47,16 @@ alone on pairs of consecutive search frames cropped at one box (288 px,
 search area 5, at most 5 frames apart), the DiMP base frozen; --channels
 6 passes the 6-channel crops, whose DiMP base reads the first three, as
 JAX's does. --synthetic_distractor adds a crossing twin of the target to
-every synthetic sequence. --init reads a flax .npz of these through
-the 'mdnet' (mdnet, apfnet) and 'dimp' (kys) bridges. Weights are
-seeded from --seed. The other scripts of tools/train.py (lwl, lwl_box)
-are not ported yet and are refused.
+every synthetic sequence. --script lwl trains LWL (ResNet-50, 16 filters
+of size 3, label encoder (16, 32, 64), 5 Gauss-Newton steps) on pairs of
+256-px crops at a search area of 6 (the template centred, the search
+crop's centre jitter 3.0 and scale jitter 0.25), boxes rasterised to
+masks, the Lovász hinge differentiated through the learner, every
+parameter trained; --script lwl_box trains its box encoder alone on the
+search crops. --channels 6 builds LWL for the 6-channel crops (a
+6-channel conv1, as flax infers it from tools/train.py's init). --init
+reads a flax .npz of these through the 'mdnet' (mdnet, apfnet), 'dimp'
+(kys) and 'lwl' (lwl, lwl_box) bridges. Weights are seeded from --seed.
 """
 
 from __future__ import annotations
@@ -62,9 +68,7 @@ import os
 import torch
 
 SCRIPTS = ("vipt", "ostrack", "dimp", "det_dimp", "stark", "mixformer", "siamfc", "mdnet",
-           "apfnet", "kys")
-# tools/train.py's other scripts, refused by name
-UNPORTED_SCRIPTS = ("lwl", "lwl_box")
+           "apfnet", "kys", "lwl", "lwl_box")
 
 # the zoo's crops (tools/train.py:262-279): template / search size and
 # search area factor
@@ -73,7 +77,10 @@ ZOO_SIZES = {"stark": dict(template=128, search=320, tf=2.0, sf=5.0),
              "siamfc": dict(template=127, search=255, tf=2.0, sf=4.0),
              "mdnet": dict(template=107, search=320, tf=1.2, sf=3.0),
              "apfnet": dict(template=107, search=320, tf=1.2, sf=3.0),
-             "kys": dict(template=288, search=288, tf=5.0, sf=5.0)}
+             "kys": dict(template=288, search=288, tf=5.0, sf=5.0),
+             "lwl": dict(template=256, search=256, tf=6.0, sf=6.0),
+             "lwl_box": dict(template=256, search=256, tf=6.0, sf=6.0)}
+LWL = ("lwl", "lwl_box")
 DIMP_IMAGE_SZ = 288
 KYS_MAX_GAP = 5                     # frames between KYS's two search frames, at most
 # the parameters a score stage trains (tools/train.py:321-347)
@@ -81,7 +88,7 @@ SCORE_HEADS = {"stark": "cls_head.", "mixformer": "score_branch."}
 # each script's stages, the default first
 STAGES = {"stark": ("bbox", "score"), "mixformer": ("bbox", "score"), "apfnet": ("3", "1", "2")}
 # the flax bridge --init reads a .npz through (run_ope.FLAX_BRIDGES)
-INIT_FAMILY = {"apfnet": "mdnet", "kys": "dimp"}
+INIT_FAMILY = {"apfnet": "mdnet", "kys": "dimp", "lwl_box": "lwl"}
 
 
 def load_init(model: torch.nn.Module, path: str, family: str) -> tuple[list, list]:
@@ -107,14 +114,14 @@ def load_init(model: torch.nn.Module, path: str, family: str) -> tuple[list, lis
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Train a tracker with the PyTorch port")
-    p.add_argument("--script", default="vipt", choices=SCRIPTS + UNPORTED_SCRIPTS)
+    p.add_argument("--script", default="vipt", choices=SCRIPTS)
     p.add_argument("--stage", default=None, choices=["bbox", "score", "1", "2", "3"],
                    help="stark / mixformer: the box stage or the score-head stage; "
                         "apfnet: training stage 1, 2 or 3")
     p.add_argument("--attribute", type=int, default=0, choices=range(5),
                    help="apfnet stage 1: the attribute branch that trains")
     p.add_argument("--channels", type=int, default=3, choices=[3, 6],
-                   help="kys: the crops' channels passed to the network")
+                   help="kys, lwl, lwl_box: the crops' channels passed to the network")
     p.add_argument("--config", default="deep_rgbd",
                    help="experiment name (e.g. deep_rgbd) or a JSON file of overrides")
     p.add_argument("--save_dir", default="./workspace")
@@ -136,10 +143,6 @@ def main(argv=None) -> int:
     p.add_argument("--bf16", action="store_true", help="bf16 compute (as TRAIN.AMP)")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     args = p.parse_args(argv)
-    if args.script not in SCRIPTS:
-        raise NotImplementedError(f"--script {args.script}: its training is not ported yet "
-                                  "(ROADMAP.md queue 1, zoo training); the port trains "
-                                  f"{', '.join(SCRIPTS)}")
     if args.stage is not None and args.stage not in STAGES.get(args.script, ()):
         raise ValueError(f"--stage {args.stage} is not a stage of --script {args.script} "
                          f"(stages: {STAGES})")
@@ -224,11 +227,19 @@ def train_state(model, cfg, steps_per_epoch: int, trainable=None):
     return TrainState(model, opt, sched)
 
 
-def build_zoo_model(script: str, stage: str, seed: int, device) -> torch.nn.Module:
-    """The seeded model a zoo script trains (tools/train.py:300-352,
-    :413-428, :496-500): 6-channel, but KYS, whose DiMP base reads RGB."""
+def build_zoo_model(script: str, stage: str, seed: int, device,
+                    channels: int = 3) -> torch.nn.Module:
+    """The seeded model a zoo script trains (tools/train.py:300-412,
+    :413-428, :496-500): 6-channel, but KYS, whose DiMP base reads RGB, and
+    LWL, built for `channels`."""
     from mmtrack_torch.models.vipt import init_weights
 
+    if script in LWL:
+        from mmtrack_torch.models.lwl import LWLNet, init_lwl_weights
+
+        model = LWLNet(filter_size=3, num_filters=16, label_encoder_dims=(16, 32, 64),
+                       optim_iter=5, use_box_encoder=script == "lwl_box", in_channels=channels)
+        return init_lwl_weights(model, seed).to(device)
     if script in ("dimp", "det_dimp", "kys"):
         from mmtrack_torch.models.dimp import DiMPNet, init_dimp_weights
         from mmtrack_torch.models.kys import build_kysnet
@@ -260,9 +271,11 @@ def build_zoo_model(script: str, stage: str, seed: int, device) -> torch.nn.Modu
 def zoo_trainable_mask(model: torch.nn.Module, script: str, stage: str, attribute: int = 0):
     """The trainable set of a script's stage (None: every parameter
     trains): a score stage's head, APFNet's stage (stage 1: `attribute`'s
-    branches), KYS's predictor."""
+    branches), KYS's predictor, LWL-box's box encoder."""
     from mmtrack_torch.train.optim import prefix_mask
 
+    if script == "lwl_box":
+        return prefix_mask(model, "box_label_encoder.")
     if script == "apfnet":
         from mmtrack_torch.models.apfnet import stage_mask
 
@@ -289,6 +302,11 @@ def make_zoo_step(script: str, stage: str, seed: int, dtype: torch.dtype, channe
     if script == "kys":
         return zoo_actors.make_kys_train_step(ZOO_SIZES["kys"]["search"], channels=channels,
                                               dtype=dtype)
+    if script in LWL:
+        make = (zoo_actors.make_lwl_box_train_step if script == "lwl_box"
+                else zoo_actors.make_lwl_train_step)
+        return make(ZOO_SIZES[script]["search"], ZOO_SIZES[script]["tf"], channels=channels,
+                    dtype=dtype)
     if script == "stark":
         return zoo_actors.make_stark_train_step(stage, dtype=dtype)
     if script == "mixformer":
@@ -336,11 +354,12 @@ def zoo_loader(script: str, datasets, ratios, cfg, seed: int):
 
 def _train_zoo(args, cfg, device, dtype) -> int:
     """tools/train.py's _train_dimp (:454-520) and the stark / mixformer /
-    siamfc / kys / mdnet / apfnet branches of _train_zoo (:244-452)."""
+    siamfc / kys / lwl / lwl_box / mdnet / apfnet branches of _train_zoo
+    (:244-452)."""
     loader = zoo_loader(args.script, *_datasets(args, cfg), cfg, args.seed)
     dimp = args.script in ("dimp", "det_dimp")
     stage = args.stage or STAGES.get(args.script, ("",))[0]
-    model = build_zoo_model(args.script, stage, args.seed, device)
+    model = build_zoo_model(args.script, stage, args.seed, device, args.channels)
     if args.init:
         if dimp:
             raise ValueError("--init: tools/train.py's DiMP branch takes no prior stage")

@@ -1,5 +1,6 @@
-"""Training objectives of STARK, MixFormer, SiamFC, the MDNet family and
-KYS, port of mmtrack_tpu/train/zoo_actors.py (:39-317, :422-442).
+"""Training objectives of STARK, MixFormer, SiamFC, the MDNet family, KYS
+and LWL, port of mmtrack_tpu/train/zoo_actors.py (:39-348, :391-442,
+:472-500).
 
   - STARK (SPT/lib/train, actors/stark_s.py + stark_st.py): stage 'bbox'
     is GIoU (2.0) + L1 (5.0) on the corner-decoded box; stage 'score' is
@@ -26,6 +27,13 @@ KYS, port of mmtrack_tpu/train/zoo_actors.py (:39-317, :422-442).
     seeded from the previous frame's label and its fused response on the
     current frame is held to LBHinge + 0.25 x the BCE of the state's
     is-target map against label > 0.25.
+  - LWL (SegmSeqActor, segmentation.py:265-516, one-shot form; LWTLBoxActor,
+    segm_box.py:61-113): boxes rasterised to masks (exact on the synthetic
+    rectangles), the Lovász hinge of the segmentation. 'lwl' learns the
+    filter on the template's mask and segments the search crop,
+    differentiating through the Gauss-Newton learner (the reference's
+    create_graph=True meta-learning); 'lwl_box' decodes the box encoder's
+    mask encoding of the search crop, only the box encoder trainable.
 
 Each `make_*_train_step` returns `train_step(state, batch) -> (state,
 stats)` over the sampler's batch (template (B, T, T, C), search (B, S, S,
@@ -41,7 +49,7 @@ import torch.nn.functional as F
 from mmtrack_torch.data.processing import MEAN_6, STD_6
 from mmtrack_torch.ops.box import box_cxcywh_to_xyxy, box_xywh_to_xyxy
 from mmtrack_torch.ops.crop import crop_resize
-from mmtrack_torch.ops.losses import giou_loss, l1_loss, lb_hinge_loss
+from mmtrack_torch.ops.losses import giou_loss, l1_loss, lb_hinge_loss, lovasz_hinge_loss
 from mmtrack_torch.train.dimp_actor import gaussian_label_map, per_sequence_scores
 from mmtrack_torch.train.train_step import (
     TrainState,
@@ -308,5 +316,94 @@ def make_kys_train_step(image_sz: int = 288, channels: int = 3, clf_weight: floa
             loss = clf_weight * loss_clf + is_target_weight * loss_aux
         return apply_update(state, loss, {"Loss/total": loss, "Loss/test_clf": loss_clf,
                                           "Loss/is_target": loss_aux})
+
+    return train_step
+
+
+# ------------------------------------------------------------------- LWL
+
+def rect_masks(anno_px: torch.Tensor, size: int) -> torch.Tensor:
+    """(B, size, size) f32 masks of the boxes (B, 4) xywh in crop pixels:
+    the pixels with y0 <= y < y0 + h and x0 <= x < x0 + w, in f32
+    (zoo_actors.py:472-480)."""
+    r = torch.arange(size, dtype=torch.float32, device=anno_px.device)
+    ys, xs = r[None, :, None], r[None, None, :]
+    x0, y0 = anno_px[:, 0, None, None], anno_px[:, 1, None, None]
+    w, h = anno_px[:, 2, None, None], anno_px[:, 3, None, None]
+    return ((ys >= y0) & (ys < y0 + h) & (xs >= x0) & (xs < x0 + w)).float()
+
+
+def lwl_adapt_batch(batch: dict, image_sz: int, template_factor: float, box_mode: bool,
+                    channels: int = 3) -> dict:
+    """A sampler batch of tensors as LWL's steps read it (zoo_actors.py:
+    483-500): the template's box is the centred S / tf square (the crop's
+    own construction, c = (S - S / tf) / 2 rounded to f32), the search box
+    the normalised anno times S; boxes rasterised by rect_masks; the
+    first `channels` channels of each crop. box_mode: the search crop, its
+    box and mask alone."""
+    S = image_sz
+    side = S / template_factor
+    c = (S - side) / 2.0
+    dev = batch["search"].device
+    anno_s = batch["search_anno"] * S
+    if box_mode:
+        return {"train_images": batch["search"][..., :channels], "train_anno": anno_s,
+                "train_masks": rect_masks(anno_s, S)}
+    anno_t = torch.tensor([c, c, side, side], dtype=torch.float32,
+                          device=dev).repeat(batch["template"].shape[0], 1)
+    return {"train_images": batch["template"][..., :channels],
+            "test_images": batch["search"][..., :channels],
+            "train_masks": rect_masks(anno_t, S), "test_masks": rect_masks(anno_s, S)}
+
+
+def _mask_accuracy(seg: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    return ((seg > 0) == (masks > 0.5)).float().mean()
+
+
+def make_lwl_train_step(image_sz: int = 256, template_factor: float = 6.0, channels: int = 3,
+                        dtype: torch.dtype = torch.float32):
+    """LWL's step (zoo_actors.py:318-348): the filter learned on the
+    template's mask by the model's Gauss-Newton steps (ops/optimization.py::
+    steepest_descent_gn; its torch.func vjp / jvp stay differentiable, so
+    the backward runs through the learner to the label encoder, filter_reg
+    and the target-model features), the search crop segmented, Lovász hinge
+    against its mask. Every parameter trains (tools/train.py sets no
+    mask)."""
+
+    def train_step(state: TrainState, batch: dict):
+        model = state.model
+        dev = next(model.parameters()).device
+        b = lwl_adapt_batch(batch_to_device(batch, dev), image_sz, template_factor, False,
+                            channels)
+        with compute_context(dev, dtype):
+            seg = model(b["train_images"], b["test_images"], b["train_masks"]).float()
+            loss = lovasz_hinge_loss(seg, b["test_masks"])
+        return apply_update(state, loss, {"Loss/total": loss, "Loss/segm": loss,
+                                          "Acc": _mask_accuracy(seg, b["test_masks"])})
+
+    return train_step
+
+
+def make_lwl_box_train_step(image_sz: int = 256, template_factor: float = 6.0,
+                            channels: int = 3, dtype: torch.dtype = torch.float32):
+    """LWL-box's step (zoo_actors.py:391-419): the search crop's backbone
+    and target-model features, the box encoder's mask encoding of its box
+    decoded to the image (mask_from_box), Lovász hinge against the box's
+    mask. Only box_label_encoder.* should be trainable (tools/train.py:
+    397-399); the frozen backbone runs outside the graph."""
+
+    def train_step(state: TrainState, batch: dict):
+        model = state.model
+        dev = next(model.parameters()).device
+        b = lwl_adapt_batch(batch_to_device(batch, dev), image_sz, template_factor, True,
+                            channels)
+        im = b["train_images"]
+        with compute_context(dev, dtype):
+            bf = model.extract_backbone(im)
+            tm = model.extract_target_model_features(bf)
+            raw = model.mask_from_box(b["train_anno"], tm, bf, tuple(im.shape[1:3])).float()
+            loss = lovasz_hinge_loss(raw, b["train_masks"])
+        return apply_update(state, loss, {"Loss/total": loss, "Stats/acc_box_train":
+                                          _mask_accuracy(raw, b["train_masks"])})
 
     return train_step

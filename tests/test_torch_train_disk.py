@@ -235,7 +235,7 @@ def test_entry_trains_from_disk_without_jax(tmp_path):
     under a temporary HOME: --script ostrack on the RGB mix (two steps),
     then --script vipt on DepthTrack with --init from its checkpoint (two
     steps); a corpus without a root raises FileNotFoundError naming the
-    settings file; --script lwl (not ported yet) is refused."""
+    settings file; --script lwl trains one step from DepthTrack."""
     import yaml
 
     data = str(tmp_path / "data")
@@ -267,8 +267,8 @@ prior = {os.path.join(ws, "ostrack-mix", "checkpoints", "epoch_0001.pt")!r}
 assert run.main(["--config", {str(tmp_path / "tiny.json")!r}, "--init", prior] + common) == 0
 with pytest.raises(FileNotFoundError, match="trackingnet_dir in {settings}"):
     run.main(["--config", {str(tmp_path / "tnet.json")!r}] + common)
-with pytest.raises(NotImplementedError, match="lwl"):
-    run.main(["--script", "lwl"] + common)
+assert run.main(["--script", "lwl", "--config", {str(tmp_path / "tiny.json")!r}] + common
+                + ["--batch", "1", "--samples", "1"]) == 0
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'mmtrack_tpu')]
 assert not bad, bad
 """
@@ -280,7 +280,7 @@ assert not bad, bad
     n_prompt = sum("prompt" in k and "patch_embed_prompt" not in k
                    for k in vipt.ViPTrack(**TINY).state_dict())
     assert f"missing={n_prompt} unexpected=0" in proc.stdout
-    for run_dir in ("ostrack-mix", "vipt-tiny"):
+    for run_dir in ("ostrack-mix", "vipt-tiny", "lwl-base"):
         out = os.path.join(ws, run_dir)
         assert os.listdir(os.path.join(out, "checkpoints")) == ["epoch_0001.pt"]
         lines = open(os.path.join(out, "logs", "train.jsonl")).read().splitlines()

@@ -1,12 +1,13 @@
-"""The training entry (train/run.py) for the MDNet, APFNet and KYS scripts
-on the CPU, in a process where jax, flax and the JAX package are never
-imported: `--script mdnet`, `--script apfnet --stage 1 --attribute 4` and
-`--script kys --channels 6 --synthetic_distractor`, one synthetic sample
-and one step each, every run writing its checkpoint and a finite loss
-under <save_dir>/<script>-<stage or 'base'>/; APFNet's stage 1 trains
-the attribute's branches and fc4-fc6 (the count printed is stage_mask's),
-KYS the predictor alone. `lwl` is still refused, and --stage 1 is not a
-stage of mdnet.
+"""The training entry (train/run.py) for the MDNet, APFNet, KYS and LWL-box
+scripts on the CPU, in a process where jax, flax and the JAX package are
+never imported: `--script mdnet`, `--script apfnet --stage 1 --attribute
+4`, `--script kys --channels 6 --synthetic_distractor` and `--script
+lwl_box --channels 6`, one synthetic sample and one step each, every run
+writing its checkpoint and a finite loss under <save_dir>/<script>-<stage
+or 'base'>/; APFNet's stage 1 trains the attribute's branches and fc4-fc6
+(the count printed is stage_mask's), KYS the predictor alone; KYS keeps a
+3-channel conv1 at --channels 6, LWL builds a 6-channel one. --stage 1 is
+not a stage of mdnet.
 """
 
 import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
@@ -39,8 +40,7 @@ common = {common!r}
 assert run.main(["--script", "mdnet"] + common) == 0
 assert run.main(["--script", "apfnet", "--stage", "1", "--attribute", "4"] + common) == 0
 assert run.main(["--script", "kys", "--channels", "6", "--synthetic_distractor"] + common) == 0
-with pytest.raises(NotImplementedError, match="lwl"):
-    run.main(["--script", "lwl"] + common)
+assert run.main(["--script", "lwl_box", "--channels", "6"] + common) == 0
 with pytest.raises(ValueError, match="--stage"):
     run.main(["--script", "mdnet", "--stage", "1"] + common)
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'mmtrack_tpu')]
@@ -57,7 +57,7 @@ assert not bad, bad
     n_kys = sum(p.numel() for k, p in kys.named_parameters() if k.startswith("predictor."))
     assert f"apfnet 1 stage: {n_apf / 1e6:.2f}M trainable parameters" in proc.stdout
     assert f"kys base stage: {n_kys / 1e6:.2f}M trainable parameters" in proc.stdout
-    for run_dir in ("mdnet-base", "apfnet-1", "kys-base"):
+    for run_dir in ("mdnet-base", "apfnet-1", "kys-base", "lwl_box-base"):
         out = os.path.join(ws, run_dir)
         assert os.listdir(os.path.join(out, "checkpoints")) == ["epoch_0001.pt"]
         lines = open(os.path.join(out, "logs", "train.jsonl")).read().splitlines()
@@ -65,3 +65,6 @@ assert not bad, bad
     sd = torch.load(os.path.join(ws, "kys-base", "checkpoints", "epoch_0001.pt"),
                     map_location="cpu", weights_only=True)
     assert sd["model"]["backbone_feature_extractor.conv1.weight"].shape == (64, 3, 7, 7)
+    sd = torch.load(os.path.join(ws, "lwl_box-base", "checkpoints", "epoch_0001.pt"),
+                    map_location="cpu", weights_only=True)
+    assert sd["model"]["feature_extractor.conv1.weight"].shape == (64, 6, 7, 7)

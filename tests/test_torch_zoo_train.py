@@ -56,6 +56,7 @@ from mmtrack_tpu.train import optim as jax_optim  # noqa: E402
 from mmtrack_tpu.train import train_step as jax_train_step  # noqa: E402
 from mmtrack_tpu.train import zoo_actors as jax_zoo  # noqa: E402
 from mmtrack_torch.models import mixformer, siamfc, stark  # noqa: E402
+from mmtrack_torch.models.lwl import LWLNet  # noqa: E402
 from mmtrack_torch.models.convert import (  # noqa: E402
     mixformer_state_dict_from_flax,
     siamfc_state_dict_from_flax,
@@ -235,9 +236,10 @@ def test_siamfc_response_labels_exact():
 def test_entry_trains_dimp_and_mixformer_stages_without_jax(tmp_path):
     """`run.main --script dimp --synthetic --device cpu` (one step at 288
     px), then a narrowed MixFormer's bbox stage and its score stage with
-    --init of the bbox checkpoint, in a process where jax and the JAX
-    package are never imported; unported scripts and a stage for dimp are
-    refused."""
+    --init of the bbox checkpoint, then --script lwl and --script lwl_box
+    with --init of the lwl checkpoint (the box encoder missing), in a
+    process where jax and the JAX package are never imported; a stage for
+    dimp is refused."""
     ws = str(tmp_path / "ws")
     common = ["--synthetic", "--device", "cpu", "--batch", "1", "--samples", "1",
               "--epochs", "1", "--save_dir", ws]
@@ -254,9 +256,9 @@ assert run.main(["--script", "dimp"] + common) == 0
 assert run.main(["--script", "mixformer"] + common) == 0
 prior = {os.path.join(ws, "mixformer-bbox", "checkpoints", "epoch_0001.pt")!r}
 assert run.main(["--script", "mixformer", "--stage", "score", "--init", prior] + common) == 0
-for bad in (["--script", "lwl"], ["--script", "lwl_box"]):
-    with pytest.raises(NotImplementedError, match=bad[1]):
-        run.main(bad + common)
+assert run.main(["--script", "lwl"] + common) == 0
+lwl = {os.path.join(ws, "lwl-base", "checkpoints", "epoch_0001.pt")!r}
+assert run.main(["--script", "lwl_box", "--init", lwl] + common) == 0
 with pytest.raises(ValueError, match="--stage"):
     run.main(["--script", "dimp", "--stage", "score"] + common)
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'mmtrack_tpu')]
@@ -272,7 +274,10 @@ assert not bad, bad
         head_channel=32).named_parameters() if k.startswith("score_branch."))
     assert f"mixformer score stage: {n_score / 1e6:.2f}M trainable parameters" in proc.stdout
     assert "missing=0 unexpected=0" in proc.stdout
-    for run_dir in ("dimp", "mixformer-bbox", "mixformer-score"):
+    box = [k for k in LWLNet(use_box_encoder=True, num_filters=16).state_dict()
+           if k.startswith("box_label_encoder.")]
+    assert f"missing={len(box)} unexpected=0" in proc.stdout
+    for run_dir in ("dimp", "mixformer-bbox", "mixformer-score", "lwl-base", "lwl_box-base"):
         out = os.path.join(ws, run_dir)
         assert os.listdir(os.path.join(out, "checkpoints")) == ["epoch_0001.pt"]
         lines = open(os.path.join(out, "logs", "train.jsonl")).read().splitlines()
