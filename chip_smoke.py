@@ -43,7 +43,7 @@ non-zero:
      and 42 GEMM calls asserted), the top kernels, all device work.
  3b. scan: the same model, frames and init as the chunked device-resident
      cell of the JAX bench (bench.py:400-418): chunks of T=16 frames for
-     B=16 sequences, 4 chunks, best of 3 repetitions each ending in a host
+     B=16 sequences, 4 chunks, best of 2 repetitions each ending in a host
      read of the boxes; first the eager vipt_track_scan_batched (the step
      loop, kernels on the card), then make_track_scan (one CUDA graph per
      chunk) from the same initial state. The graph's boxes and scores over
@@ -70,7 +70,7 @@ non-zero:
      Then prompt-only training of deep_rgbd at B=32, bf16 compute and f32
      parameters: one batch from the port's sampler, processing and loader
      on synthetic sequences, then device-resident random batches; 2
-     warm-up + 8 counted steps in each of three modes, with exact launch
+     warm-up + 4 counted steps in each of three modes, with exact launch
      counts per step
      (flash_mhsa_qkv / attn_block_fused / mlp_block_fused): drop path with
      CE keep 0.7, 8/1/1; drop path in the CE warm-up, 11/1/1; no drop path,
@@ -110,7 +110,7 @@ non-zero:
      frame and box: probabilities within AR_PROB_BAR. Prints ms per frame
      split into read+compose, tracker step, refine and encode.
   9. ope: the streamed OPE path (mmtrack_torch.eval.batched_ope) at the
-     JAX bench's streamed cell shape, B=8 sequences of 21 frames of 640x480
+     JAX bench's streamed cell shape, B=8 sequences of 13 frames of 640x480
      written as a DepthTrack layout (colour JPEG + 16-bit depth PNG, from
      data/synthetic.py over a seeded depth base), deep_rgbd in bf16 on
      seeded weights, one shared make_track_scan (each step a one-frame CUDA
@@ -184,9 +184,9 @@ non-zero:
      --analyze` in its own process, its report equal to the in-process
      analysis.
  11. train_disk: training from disk. Corpora written in their own
-     layouts by 8 threads: a DepthTrack fixture as phase 9's (4 sequences
+     layouts by 8 threads: a DepthTrack fixture as phase 9's (2 sequences
      of 21 640x480 frames), a LasHeR layout of the same size, LaSOT and
-     GOT-10k layouts of 4 sequences of 21 1280x720 frames each, and an LMDB
+     GOT-10k layouts of 2 sequences of 21 1280x720 frames each, and an LMDB
      twin of GOT-10k's images (data/minilmdb.py's writer), whose frames must equal
      the directory's. The decoder (native or cv2) and the LMDB reader (the C
      lmdb package or minilmdb) that ran are printed; then the loader's
@@ -195,9 +195,9 @@ non-zero:
      B=32, bf16 compute, f32 parameters, drop path with CE keep 0.7: the
      first DepthTrack batch's loss and prompt gradients with the kernels
      against the plain versions within phase 6's bars (same decode at the
-     plain run's argmax); prompt-only steps from disk, a warm-up and 2
+     plain run's argmax); prompt-only steps from disk, a warm-up and 1
      counted, then 1 under torch.profiler (the card's idle share over the
-     from-disk window), then 2 on the first batch resident on the card:
+     from-disk window), then 1 on the first batch resident on the card:
      ms/step, samples/s, the wait on the loader and peak memory, launches
      exactly 8 / 1 / 1 (flash_mhsa_qkv / attn_block_fused /
      mlp_block_fused) a step, every prompt leaf moved and every frozen leaf
@@ -233,7 +233,7 @@ non-zero:
      dafnet and macnet (rgbrgb frames of a one-sequence LasHeR layout of
      the same frames: the colour beside phase 10's 8-bit thermal stand-in
      of the depth, both as JPEG) from the registry at f32 on seeded
-     weights over the 13 frames at 640x480: every box finite and inside
+     weights over the 11 frames at 640x480: every box finite and inside
      its frame, no launch of any of the five kernels (the candidate crops
      are the plain four-tap gather, the networks cuDNN and cuBLAS), the
      init in ms, the median ms per frame, the long-term and short-term
@@ -270,29 +270,65 @@ non-zero:
  15b. zoo_entries: the `run_ope` entries of phases 10 and 12-15 (spt,
      samf, det_dimp50_max, eco, apfnet, kys, stm), queued by each phase
      with a copy of its sequence and in-process results, run side by side
-     in their own processes after phase 15, each held as its phase says.
+     in their own processes beside phase 18 (whose parts are checks, not
+     timings), each held as its phase says.
  16. zoo_train: the dimp, det_dimp, stark (bbox, score), mixformer (bbox,
      score), siamfc, mdnet, apfnet (stages 1 at attribute 2, 2 and 3),
      kys, lwl and lwl_box scripts of train/run.py at full width, f32, on
      seeded weights and synthetic batches through the entry's own crops,
-     model, trainable set, optimizer and step: 2 steps each at B=32
-     (MixFormer-L at B=8, APFNet at B=16), the ms of the second, the first
+     model, trainable set, optimizer and step: 2 steps each at B=16
+     (MixFormer-L at B=4, APFNet at B=8), the ms of the second, the first
      and last loss (finite), peak memory, no launch of any of the five
      kernels, one profiled step (device ms, idle share, kernels); one f32
-     step each of dimp, mdnet, kys and lwl on the card against the CPU on
-     the same weights, batch and draws (each loss term within 1e-4
+     step each of dimp, mdnet, kys and lwl at B=1 on the card against the
+     CPU on the same weights, batch and draws (each loss term within 1e-4
      relative, the trained leaves' relative L2 printed); and `python -m
      mmtrack_torch.train.run --script det_dimp --synthetic` and `--script
      apfnet --stage 1 --attribute 2`, each in its own process, their
      checkpoints written.
  17. learning_demo: `python -m mmtrack_torch.train.learning_demo
-     --lwl_only` in its own process: LWL trained on the card through the
-     entry (4 epochs of 64 synthetic samples at B=8) and its mask tracker
-     run on 4 held-out sequences of 40 frames before and after; the phase
-     fails unless the process exits 0 with the AUC gate passed (+0.02).
-     It prints AUC, mean IoU and SR@0.5 before and after, the training's
-     seconds, the crop kernel's launches and the masks by kind (empty,
-     partial, full).
+     --lwl_only` in its own process, started when phase 16's timed steps
+     are done and run beside its CPU-bound checks: LWL trained on the card
+     through the entry (4 epochs of 64 synthetic samples at B=8) and its
+     mask tracker run on 4 held-out sequences of 40 frames before and
+     after; the phase fails unless the process exits 0 with the AUC gate
+     passed (+0.02). It prints AUC, mean IoU and SR@0.5 before and after,
+     the training's seconds, the crop kernel's launches and the masks by
+     kind (empty, partial, full).
+ 18. host_tools: over a one-sequence phase-9 fixture (13 frames of
+     640x480), `python -m mmtrack_torch.eval.benchmark_suite` for
+     vipt_deep_rgbd, siamfc and mosse, and each recipe's own `run_ope
+     --analyze` in its own process beside it: the suite's SR / PR / F equal
+     the three reports'. `python -m mmtrack_torch.eval.transform_results`
+     got10k and trackingnet over the mosse results: every sequence's boxes
+     in the submission zip, truncated. `python -m mmtrack_torch.demo
+     --tracker vipt_deep_rgbd --dashboard --pause` over 5 frames: its
+     /state and /data read over HTTP on localhost while it waits at frame
+     1, one step, then resume; 4 frames tracked and 6 files written.
+     native.py's polygon_iou built with g++ here and held to its numpy
+     plain version within 1e-4 on seeded polygons, batch_iou_xywh to
+     metrics' within 1e-12. Three main-path steps (bf16, B=16, eager)
+     under utils/profiling.py::trace_profile: the Chrome trace names the
+     crop, GEMM, LayerNorm and attention kernels, and the wrappers count 3
+     crops, 27 attention and 36 MLP half-blocks.
+ 19. ddp: `python -m mmtrack_torch.parallel.dryrun --n 2` in process: two
+     ranks over gloo sharing the card, each one prompt-only step of
+     deep_rgbd (bf16 compute, drop path, CE keep 0.7) on its 16 rows of a
+     B=32 batch, against one process on the whole batch: loss within
+     1e-3 relative, parameters within 1e-3; each rank launches 8 / 1 / 1
+     (flash_mhsa_qkv / attn_block_fused / mlp_block_fused) in the step; the
+     sharded tracker (its lanes, a graph per rank) within 1e-2 px of the
+     unsharded one, with 1 + 2 crops, 18 attention and 24 MLP half-blocks
+     per rank (the initialize, a warm-up and the captured step), and
+     track_split over the shards; per-rank and one-process ms/step. Then
+     the same at world size 1 over NCCL. Then, side by side: `train.run
+     --distributed` under `torch.distributed.run --nproc_per_node 2` for 2
+     steps of vipt (deep_rgbd, f32) and siamfc at B=32 beside each
+     one-process entry: the loss within 1e-3 relative, one log line
+     and one checkpoint (rank 0 writes), one "done" line; and `run_ope
+     --tracker mosse` under 2 ranks (a slice of the 8 sequences each) beside
+     one: the result files byte-equal. Gloo on one card stages through the
+     host and says nothing about NCCL across cards.
 
 Every phase prints its seconds (a `<phase>_phase` line), and the last
 phase line the seconds of all of them.
@@ -390,7 +426,7 @@ from mmtrack_torch.trackers.vipt_tracker import (
 from mmtrack_torch.utils.device import require_cuda
 
 B = 16
-OPE_SEQS, OPE_FRAMES, OPE_HW = 8, 21, (480, 640)   # the JAX bench's streamed cell, bench.py:47-55
+OPE_SEQS, OPE_FRAMES, OPE_HW = 8, 13, (480, 640)   # the JAX bench's streamed cell, bench.py:47-55
 BATCHES = (B, OPE_SEQS)            # the tracking batches: phase 3's and phase 9's
 TOKENS = (320, 244, 190, 153)      # 64 template + 256 / 180 / 126 / 89 search tokens
 OO_B = 2                           # OSTrack-online's template batch
@@ -403,7 +439,7 @@ PROFILE_STEPS = 3                  # tracking steps under torch.profiler, after 
 ATTENTION_KERNELS = ("attention_resident_kernel", "attention_streaming_kernel")
 GEMM_KERNEL, LAYERNORM_KERNEL = "gemm_bf16_kernel", "layernorm_bf16_kernel"
 CROP_KERNEL = "crop_rows_kernel"
-SCAN_T, SCAN_CHUNKS, SCAN_REPS = 16, 4, 3   # bench.py:47 and :409-418
+SCAN_T, SCAN_CHUNKS, SCAN_REPS = 16, 4, 2   # bench.py:47 and :409-418 (3 repetitions there)
 GEMM_SHAPES = (("qkv", 2304, 768, EPI_BIAS), ("proj", 768, 768, EPI_BIAS_RESIDUAL),
                ("fc1", 3072, 768, EPI_BIAS_GELU), ("fc2", 768, 3072, EPI_BIAS_RESIDUAL))
 GEMM_CALLS_PER_STEP = 2 * 9 + 2 * 12   # qkv + proj in 9 attention, fc1 + fc2 in 12 MLP half-blocks
@@ -412,7 +448,7 @@ BLOCK_ULPS = 2
 MAP_BAR = 0.05                     # score / size maps, values in (0, 1)
 OFFSET_REL_BAR = 0.05              # offset map, relative to its largest magnitude
 TRAIN_B = 32                       # TRAIN.BATCH_SIZE of deep_rgbd
-TRAIN_WARMUP, TRAIN_STEPS = 2, 8   # per training mode
+TRAIN_WARMUP, TRAIN_STEPS = 2, 4   # per training mode
 MHSA_ULPS = 2                      # flash_mhsa_qkv: bf16 ulps of the row's largest |output|
 # one train step, kernels vs plain, CE off; measured on an H100 (700 W):
 # loss 2.7e-5 relative, prompt gradients 0.0217 relative L2
@@ -1909,9 +1945,9 @@ class FrameRecorder:
 
 
 # frames of the one sequence each zoo recipe runs over (phases 10, 12-15):
-# 13 frames of a phase-9 fixture, which keeps the 10th frame's card-vs-CPU
-# checks and 10 frames after ZOO_WARMUP
-ZOO_FRAMES = 13
+# 11 frames of a phase-9 fixture, which keeps the 11th frame's card-vs-CPU
+# checks and 7 frames after ZOO_WARMUP
+ZOO_FRAMES = 11
 ZOO = ("ostrack", "ostrack_online", "stark_s", "stark_st", "spt", "siamfc",
        "mixformer_rgbd", "samf", "promixtrack")
 # run_ope --tracker in its own process (eco in phase 12)
@@ -2137,13 +2173,10 @@ def defer_entries(names, root: str, seq_dir: str, res_in: str,
                              dataset))
 
 
-def zoo_entries_path() -> None:
-    """The entries of phases 10 and 12-15 side by side, each `python -m
-    mmtrack_torch.eval.run_ope --tracker <name> --analyze` in its own
-    process over its phase's sequence: exit 0, a result file, and a report
-    equal to the analysis of the phase's in-process results."""
-    from mmtrack_torch.eval.datasets import load_sequence
-
+def start_zoo_entries() -> dict:
+    """The entries of phases 10 and 12-15, started side by side, each
+    `python -m mmtrack_torch.eval.run_ope --tracker <name> --analyze` in its
+    own process over its phase's sequence."""
     env = dict(os.environ)
     here = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
@@ -2154,17 +2187,33 @@ def zoo_entries_path() -> None:
          os.path.join(keep, f"entry_{name}")], cwd=keep, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True), seq_dir, res_in, keep, dataset)
         for names, root, seq_dir, res_in, keep, dataset in DEFERRED_ENTRIES for name in names]
+    return {"started": started, "t0": t0}
+
+
+def zoo_entries_path(entries: dict) -> None:
+    """The entries start_zoo_entries started (beside phase 18): each must
+    exit 0 with a result file and a report equal to the analysis of its
+    phase's in-process results."""
+    from mmtrack_torch.eval.datasets import load_sequence
+
+    started, t0 = entries["started"], entries["t0"]
     try:
         for name, proc, seq_dir, res_in, keep, dataset in started:
             check_entry(proc, name, dataset, [load_sequence(seq_dir, dataset)], res_in, keep, t0)
     finally:
-        for _, proc, *_ in started:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-        for entry in DEFERRED_ENTRIES:
-            shutil.rmtree(entry[4])
-        DEFERRED_ENTRIES.clear()
+        stop_zoo_entries(entries)
+    log("zoo_entries_phase", seconds=time.perf_counter() - t0)
+
+
+def stop_zoo_entries(entries: dict) -> None:
+    """End the entries still running and remove their copies."""
+    for _, proc, *_ in entries.get("started", ()):
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    for entry in DEFERRED_ENTRIES:
+        shutil.rmtree(entry[4], ignore_errors=True)
+    DEFERRED_ENTRIES.clear()
 
 
 def check_entry(proc, name: str, dataset: str, seqs, res_in: str, tmp: str, t0: float) -> None:
@@ -2435,10 +2484,11 @@ def compose_check(dev, seq) -> None:
         raise AssertionError(f"device rgbcolormap compose: {differ} pixels differ from the host's")
 
 
-DISK_SEQS = 4                       # DepthTrack and LasHeR sequences of OPE_FRAMES, 640x480
-RGB_SEQS, RGB_HW = 4, (720, 1280)   # LaSOT and GOT-10k sequences each, 1280x720
+DISK_SEQS = 2                       # DepthTrack and LasHeR sequences of DISK_FRAMES, 640x480
+DISK_FRAMES = 21                    # the sampler takes sequences of 20 frames or more
+RGB_SEQS, RGB_HW = 2, (720, 1280)   # LaSOT and GOT-10k sequences each, 1280x720
 LOADER_BATCHES = 1                  # B=32 batches timed per corpus
-DISK_STEPS = 2                      # counted vipt steps from disk (and on a resident batch)
+DISK_STEPS = 1                      # counted vipt steps from disk (and on a resident batch)
 DISK_PROFILED = 1                   # vipt steps from disk under torch.profiler
 OSTRACK_STEPS = 1                   # counted ostrack steps from disk
 ENTRY_SAMPLES = TRAIN_B             # one step per entry run
@@ -2461,7 +2511,7 @@ def train_fixture(root: str) -> dict:
 
     roots = {n: os.path.join(root, n) for n in ("DepthTrack_train", "LasHeR_all", "LASOT",
                                                 "GOT10K_vottrain")}
-    ope_fixture(roots["DepthTrack_train"], n_seqs=DISK_SEQS)
+    ope_fixture(roots["DepthTrack_train"], n_seqs=DISK_SEQS, n_frames=DISK_FRAMES)
     jobs, texts = [], {}
     for corpus, n_seqs, (H, W) in (("LasHeR_all", DISK_SEQS, OPE_HW),
                                    ("LASOT", RGB_SEQS, RGB_HW),
@@ -2471,31 +2521,31 @@ def train_fixture(root: str) -> dict:
             box0 = (rng.uniform(0.1, 0.6) * W, rng.uniform(0.1, 0.6) * H,
                     rng.uniform(0.08, 0.15) * W, rng.uniform(0.1, 0.2) * H)
             frames, gt = make_synthetic_sequence(
-                n_frames=OPE_FRAMES, height=H, width=W, seed=300 + i, box0=box0,
+                n_frames=DISK_FRAMES, height=H, width=W, seed=300 + i, box0=box0,
                 velocity=tuple(rng.uniform(-8, 8, 2)), channels=6 if corpus == "LasHeR_all" else 3)
             gt_txt = "\n".join(",".join(f"{v:.4f}" for v in b) for b in gt) + "\n"
-            flags = ",".join(["0"] * OPE_FRAMES) + "\n"
+            flags = ",".join(["0"] * DISK_FRAMES) + "\n"
             if corpus == "LasHeR_all":
                 seq = os.path.join(roots[corpus], f"seq{i:02d}")
                 images = {os.path.join(seq, sub, f"{t:05d}.jpg"): frames[t, :, :, c:c + 3]
-                          for t in range(OPE_FRAMES)
+                          for t in range(DISK_FRAMES)
                           for sub, c in (("visible", 0), ("infrared", 3))}
                 texts[os.path.join(seq, "visible.txt")] = gt_txt
             elif corpus == "LASOT":
                 cls = ("cat", "dog")[i % 2]
                 seq = os.path.join(roots[corpus], cls, f"{cls}-{i + 1}")
                 images = {os.path.join(seq, "img", f"{t + 1:08d}.jpg"): frames[t]
-                          for t in range(OPE_FRAMES)}
+                          for t in range(DISK_FRAMES)}
                 texts.update({os.path.join(seq, "groundtruth.txt"): gt_txt,
                               os.path.join(seq, "full_occlusion.txt"): flags,
                               os.path.join(seq, "out_of_view.txt"): flags})
             else:
                 seq = os.path.join(roots[corpus], f"GOT-10k_Train_{i + 1:06d}")
                 images = {os.path.join(seq, f"{t + 1:08d}.jpg"): frames[t]
-                          for t in range(OPE_FRAMES)}
+                          for t in range(DISK_FRAMES)}
                 texts.update({os.path.join(seq, "groundtruth.txt"): gt_txt,
-                              os.path.join(seq, "absence.label"): "0\n" * OPE_FRAMES,
-                              os.path.join(seq, "cover.label"): "8\n" * OPE_FRAMES})
+                              os.path.join(seq, "absence.label"): "0\n" * DISK_FRAMES,
+                              os.path.join(seq, "cover.label"): "8\n" * DISK_FRAMES})
             for path, img in images.items():
                 os.makedirs(os.path.dirname(path), exist_ok=True)
                 jobs.append((path, cv2.cvtColor(img, cv2.COLOR_RGB2BGR)))
@@ -2609,17 +2659,17 @@ def train_disk_path(cfg, dev) -> dict:
         reader = LmdbBackend(roots["lmdb"]).reader
         log("train_disk_env", decoder=native_io.decoder(), decoder_error=native_io.load_error(),
             lmdb_reader=reader, cpu_count=os.cpu_count(), fixture_write_s=write_s,
-            corpora={"DepthTrack_train": f"{DISK_SEQS} x {OPE_FRAMES} x {OPE_HW[1]}x{OPE_HW[0]}",
-                     "LasHeR_all": f"{DISK_SEQS} x {OPE_FRAMES} x {OPE_HW[1]}x{OPE_HW[0]}",
-                     "LASOT": f"{RGB_SEQS} x {OPE_FRAMES} x {RGB_HW[1]}x{RGB_HW[0]}",
-                     "GOT10K_vottrain": f"{RGB_SEQS} x {OPE_FRAMES} x {RGB_HW[1]}x{RGB_HW[0]}"})
+            corpora={"DepthTrack_train": f"{DISK_SEQS} x {DISK_FRAMES} x {OPE_HW[1]}x{OPE_HW[0]}",
+                     "LasHeR_all": f"{DISK_SEQS} x {DISK_FRAMES} x {OPE_HW[1]}x{OPE_HW[0]}",
+                     "LASOT": f"{RGB_SEQS} x {DISK_FRAMES} x {RGB_HW[1]}x{RGB_HW[0]}",
+                     "GOT10K_vottrain": f"{RGB_SEQS} x {DISK_FRAMES} x {RGB_HW[1]}x{RGB_HW[0]}"})
 
         # the LMDB twin reads the directory twin's frames (cv2, as the
         # backend decodes)
         got = roots["GOT10K_vottrain"]
         twin, plain = wrap_dataset_with_lmdb(GOT10k, roots["lmdb"], got), GOT10k(
             got, image_loader=opencv_loader)
-        ids = [0, OPE_FRAMES // 2, OPE_FRAMES - 1]
+        ids = [0, DISK_FRAMES // 2, DISK_FRAMES - 1]
         if not all(np.array_equal(a, b) for a, b in zip(twin.get_frames(0, ids)[0],
                                                         plain.get_frames(0, ids)[0])):
             raise AssertionError("train_disk: LMDB twin frames differ from the directory's")
@@ -3481,17 +3531,17 @@ def lwl_vot_entry(dev, tmp: str) -> None:
         raise AssertionError(f"lwl VOT entry: states ok {ok}, masks equal {equal}")
 
 
-# phase 16: the zoo's training scripts, (script, stage, B); MixFormer-L at
-# B=8 (its f32 step at B=32 would take the phase's whole budget), APFNet
-# at the largest B of 32, 16, 8 that stays under ~70 GB: its stage-3 step
-# peaked at 27.3 GiB at B=8 (1,024 patches), so B=32 would need ~109
-ZOO_TRAIN = (("dimp", "", 32), ("det_dimp", "", 32), ("stark", "bbox", 32),
-             ("stark", "score", 32), ("mixformer", "bbox", 8), ("mixformer", "score", 8),
-             ("siamfc", "", 32), ("mdnet", "", 32), ("apfnet", "1", 16), ("apfnet", "2", 16),
-             ("apfnet", "3", 16), ("kys", "", 32), ("lwl", "", 32), ("lwl_box", "", 32))
+# phase 16: the zoo's training scripts, (script, stage, B): half the
+# scripts' batches, to leave the script's time for phases 18-19 (a step's
+# ms at B=32, MixFormer-L's at B=8 and APFNet's at B=16 are in PERF.md);
+# APFNet's stage-3 step peaked at 27.3 GiB at B=8 (1,024 patches)
+ZOO_TRAIN = (("dimp", "", 16), ("det_dimp", "", 16), ("stark", "bbox", 16),
+             ("stark", "score", 16), ("mixformer", "bbox", 4), ("mixformer", "score", 4),
+             ("siamfc", "", 16), ("mdnet", "", 16), ("apfnet", "1", 8), ("apfnet", "2", 8),
+             ("apfnet", "3", 8), ("kys", "", 16), ("lwl", "", 16), ("lwl_box", "", 16))
 ZOO_TRAIN_STEPS = 2                 # timed steps; the second is reported
 APFNET_ATTRIBUTE = 2                # the attribute APFNet's stage 1 trains
-TRAIN_CARD_VS_CPU_B = 2
+TRAIN_CARD_VS_CPU_B = 1
 TRAIN_LOSS_CARD_VS_CPU_BAR = 1e-4   # one f32 step, card (TF32 off) vs CPU: each loss term
 # the scripts stepped on the card and on the CPU, and their loss terms held to the bar
 TRAIN_CARD_VS_CPU = (("dimp", ("Loss/total",)), ("mdnet", ("Loss/total",)),
@@ -3548,7 +3598,7 @@ def train_card_vs_cpu(dev, cfg, script: str, terms) -> None:
         raise AssertionError(f"{script} step card vs CPU: {rel}")
 
 
-def zoo_train_path(dev) -> None:
+def zoo_train_path(dev, side=None) -> None:
     """Phase 16: the dimp, det_dimp, stark (bbox, score), mixformer (bbox,
     score), siamfc, mdnet, apfnet (stages 1-3), kys, lwl and lwl_box
     scripts of train/run.py at full width, f32 (TF32 off) on seeded
@@ -3608,6 +3658,8 @@ def zoo_train_path(dev) -> None:
         del model, state, step, batches
         torch.cuda.empty_cache()
 
+    if side is not None:            # work of its own beside the CPU-bound checks below
+        side()
     # the entries in their own processes, beside the card-vs-CPU steps (untimed)
     tmp = tempfile.mkdtemp()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3644,22 +3696,29 @@ def zoo_train_path(dev) -> None:
 DEMO_TIMEOUT_S = 600
 
 
-def learning_demo_path() -> None:
-    """Phase 17: the learning demo's LWL phase (`python -m
-    mmtrack_torch.train.learning_demo --lwl_only`) in its own process on
-    the card; it must exit 0 with `improved` true."""
-    t_phase = time.perf_counter()
+def start_learning_demo() -> dict:
+    """Phase 17's process: `python -m mmtrack_torch.train.learning_demo
+    --lwl_only` on the card, in its own session (a timeout ends the demo
+    and the training run it started)."""
     tmp = tempfile.mkdtemp()
     here = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(tmp, "demo.json")
     env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    # its own session, so a timeout ends the demo and the training run it started
     proc = subprocess.Popen([sys.executable, "-m", "mmtrack_torch.train.learning_demo",
                              "--lwl_only", "--out", out, "--workdir", os.path.join(tmp, "ws")],
                             cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, start_new_session=True)
+    return {"proc": proc, "tmp": tmp, "out": out, "t0": time.perf_counter()}
+
+
+def learning_demo_path(demo: dict) -> None:
+    """Phase 17: the learning demo's LWL phase started by
+    start_learning_demo (during phase 16's CPU-bound checks); it must exit
+    0 with `improved` true."""
+    proc, tmp, out, t_phase = demo["proc"], demo["tmp"], demo["out"], demo["t0"]
     try:
-        stdout, stderr = proc.communicate(timeout=DEMO_TIMEOUT_S)
+        stdout, stderr = proc.communicate(
+            timeout=max(1.0, DEMO_TIMEOUT_S - (time.perf_counter() - t_phase)))
         phase = None
         if os.path.exists(out):
             with open(out) as f:
@@ -3685,6 +3744,352 @@ def learning_demo_path() -> None:
         raise AssertionError(f"learning demo --lwl_only exited {proc.returncode}, improved "
                              f"{phase['improved']}: {stderr[-3000:]}")
     log("learning_demo_phase", seconds=time.perf_counter() - t_phase)
+
+
+SUITE_RECIPES = ("vipt_deep_rgbd", "siamfc", "mosse")
+DEMO_FRAMES = 5
+TRACE_STEPS = 3                     # main-path steps under utils/profiling.py::trace_profile
+TRACE_KERNELS = (CROP_KERNEL, GEMM_KERNEL, LAYERNORM_KERNEL, ATTENTION_KERNELS[0])
+POLYGON_BAR = 1e-4                  # native polygon_iou vs its numpy plain version
+ENTRY_TIMEOUT_S = 420
+
+
+def entry_env(**extra) -> dict:
+    here = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                **extra)
+
+
+def start(cmd: list, cwd: str, **env) -> subprocess.Popen:
+    """`python -m <cmd>` in its own session (a timeout ends it and what it
+    started)."""
+    return subprocess.Popen([sys.executable, "-m", *cmd], cwd=cwd, env=entry_env(**env),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+
+
+def stop(procs: dict) -> None:
+    """End every process of `procs` still running, and what it started."""
+    for proc in procs.values():
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+
+
+def finish(procs: dict, t0: float) -> dict:
+    """name -> stdout of each process, once all have exited within
+    ENTRY_TIMEOUT_S of t0; a failure or a timeout raises with the
+    process's stderr."""
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            left = max(1.0, ENTRY_TIMEOUT_S - (time.perf_counter() - t0))
+            out, err = proc.communicate(timeout=left)
+            if proc.returncode != 0:
+                raise AssertionError(f"{name} exited {proc.returncode}: {err[-3000:]}")
+            outs[name] = out
+    finally:
+        stop(procs)
+    return outs
+
+
+def dashboard_session(proc) -> dict:
+    """The demo's dashboard, read over HTTP on localhost while the demo
+    waits paused: /state, /data of every title, one step, then resume."""
+    import urllib.request
+
+    line = proc.stdout.readline()
+    m = re.search(r"(http://127\.0\.0\.1:\d+/)", line)
+    if not m:
+        raise AssertionError(f"demo printed no dashboard URL: {line!r}")
+    url = m.group(1)
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=30) as r:
+            return json.loads(r.read())
+
+    def control(action):
+        req = urllib.request.Request(url + "control", method="POST",
+                                     data=json.dumps({"action": action}).encode())
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return json.loads(r.read())
+
+    def wait(pred):
+        deadline = time.perf_counter() + 300
+        while time.perf_counter() < deadline:
+            state = get("state")
+            if pred(state):
+                return state
+            time.sleep(0.05)
+        raise AssertionError(f"dashboard state never reached: {state}")
+
+    first = wait(lambda s: s["frame"] == 1 and "Status" in s["titles"])
+    data = {t: get("data?title=" + t.replace(" ", "%20")) for t in first["titles"]}
+    control("step")
+    second = wait(lambda s: s["frame"] == 2)
+    control("resume")
+    return {"paused_at_frame_1": first["paused"], "titles": sorted(first["titles"]),
+            "status": data["Status"]["info"], "tracking_jpeg_bytes": len(data["Tracking"]["jpeg"]),
+            "score_map_shape": np.shape(data["Score Map"]["values"]) if "Score Map" in data
+            else None, "stepped_to_frame": second["frame"]}
+
+
+def zip_members(path: str) -> dict:
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
+def submission_check(suite_root: str, tmp: str, recipe: str) -> dict:
+    """transform_results got10k and trackingnet over copies of `recipe`'s
+    result tree: every sequence's boxes in both zips, truncated to ints."""
+    from mmtrack_torch.eval import transform_results
+
+    src = os.path.join(suite_root, "DepthTrack", recipe)
+    names = sorted(f[:-4] for f in os.listdir(src) if f.endswith(".txt"))
+    want = {n: np.loadtxt(os.path.join(src, f"{n}.txt"), delimiter=",").astype(int)
+            for n in names}
+    out = {}
+    for server, member in (("got10k", "{n}/{n}_001.txt"), ("trackingnet", "{n}.txt")):
+        root = os.path.join(tmp, server)
+        shutil.copytree(src, os.path.join(root, server, recipe))
+        with io.StringIO() as buf:
+            stdout, sys.stdout = sys.stdout, buf
+            try:
+                transform_results.main([server, "--results-root", root, "--config", recipe])
+            finally:
+                sys.stdout = stdout
+            raw_zip, sub_zip = buf.getvalue().split()
+        members = zip_members(sub_zip)
+        got = {n: np.loadtxt(io.BytesIO(members[member.format(n=n)]), delimiter=",", dtype=int)
+               for n in names}
+        ok = all(np.array_equal(got[n], want[n]) for n in names)
+        if server == "got10k":
+            ok = ok and all(f"{n}/{n}_time.txt" in members for n in names)
+        out[server] = {"members": sorted(members), "raw_members": len(zip_members(raw_zip)),
+                       "boxes_equal": ok}
+        if not ok:
+            raise AssertionError(f"transform_results {server}: {out[server]}")
+    return out
+
+
+def polygon_check() -> dict:
+    """native.py's polygon_iou (g++ on this machine) against its plain
+    version on seeded polygons, and batch_iou_xywh against metrics'."""
+    from mmtrack_torch import native
+    from mmtrack_torch.eval.metrics import iou_xywh
+
+    t0 = time.perf_counter()
+    native.load_region_lib()
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    polys = []
+    for _ in range(6):
+        c = rng.uniform(20, 80, 2)
+        ang = np.sort(rng.uniform(0, 2 * np.pi, rng.randint(3, 8)))
+        r = rng.uniform(5, 30, len(ang))
+        polys.append(np.stack([c[0] + r * np.cos(ang), c[1] + r * np.sin(ang)], 1))
+    diffs = [abs(native.polygon_iou(a, b) - native.polygon_iou_plain(a, b))
+             for a in polys for b in polys]
+    a = np.concatenate([rng.uniform(0, 50, (20000, 2)), rng.uniform(0, 30, (20000, 2))], 1)
+    b = np.concatenate([rng.uniform(0, 50, (20000, 2)), rng.uniform(0, 30, (20000, 2))], 1)
+    batch_diff = float(np.abs(native.batch_iou_xywh(a, b) - iou_xywh(a, b)).max())
+    out = {"library": os.path.basename(native.library_path()), "build_s": build_s,
+           "pairs": len(diffs), "max_abs_diff_vs_plain": max(diffs), "bar": POLYGON_BAR,
+           "batch_iou_max_abs_diff": batch_diff}
+    if max(diffs) > POLYGON_BAR or batch_diff > 1e-12:
+        raise AssertionError(f"native region library vs plain: {out}")
+    return out
+
+
+def trace_check(dev, cfg, rt, frames, box0, tmp: str) -> dict:
+    """TRACE_STEPS steps of the main path (eager, bf16, B=16) under
+    utils/profiling.py::trace_profile: the Chrome trace names the crop
+    kernel and the half-blocks' kernels, and the wrappers count one crop,
+    9 attention and 12 MLP half-blocks a step."""
+    from mmtrack_torch.utils.profiling import trace_profile
+
+    model = build_viptrack(cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    tracker = BatchedViPTTracker(model, dev, rt, scan=partial(vipt_track_scan_batched, rt, model))
+    tracker.initialize(frames[0], box0)
+    tracker.track(frames[1])
+    torch.cuda.synchronize()
+    counters = (attn_block_fused, mlp_block_fused, crop_resize_normalized)
+    for fn in counters:
+        fn.launches = 0
+    with trace_profile(os.path.join(tmp, "trace")) as prof:
+        for t in range(TRACE_STEPS):
+            tracker.track(frames[2 + t])
+        torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    named = {k: any(k in name for name in kernels) for k in TRACE_KERNELS}
+    want = {"attn_block_fused": 9 * TRACE_STEPS, "mlp_block_fused": 12 * TRACE_STEPS,
+            "crop_resize_normalized": TRACE_STEPS}
+    out = {"steps": TRACE_STEPS, "trace_mb": os.path.getsize(prof.trace_path) / 2 ** 20,
+           "kernel_events": sum(e.get("cat") == "kernel" for e in events),
+           "distinct_kernels": len(kernels), "named": named, "launches": launches,
+           "expected": want}
+    del tracker, model
+    torch.cuda.empty_cache()
+    if launches != want or not all(named.values()):
+        raise AssertionError(f"trace_profile: {out}")
+    return out
+
+
+def host_tools_path(dev, cfg, rt, frames, box0) -> dict:
+    """Phase 18: the host tools. Returns the kernel launches counted in
+    this process (the traced main-path steps)."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    try:
+        data = os.path.join(tmp, "DepthTrack")
+        ope_fixture(data, n_seqs=1)
+        common = ["--dataset", "DepthTrack", "--dataset_root", data]
+        t0 = time.perf_counter()
+        procs = {"suite": start(["mmtrack_torch.eval.benchmark_suite", "--trackers",
+                                 ",".join(SUITE_RECIPES), "--results_root",
+                                 os.path.join(tmp, "suite")] + common, tmp)}
+        procs.update({name: start(["mmtrack_torch.eval.run_ope", "--tracker", name, "--analyze",
+                                   "--results_root", os.path.join(tmp, "ope")] + common, tmp)
+                      for name in SUITE_RECIPES})
+        demo = start(["mmtrack_torch.demo", "--tracker", "vipt_deep_rgbd", "--frames",
+                      str(DEMO_FRAMES), "--dashboard", "--pause", "--out",
+                      os.path.join(tmp, "demo")], tmp, PYTHONUNBUFFERED="1")
+        procs["demo"] = demo
+        try:
+            session = dashboard_session(demo)
+        except BaseException:
+            stop(procs)
+            raise
+        polygons = polygon_check()
+        trace = trace_check(dev, cfg, rt, frames, box0, tmp)
+        outs = finish(procs, t0)
+        entries_s = time.perf_counter() - t0
+        suite = json.load(open(os.path.join(tmp, "suite", "DepthTrack", "suite_report.json")))
+        own = {}
+        for name in SUITE_RECIPES:
+            rep = json.load(open(os.path.join(tmp, "ope", "DepthTrack", f"{name}_report.json")))
+            own[name] = {"SR": round(rep["ope"]["success_auc"] * 100, 2),
+                         "PR": round(rep["ope"]["precision_20px"] * 100, 2),
+                         "F": round(rep["fscore"]["fscore"], 4)}
+        frames_shown = [ln for ln in outs["demo"].splitlines() if ln.startswith("frame ")]
+        demo_files = sorted(os.listdir(os.path.join(tmp, "demo")))
+        subs = submission_check(os.path.join(tmp, "suite"), tmp, "mosse")
+        log("host_tools", suite=suite, run_ope_reports=own, suite_equals_run_ope=suite == own,
+            entries_s=entries_s, demo={**session, "frames_tracked": len(frames_shown),
+                                       "files": len(demo_files)},
+            transform_results=subs, polygon_iou=polygons, trace_profile=trace, card=card_line())
+        if suite != own or len(frames_shown) != DEMO_FRAMES - 1 or \
+                len(demo_files) != DEMO_FRAMES + 1 or not session["paused_at_frame_1"]:
+            raise AssertionError(f"host tools: suite {suite} vs run_ope {own}; demo {session}, "
+                                 f"{frames_shown}, {demo_files}")
+    finally:
+        shutil.rmtree(tmp)
+    log("host_tools_phase", seconds=time.perf_counter() - t_phase)
+    return trace["launches"]
+
+
+DDP_STEP_LAUNCHES = {"flash_mhsa_qkv": 8, "attn_block_fused": 1, "mlp_block_fused": 1,
+                     "crop_resize_normalized": 0}
+# the sharded tracker's initialize + first track (a capture: SCAN_WARMUP_STEPS
+# eager steps + the captured step) and track_split (a replay, uncounted)
+DDP_TRACK_LAUNCHES = {"flash_mhsa_qkv": 0, "attn_block_fused": 9 * (SCAN_WARMUP_STEPS + 1),
+                      "mlp_block_fused": 12 * (SCAN_WARMUP_STEPS + 1),
+                      "crop_resize_normalized": 1 + SCAN_WARMUP_STEPS + 1}
+# train.run --distributed vs one process: the loss (Loss/total, the mean
+# over the two steps); the terms are printed. The entries run at the
+# configs' own f32. The first step agrees to 8e-8 (the dry run's); Adam's
+# first update, ~lr sign(g), turns gradients within rounding of zero into
+# +-lr differences (7.4e-4 on prompt elements at bf16), which move the
+# second step: at bf16 deep_rgbd's loss parted by 1.4e-3 (GIoU 8.5e-3, L1
+# 2.1e-2), at f32 by 3.5e-4 (GIoU 2.5e-3, L1 4.5e-3; one card)
+DDP_ENTRY_LOSS_BAR = 1e-3
+DDP_ENTRIES = {"vipt": ["--config", "deep_rgbd"], "siamfc": ["--script", "siamfc"]}
+DDP_ENTRY_SAMPLES = 2 * TRAIN_B     # two steps at B=32
+
+
+def ddp_path() -> dict:
+    """Phase 19: the data-parallel layer on the one card. Returns the
+    kernel launches its ranks counted."""
+    from mmtrack_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(DDP_STEP_LAUNCHES, 0)
+    note = ("gloo on one shared card stages every collective through the host: these times "
+            "say nothing about NCCL across cards")
+    for n, backend in ((2, "gloo"), (1, "nccl")):
+        t0 = time.perf_counter()
+        out = dryrun.run(n)
+        log("ddp_dryrun", **out, seconds=time.perf_counter() - t0, note=note if n > 1 else None,
+            card=card_line())
+        ok = (out["backend"] == backend and out["batch"] == TRAIN_B
+              and all(r == DDP_STEP_LAUNCHES for r in out["step_launches_per_rank"])
+              and all(r == DDP_TRACK_LAUNCHES for r in out["track_launches_per_rank"]))
+        if not ok:
+            raise AssertionError(f"dry run over {n} ranks: {out}")
+        for counts in out["step_launches_per_rank"] + out["track_launches_per_rank"]:
+            for k, v in counts.items():
+                launches[k] += v
+
+    tmp = tempfile.mkdtemp()
+    try:
+        data = os.path.join(tmp, "DepthTrack")
+        ope_fixture(data)
+        torchrun = ["torch.distributed.run", "--standalone", "--nproc_per_node", "2", "-m"]
+        t0 = time.perf_counter()
+        procs = {}
+        for script, args in DDP_ENTRIES.items():
+            train = ["mmtrack_torch.train.run", "--synthetic", "--epochs", "1", "--batch",
+                     str(TRAIN_B), "--samples", str(DDP_ENTRY_SAMPLES)] + args
+            procs[f"{script}_one"] = start(train + ["--save_dir", os.path.join(tmp, script, "one")],
+                                           tmp)
+            procs[f"{script}_ddp"] = start(torchrun + train + [
+                "--distributed", "--save_dir", os.path.join(tmp, script, "ddp")], tmp)
+        ope = ["mmtrack_torch.eval.run_ope", "--tracker", "mosse", "--dataset", "DepthTrack",
+               "--dataset_root", data, "--results_root"]
+        procs["ope_one"] = start(ope + [os.path.join(tmp, "ope_one")], tmp)
+        procs["ope_ddp"] = start(torchrun + ope + [os.path.join(tmp, "ope_ddp")], tmp)
+        outs = finish(procs, t0)
+        entries_s = time.perf_counter() - t0
+        for script in DDP_ENTRIES:
+            logs, ckpts = {}, {}
+            for kind in ("one", "ddp"):
+                d = os.path.join(tmp, script, kind)
+                d = os.path.join(d, *os.listdir(d))          # <script>-<config or stage>
+                logs[kind] = [json.loads(ln) for ln in open(os.path.join(d, "logs", "train.jsonl"))]
+                ckpts[kind] = sorted(os.listdir(os.path.join(d, "checkpoints")))
+            terms = [k for k in logs["one"][0] if k.startswith("Loss")]
+            rel = {k: abs(logs["ddp"][0][k] - logs["one"][0][k]) / abs(logs["one"][0][k])
+                   for k in terms}
+            loss_rel = rel["Loss/total"]
+            done = [ln for ln in outs[f"{script}_ddp"].splitlines() if ln.startswith("done:")]
+            backend = [ln for ln in outs[f"{script}_ddp"].splitlines() if "backend" in ln]
+            log("ddp_train_entry", script=script, B=TRAIN_B, steps=DDP_ENTRY_SAMPLES // TRAIN_B,
+                one=logs["one"][0], ddp=logs["ddp"][0], rel=rel, bar=DDP_ENTRY_LOSS_BAR,
+                log_lines={k: len(v) for k, v in logs.items()}, checkpoints=ckpts,
+                done_lines=len(done), ranks=backend, card=card_line())
+            if (loss_rel > DDP_ENTRY_LOSS_BAR or len(logs["ddp"]) != 1
+                    or ckpts["ddp"] != ["epoch_0001.pt"] or len(done) != 1):
+                raise AssertionError(f"train.run --distributed {script}: rel {rel}, logs "
+                                     f"{logs}, checkpoints {ckpts}, done {done}")
+        one = os.path.join(tmp, "ope_one", "DepthTrack", "mosse")
+        two = os.path.join(tmp, "ope_ddp", "DepthTrack", "mosse")
+        names = sorted(f for f in os.listdir(one) if f.endswith(".txt"))
+        same = names == sorted(f for f in os.listdir(two) if f.endswith(".txt")) and all(
+            open(os.path.join(one, f), "rb").read() == open(os.path.join(two, f), "rb").read()
+            for f in names)
+        log("ddp_run_ope", tracker="mosse", sequences=len(names), ranks=2, files_equal=same,
+            entries_s=entries_s, card=card_line())
+        if not same or len(names) != OPE_SEQS:
+            raise AssertionError(f"run_ope over 2 ranks: {names}, equal {same}")
+    finally:
+        shutil.rmtree(tmp)
+    log("ddp_phase", seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def timed(phase: str, fn, *args):
@@ -3764,9 +4169,21 @@ def main() -> int:
     mdnet_path(dev)
     keeptrack_kys_path(dev)
     lwl_stm_path(dev)
-    timed("zoo_entries", zoo_entries_path)
-    zoo_train_path(dev)
-    learning_demo_path()
+    demo, entries = {}, {}
+    try:
+        zoo_train_path(dev, side=lambda: demo.update(start_learning_demo()))
+        learning_demo_path(demo)
+        entries.update(start_zoo_entries())
+        host_launches = host_tools_path(dev, cfg, rt, frames, box0)
+        zoo_entries_path(entries)
+    finally:
+        stop_zoo_entries(entries)
+        if demo and demo["proc"].poll() is None:
+            os.killpg(demo["proc"].pid, 9)
+            demo["proc"].communicate()
+    for counts in (host_launches, ddp_path()):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
     log("phases", seconds=time.perf_counter() - t_main)
 
     zoo_rows["crop_resize_normalized"] = [r for r in crop_rows if r["zoo"]]

@@ -14,16 +14,21 @@ VOT entry with Alpha-Refine, the OPE entry with the streamed wire):
   models/    layers, heads (centre, corner), vipt, resnet, alpha_refine,
              convert (flax -> torch bridge)
   trackers/  vipt_tracker
-  parallel/  batched_eval (single device; composed frames, rgb + index
-             and 4:2:0 planes)
+  parallel/  batched_eval (composed frames, rgb + index and 4:2:0
+             planes; one device or a rank's lanes), mesh (the
+             data-parallel layer over torch.distributed), dryrun
   data/      synthetic data, sampler, processing, loader, composition,
              native_io (the C decoder of native/, cv2 fallback)
   train/     actor, optim, train_step, trainer, run (entry point)
   eval/      vot (TraX server, run_vot_exp), vot_entry (entry point),
              datasets, metrics, analysis, ope, batched_ope, run_ope
-             (the OPE entry point)
-  utils/     device, logging, env (dataset roots)
-  registry   the ViPT recipes
+             (the OPE entry point), benchmark_suite, submission,
+             transform_results
+  utils/     device, logging, env (dataset roots), tb (tfevents writer),
+             profiling (Timer, trace_profile, flops_estimate)
+  registry   the 42 recipes
+  native     the VOT polygon overlap over native/region.cc
+  vis, vis_server, demo  debug images, the live dashboard, the demo entry
 
 Kernel wrappers take the plain PyTorch version for a tensor on the CPU and
 launch the kernel (or raise) for a tensor on CUDA. This package never

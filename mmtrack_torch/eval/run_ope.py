@@ -38,6 +38,13 @@ _confidence.value), and with --analyze SR/PR/NPR and the F-score are
 printed and written to <results_root>/<dataset>/<run>_report.json, the
 layout of the JAX entry. The device defaults to the card; without CUDA the
 entry raises (pass --device cpu to run on the CPU).
+
+Under torchrun (`python -m torch.distributed.run --nproc_per_node N -m
+mmtrack_torch.eval.run_ope ...`) each process takes its slice of the
+dataset's sequences (parallel/mesh.py::process_local_slice, as
+tools/eval_ope.py:109 does) on cuda:{LOCAL_RANK % cards}, a card of its
+own or a shared one; no process group is needed. --analyze then reports
+over that process's sequences, as in JAX, into <run>_report.rank<r>.json.
 """
 
 from __future__ import annotations
@@ -149,9 +156,13 @@ def main(argv=None) -> int:
     from mmtrack_torch.utils.device import require_cuda, set_f32_precision
     from mmtrack_torch.utils.env import load_env_settings
 
+    from mmtrack_torch.parallel.mesh import launched_rank, local_device, process_local_slice
+
+    rank, world = launched_rank()
     device = torch.device(args.device)
     if device.type == "cuda":
         require_cuda()
+        device = local_device(device)
         set_f32_precision()
 
     if args.tracker and args.tracker not in TRACKER_REGISTRY:
@@ -195,7 +206,9 @@ def main(argv=None) -> int:
                 print(f"{seq.name} , fps:{res['fps']:.2f}")
     else:
         root = args.dataset_root or load_env_settings().dataset_root(args.dataset)
-        seqs = [load_sequence(d, args.dataset) for d in list_sequences(root, args.dataset)]
+        seq_dirs = list_sequences(root, args.dataset)
+        seqs = [load_sequence(d, args.dataset)
+                for d in seq_dirs[process_local_slice(len(seq_dirs))]]
         if args.tracker:
             compose_as_recipe(seqs, TRACKER_REGISTRY[args.tracker].composition)
         if args.batched > 1:
@@ -221,8 +234,9 @@ def main(argv=None) -> int:
               f"Re {fs['recall']:.4f})")
         out = {"ope": {k: v for k, v in report["overall"].items()
                        if np.isscalar(v)}, "fscore": fs}
+        suffix = f".rank{rank}" if world > 1 else ""
         with open(os.path.join(args.results_root, args.dataset,
-                               f"{run_name}_report.json"), "w") as f:
+                               f"{run_name}_report{suffix}.json"), "w") as f:
             json.dump(out, f, indent=2)
     return 0
 

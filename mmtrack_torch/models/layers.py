@@ -36,6 +36,7 @@ from mmtrack_torch.ops.mlp_fuse import (
     mlp_block_fused,
     mlp_block_fused_plain,
 )
+from mmtrack_torch.parallel.mesh import RowDraws
 
 
 class Dense(nn.Module):
@@ -160,13 +161,18 @@ def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
     The (B, 1, ..., 1) Bernoulli(1 - rate) mask is drawn from `generator`
     (on x's device), cast to x's dtype, and x is divided by the keep
     probability rounded to that dtype, as jax divides by a weakly typed
-    python scalar.
+    python scalar. A `RowDraws` (a data-parallel rank's generator) draws
+    the global batch's mask and keeps its rows of it.
     """
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=generator)
+    rows = slice(None)
+    n = x.shape[0]
+    if isinstance(generator, RowDraws):
+        n, rows, generator = generator.batch, generator.rows, generator.generator
+    shape = (n,) + (1,) * (x.dim() - 1)
+    mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=generator)[rows]
     return x * mask.to(x.dtype) / float(torch.tensor(keep, dtype=x.dtype))
 
 

@@ -45,6 +45,7 @@ from mmtrack_torch.models.heads import FrozenBatchNorm
 from mmtrack_torch.models.layers import Conv2d
 from mmtrack_torch.models.resnet import resnet50
 from mmtrack_torch.ops.optimization import steepest_descent_gn
+from mmtrack_torch.parallel.mesh import SINGLE, Shard
 
 LAYER_CHANNELS = {"layer1": 256, "layer2": 512, "layer3": 1024, "layer4": 2048}
 
@@ -297,13 +298,19 @@ def lwl_filter_residual(filt, feat, label, spatial_weight, sample_weight, filter
 
 
 def optimize_lwl_filter(filt, feat, label, spatial_weight, sample_weight, filter_reg,
-                        num_iter: int):
+                        num_iter: int, shard: Shard = SINGLE):
     """num_iter Gauss-Newton steepest-descent steps on the LWL residual
     (lwl.py:382-404). num_iter is an int: the tracker knows its update
-    schedule on the host, so it runs exactly the steps JAX keeps."""
+    schedule on the host, so it runs exactly the steps JAX keeps. The
+    filter is one for the whole batch: under a data-parallel `shard` the
+    learner's sums run over the global batch and each rank's regulariser
+    is scaled by 1 / sqrt(world), so the ranks' terms add up to it once."""
+    if shard.world > 1:
+        filter_reg = filter_reg / math.sqrt(shard.world)
+
     def res_fn(f):
         return lwl_filter_residual(f, feat, label, spatial_weight, sample_weight, filter_reg)
-    return steepest_descent_gn(res_fn, filt, int(num_iter))
+    return steepest_descent_gn(res_fn, filt, int(num_iter), shard=shard)
 
 
 class _Residual(nn.Module):
@@ -368,13 +375,14 @@ class LWLNet(nn.Module):
         return self.label_encoder(masks)
 
     def get_filter(self, feat, label, spatial_weight, sample_weight=None,
-                   num_iter: Optional[int] = None) -> torch.Tensor:
-        """FilterInitializerZero + GN steepest descent (lwl.py:471-480)."""
+                   num_iter: Optional[int] = None, shard: Shard = SINGLE) -> torch.Tensor:
+        """FilterInitializerZero + GN steepest descent (lwl.py:471-480), one
+        filter for the (global) batch."""
         filt = torch.zeros((self.num_filters, self.filter_size, self.filter_size,
                             self.out_feature_dim), dtype=feat.dtype, device=feat.device)
         return optimize_lwl_filter(filt, feat, label, spatial_weight, sample_weight,
                                    self.filter_reg, self.optim_iter if num_iter is None
-                                   else num_iter)
+                                   else num_iter, shard)
 
     def optimize_filter(self, filt, feat, label, spatial_weight, sample_weight,
                         num_iter: int) -> torch.Tensor:
@@ -390,13 +398,15 @@ class LWLNet(nn.Module):
         enc = self.box_label_encoder(bb_xywh, tm_feat, image_hw)
         return self.decoder(enc, bfeat, image_hw)
 
-    def forward(self, train_im, test_im, train_masks):
-        """The one-shot training forward (lwl.py:501-513)."""
+    def forward(self, train_im, test_im, train_masks, shard: Shard = SINGLE):
+        """The one-shot training forward (lwl.py:501-513): one filter learned
+        from the batch's train frames (on `shard`'s rows, from the global
+        batch's), each test frame segmented."""
         bfeat_te = self.extract_backbone(test_im)
         feat_tr = self.extract_target_model_features(self.extract_backbone(train_im))
         feat_te = self.extract_target_model_features(bfeat_te)
         label, sw = self.encode_labels(train_masks)
-        filt = self.get_filter(feat_tr, label, sw)
+        filt = self.get_filter(feat_tr, label, sw, shard=shard)
         return self.segment(filt, feat_te, bfeat_te, test_im.shape[1:3])
 
 

@@ -8,12 +8,15 @@ from __future__ import annotations
 import torch
 
 from mmtrack_torch.ops.box import box_iou, generalized_box_iou
+from mmtrack_torch.parallel.mesh import SINGLE, Shard
 
 
 def focal_loss(pred: torch.Tensor, target: torch.Tensor, alpha: float = 2.0,
-               beta: float = 4.0) -> torch.Tensor:
+               beta: float = 4.0, shard: Shard = SINGLE) -> torch.Tensor:
     """CenterNet penalty-reduced focal loss over (..., S, S) score maps,
-    normalised by the number of positives (target == 1)."""
+    normalised by the number of positives (target == 1) of the global
+    batch: on `shard`'s rows, its share (its sum over the global count,
+    times the world), so that the ranks' mean is the global loss."""
     pos = (target == 1.0).to(pred.dtype)
     neg = (target < 1.0).to(pred.dtype)
 
@@ -23,11 +26,11 @@ def focal_loss(pred: torch.Tensor, target: torch.Tensor, alpha: float = 2.0,
     pos_loss = torch.log(p) * torch.pow(1.0 - p, alpha) * pos
     neg_loss = torch.log((1.0 - p).clamp(min=1e-12)) * torch.pow(p, alpha) * neg_weights * neg
 
-    num_pos = pos.sum()
+    num_pos = shard.total(pos.sum())
     pos_loss = pos_loss.sum()
     neg_loss = neg_loss.sum()
     return torch.where(num_pos == 0, -neg_loss,
-                       -(pos_loss + neg_loss) / num_pos.clamp(min=1.0))
+                       -(pos_loss + neg_loss) / num_pos.clamp(min=1.0)) * shard.world
 
 
 def giou_loss(pred_xyxy: torch.Tensor,

@@ -21,6 +21,8 @@ from typing import Callable
 import torch
 from torch.func import jvp, vjp
 
+from mmtrack_torch.parallel.mesh import SINGLE, Shard
+
 
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
@@ -162,11 +164,16 @@ def gauss_newton_cg(residual_fn: Callable, x, num_gn_iter: int, num_cg_iter: int
 
 
 def steepest_descent_gn(residual_fn: Callable, x, num_iter: int,
-                        steplength_reg: float = 0.0, batch_dims: int = 0):
+                        steplength_reg: float = 0.0, batch_dims: int = 0,
+                        shard: Shard = SINGLE):
     """Gauss-Newton steepest descent over pytree parameters: per iteration
     g = J^T r, h = J g, alpha = |g|^2 / (|h|^2 + steplength_reg |g|^2),
     x <- x - alpha g; batch_dims > 0 takes one alpha per sample over the
-    leading axes every leaf shares."""
+    leading axes every leaf shares. With batch_dims 0 the parameters are
+    shared by the whole batch: under a data-parallel `shard` g and |h|^2
+    are summed over the ranks (with their gradients), so each rank takes
+    the step of the global batch (a residual term that every rank holds
+    once, a regulariser, is the caller's to scale by 1 / sqrt(world))."""
     def sqr_norm(tree):
         if batch_dims == 0:
             return sum(torch.sum(torch.square(leaf)) for leaf in tree_leaves(tree))
@@ -177,11 +184,16 @@ def steepest_descent_gn(residual_fn: Callable, x, num_iter: int,
         a = alpha if batch_dims == 0 else alpha.reshape(alpha.shape + (1,) * (g.ndim - batch_dims))
         return p - a * g
 
+    shared = batch_dims == 0 and shard.world > 1
     for _ in range(num_iter):
         r, vjp_fn = vjp(residual_fn, x)
         g = vjp_fn(r)[0]
+        if shared:
+            g = tree_map(shard.sum, g)
         h = jvp(residual_fn, (x,), (g,))[1]
         ip_gg, ip_hh = sqr_norm(g), sqr_norm(h)
+        if shared:
+            ip_hh = shard.sum(ip_hh)
         alpha = ip_gg / torch.clamp(ip_hh + steplength_reg * ip_gg, min=1e-8)
         x = tree_map(lambda p, gg: scaled_sub(p, gg, alpha), x, g)
     return x

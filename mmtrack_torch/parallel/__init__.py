@@ -1,1 +1,1 @@
-"""Batched multi-sequence inference of the port."""
+"""Batched multi-sequence inference and the data-parallel layer of the port."""

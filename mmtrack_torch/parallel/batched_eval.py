@@ -1,4 +1,4 @@
-"""Batched multi-sequence inference on one device, port of
+"""Batched multi-sequence inference, port of
 mmtrack_tpu/parallel/batched_eval.py.
 
 B same-resolution sequences advance one frame per call through the
@@ -14,7 +14,13 @@ package's jitted step with the state donated (:41-46). A scan may be
 shared by several trackers of one model and runtime, so that a driver
 that makes a tracker per batch (eval/batched_ope.py) captures each shape
 once. On the CPU each step is the eager step loop
-(`vipt_track_scan_batched` of one frame). One device, no mesh.
+(`vipt_track_scan_batched` of one frame).
+
+Data parallelism (the JAX package's `mesh` argument, :27, :54): with a
+`shard` of a process group (parallel/mesh.py), each rank tracks its lanes
+of the B sequences (B must divide over the ranks) and every step gathers
+the (B, 4) boxes and (B,) scores to every rank, as the sharded JAX step
+returns global arrays. Each rank's scan (and its CUDA graphs) is its own.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from mmtrack_torch.ops.compose import (
     compose_yuv_index_device,
     jet_lut,
 )
+from mmtrack_torch.parallel.mesh import SINGLE, Shard
 from mmtrack_torch.trackers.vipt_tracker import (
     ViPTRuntime,
     as_frames,
@@ -48,11 +55,14 @@ class BatchedViPTTracker:
     device)` to share, or any function with its arguments and results
     (`partial(vipt_track_scan_batched, runtime, model)` runs the eager
     step loop on the card). When none is given: a new `make_track_scan` on
-    a CUDA device, the eager step loop on the CPU."""
+    a CUDA device, the eager step loop on the CPU. `shard`: this rank's
+    share of a data-parallel group; every call takes the global batch of
+    B sequences and returns the global boxes and scores."""
 
     def __init__(self, model, device, runtime: ViPTRuntime | None = None,
-                 scan: Optional[Callable] = None):
+                 scan: Optional[Callable] = None, shard: Shard = SINGLE):
         self.device = torch.device(device)
+        self.shard = shard
         self.rt = runtime or ViPTRuntime()
         self.model = model.to(self.device).eval()
         if scan is None:
@@ -73,27 +83,30 @@ class BatchedViPTTracker:
 
     @torch.inference_mode()
     def initialize(self, frames, boxes) -> None:
-        boxes = torch.as_tensor(np.asarray(boxes, np.float32))
-        self.state = vipt_init_state(self.rt, as_frames(frames, self.device), boxes)
+        boxes = torch.as_tensor(self.shard.local(np.asarray(boxes, np.float32)))
+        self.state = vipt_init_state(self.rt, as_frames(self.shard.local(frames), self.device),
+                                     boxes)
 
     def _step(self, frames: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
         final, boxes, scores = self.scan(self.state, frames[None])
         # a graph's results live in its buffers, which the next replay of
         # this shape (by any tracker sharing the scan) overwrites
         self.state = {"box": final["box"].clone(), "template": self.state["template"]}
-        return boxes[0].cpu().numpy(), scores[0].cpu().numpy()
+        return (self.shard.gather(boxes[0]).cpu().numpy(),
+                self.shard.gather(scores[0]).cpu().numpy())
 
     def _upload(self, *planes) -> list[torch.Tensor]:
         if self._lut is None:
             self._lut = torch.from_numpy(jet_lut()).to(self.device)
-        return [torch.as_tensor(p).to(self.device, non_blocking=True) for p in planes]
+        return [torch.as_tensor(self.shard.local(p)).to(self.device, non_blocking=True)
+                for p in planes]
 
     def _composed_step(self, compose, *planes) -> tuple[np.ndarray, np.ndarray]:
         return self._step(compose(*self._upload(*planes), self._lut))
 
     @torch.inference_mode()
     def track(self, frames) -> tuple[np.ndarray, np.ndarray]:
-        return self._step(as_frames(frames, self.device))
+        return self._step(as_frames(self.shard.local(frames), self.device))
 
     @torch.inference_mode()
     def track_yuv(self, y, cb, cr, idx) -> tuple[np.ndarray, np.ndarray]:

@@ -14,6 +14,7 @@ import torch
 from mmtrack_torch.ops.box import box_cxcywh_to_xyxy, box_xywh_to_xyxy
 from mmtrack_torch.ops.heatmap import generate_heatmap
 from mmtrack_torch.ops.losses import focal_loss, giou_loss, l1_loss
+from mmtrack_torch.parallel.mesh import SINGLE, Shard
 
 
 def adjust_keep_rate(epoch: int, warmup_epochs: int, total_epochs: int,
@@ -37,25 +38,30 @@ def quantize_keep_rate(rate: float, levels=(0.7, 0.8, 0.9, 1.0)) -> float:
 def vipt_forward_and_loss(model, batch: dict, *, box_mask_z, ce_keep_lens,
                           weights=(2.0, 5.0, 1.0), search_size: int = 256,
                           stride: int = 16,
-                          generator: Optional[torch.Generator] = None):
+                          generator: Optional[torch.Generator] = None,
+                          shard: Shard = SINGLE):
     """Returns (loss, stats). batch: template (B,T,T,6), search (B,S,S,6),
-    search_anno (B,4) xywh normalised to the search crop. Drop path is
-    active exactly when a `generator` is given."""
+    search_anno (B,4) xywh normalised to the search crop, `shard`'s rows
+    of the global batch. Drop path is active exactly when a `generator`
+    is given."""
     out = model(batch["template"], batch["search"], box_mask_z, ce_keep_lens,
                 deterministic=generator is None, generator=generator)
-    return vipt_loss(out, batch["search_anno"], weights, search_size, stride)
+    return vipt_loss(out, batch["search_anno"], weights, search_size, stride, shard)
 
 
 def vipt_loss(out: dict, gt_bbox: torch.Tensor, weights=(2.0, 5.0, 1.0),
-              search_size: int = 256, stride: int = 16):
+              search_size: int = 256, stride: int = 16, shard: Shard = SINGLE):
     """The objective of the model's outputs `out` (pred_boxes, score_map)
-    against the (B, 4) xywh boxes: returns (loss, stats)."""
+    against the (B, 4) xywh boxes: returns (loss, stats), `shard`'s share
+    of the global batch's (GIoU and L1 are means over equal rows; the
+    focal loss divides by the positives of the global batch)."""
     pred_xyxy = box_cxcywh_to_xyxy(out["pred_boxes"])
     gt_xyxy = box_xywh_to_xyxy(gt_bbox).clamp(0.0, 1.0)
 
     giou_l, iou = giou_loss(pred_xyxy, gt_xyxy)
     l1_l = l1_loss(pred_xyxy, gt_xyxy)
-    focal_l = focal_loss(out["score_map"], generate_heatmap(gt_bbox, search_size // stride))
+    focal_l = focal_loss(out["score_map"], generate_heatmap(gt_bbox, search_size // stride),
+                         shard=shard)
 
     gw, lw, fw = weights
     loss = gw * giou_l + lw * l1_l + fw * focal_l

@@ -22,6 +22,7 @@ import torch
 from mmtrack_torch.models.dimp import div_const
 from mmtrack_torch.ops.box import box_iou, box_xywh_to_xyxy
 from mmtrack_torch.ops.losses import lb_hinge_loss
+from mmtrack_torch.parallel.mesh import SINGLE, Shard
 from mmtrack_torch.train.train_step import (
     TrainState,
     apply_update,
@@ -103,26 +104,28 @@ def dimp_forward_and_loss(model, batch: dict, noise: torch.Tensor, *, image_sz: 
 
 def make_dimp_train_step(*, image_sz: int = 288, loss_weights=(1.0, 100.0), seed: int = 0,
                          dtype: torch.dtype = torch.float32):
-    """Build `train_step(state, batch, noise=None) -> (state, stats)` for
-    DiMP and DeT (dimp_actor.py:48-79). batch: template / search (B, S, S,
-    C) normalised crops with template_anno / search_anno normalised xywh,
-    scaled here to crop pixels by `image_sz`."""
+    """Build `train_step(state, batch, noise=None, shard=SINGLE) -> (state,
+    stats)` for DiMP and DeT (dimp_actor.py:48-79). batch: template /
+    search (B, S, S, C) normalised crops with template_anno / search_anno
+    normalised xywh, scaled here to crop pixels by `image_sz`; `noise`
+    the global batch's (B, n, 4) proposal draws. The step runs on
+    `shard`'s rows; both losses are means over equal rows."""
 
-    def train_step(state: TrainState, batch: dict, noise=None):
+    def train_step(state: TrainState, batch: dict, noise=None, shard: Shard = SINGLE):
         model = state.model
         device = next(model.parameters()).device
-        b = {k: torch.as_tensor(batch[k], device=device)
+        b = {k: torch.as_tensor(shard.local(batch[k]), device=device)
              for k in ("template", "search", "template_anno", "search_anno")}
         dimp_batch = {"train_im": b["template"], "test_im": b["search"],
                       "train_bb": b["template_anno"] * image_sz,
                       "test_bb": b["search_anno"] * image_sz}
         if noise is None:
             noise = proposal_noise(drop_path_generator(seed, state.step, device),
-                                   b["search"].shape[0], device)
+                                   len(batch["search"]), device)
         with compute_context(device, dtype):
             loss, stats = dimp_forward_and_loss(
-                model, dimp_batch, torch.as_tensor(noise, device=device),
+                model, dimp_batch, torch.as_tensor(shard.local(noise), device=device),
                 image_sz=image_sz, loss_weights=loss_weights)
-        return apply_update(state, loss, stats)
+        return apply_update(state, loss, stats, shard)
 
     return train_step

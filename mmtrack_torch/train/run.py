@@ -1,11 +1,12 @@
 """Training entry point of the port: every script of tools/train.py (vipt,
 ostrack, dimp, det_dimp, stark, mixformer, siamfc, mdnet, apfnet, kys, lwl,
-lwl_box; :25-240, :244-520) on one device.
+lwl_box; :25-240, :244-520) on one device or data-parallel over several.
 
     python -m mmtrack_torch.train.run [--script vipt|ostrack|dimp|det_dimp|stark|mixformer|siamfc|mdnet|apfnet|kys|lwl|lwl_box] \\
         [--stage bbox|score|1|2|3] [--attribute 0-4] [--channels 3|6] --config deep_rgbd \\
         [--synthetic [--synthetic_distractor]] [--init prior.pt|prior.npz] \\
-        [--epochs N --batch B --samples S] [--bf16] [--full_tune] [--device cpu]
+        [--epochs N --batch B --samples S] [--bf16] [--full_tune] [--device cpu] \\
+        [--distributed]
 
 --config is an experiment name (deep_rgbd, ...) or a JSON file of
 overrides onto deep_rgbd (the yaml-free counterpart of tools/train.py's
@@ -57,6 +58,22 @@ search crops. --channels 6 builds LWL for the 6-channel crops (a
 6-channel conv1, as flax infers it from tools/train.py's init). --init
 reads a flax .npz of these through the 'mdnet' (mdnet, apfnet), 'dimp'
 (kys) and 'lwl' (lwl, lwl_box) bridges. Weights are seeded from --seed.
+
+--distributed (tools/train.py:67-72) trains data-parallel over the
+processes torchrun starts, one per card:
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m mmtrack_torch.train.run --distributed --script ... [--device cpu]
+
+Each rank joins the group (parallel/mesh.py::init_distributed: NCCL when
+every rank has a card of its own, gloo when ranks share a card or run on
+the CPU), builds the same seeded model, loader and optimizer, and runs
+every script's step on its rows of each global batch, the gradients and
+stats averaged over the ranks (train/train_step.py::shard_train_step):
+the update is the one-process step's on the whole batch. The batch must
+divide by the world size, or the entry refuses. Rank 0 alone prints,
+writes checkpoints and the metric log; a resume or a fail-safe restart
+reads them on every rank after a barrier.
 """
 
 from __future__ import annotations
@@ -142,6 +159,8 @@ def main(argv=None) -> int:
                    help="train all parameters instead of prompt-only")
     p.add_argument("--bf16", action="store_true", help="bf16 compute (as TRAIN.AMP)")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel over torchrun's processes (one per card)")
     args = p.parse_args(argv)
     if args.stage is not None and args.stage not in STAGES.get(args.script, ()):
         raise ValueError(f"--stage {args.stage} is not a stage of --script {args.script} "
@@ -163,13 +182,28 @@ def main(argv=None) -> int:
     if args.samples:
         cfg.DATA.TRAIN.SAMPLE_PER_EPOCH = args.samples
 
+    from mmtrack_torch.parallel.mesh import SINGLE, init_distributed, launched_rank
+
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu)")
+    shard = SINGLE
+    if args.distributed:
+        world = launched_rank()[1]
+        if cfg.TRAIN.BATCH_SIZE % world:
+            raise ValueError(f"--distributed: the batch of {cfg.TRAIN.BATCH_SIZE} does not "
+                             f"divide over {world} ranks")
+        shard, device = init_distributed(device)
     dtype = torch.bfloat16 if (cfg.TRAIN.AMP or args.bf16) else torch.float32
-    if args.script in ("vipt", "ostrack"):
-        return _train_vipt(args, cfg, cfg_name, device, dtype)
-    return _train_zoo(args, cfg, device, dtype)
+    try:
+        if args.script in ("vipt", "ostrack"):
+            return _train_vipt(args, cfg, cfg_name, device, dtype, shard)
+        return _train_zoo(args, cfg, device, dtype, shard)
+    finally:
+        if args.distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 def _datasets(args, cfg):
@@ -188,28 +222,44 @@ def _datasets(args, cfg):
             cfg.DATA.TRAIN.DATASETS_RATIO)
 
 
-def _run(cfg, save_dir: str, step, state, loader, step_for_epoch=None) -> int:
-    """The epoch loop with checkpoints and a log under `save_dir`."""
+def _run(cfg, save_dir: str, step, state, loader, step_for_epoch=None, shard=None) -> int:
+    """The epoch loop with checkpoints and a log under `save_dir`; each
+    step sharded over `shard`'s ranks, rank 0 alone printing and writing."""
+    from mmtrack_torch.parallel.mesh import SINGLE, replicate
+    from mmtrack_torch.train.train_step import shard_train_step
     from mmtrack_torch.train.trainer import CheckpointManager, Trainer
     from mmtrack_torch.utils.logging import MetricLogger
 
-    logger = MetricLogger(os.path.join(save_dir, "logs"))
+    shard = shard or SINGLE
+    lead = shard.rank == 0
+    if shard.world > 1:
+        replicate(state.model, shard)
+        step = shard_train_step(step, shard)
+        if step_for_epoch is not None:
+            by_epoch = step_for_epoch
+
+            def step_for_epoch(epoch):
+                return shard_train_step(by_epoch(epoch), shard)
+    logger = MetricLogger(os.path.join(save_dir, "logs")) if lead else None
     ckpts = CheckpointManager(os.path.join(save_dir, "checkpoints"),
                               save_interval=cfg.TRAIN.SAVE_EPOCH_INTERVAL,
-                              keep_last=max(cfg.TRAIN.SAVE_LAST_N_EPOCH, 2))
+                              keep_last=max(cfg.TRAIN.SAVE_LAST_N_EPOCH, 2), shard=shard)
     trainer = Trainer(step, state, loader, ckpts, print_interval=cfg.TRAIN.PRINT_INTERVAL,
-                      step_for_epoch=step_for_epoch)
+                      step_for_epoch=step_for_epoch,
+                      log_fn=print if lead else (lambda *a: None))
     epoch_fn = trainer.train_epoch
     steps_per_epoch = len(loader)
 
     def logged_epoch():
         stats = epoch_fn()
-        logger.write(trainer.epoch * steps_per_epoch, stats, epoch=trainer.epoch)
+        if logger is not None:
+            logger.write(trainer.epoch * steps_per_epoch, stats, epoch=trainer.epoch)
         return stats
 
     trainer.train_epoch = logged_epoch
     trainer.train(cfg.TRAIN.EPOCH, load_latest=True, fail_safe=True)
-    print(f"done: {trainer.epoch} epochs, checkpoints in {save_dir}")
+    if lead:
+        print(f"done: {trainer.epoch} epochs, checkpoints in {save_dir}")
     return 0
 
 
@@ -352,7 +402,7 @@ def zoo_loader(script: str, datasets, ratios, cfg, seed: int):
                        collate_fn=collate_pair if kys else collate)
 
 
-def _train_zoo(args, cfg, device, dtype) -> int:
+def _train_zoo(args, cfg, device, dtype, shard) -> int:
     """tools/train.py's _train_dimp (:454-520) and the stark / mixformer /
     siamfc / kys / lwl / lwl_box / mdnet / apfnet branches of _train_zoo
     (:244-452)."""
@@ -374,10 +424,10 @@ def _train_zoo(args, cfg, device, dtype) -> int:
     save_dir = os.path.join(args.save_dir, args.script if dimp
                             else f"{args.script}-{stage or 'base'}")
     return _run(cfg, save_dir, make_zoo_step(args.script, stage, args.seed, dtype,
-                                             args.channels), state, loader)
+                                             args.channels), state, loader, shard=shard)
 
 
-def _train_vipt(args, cfg, cfg_name: str, device, dtype) -> int:
+def _train_vipt(args, cfg, cfg_name: str, device, dtype, shard) -> int:
     """tools/train.py's vipt and ostrack branches (:25-240)."""
     from mmtrack_torch.data.loader import BatchLoader
     from mmtrack_torch.data.processing import from_config as processing_from_config
@@ -435,7 +485,7 @@ def _train_vipt(args, cfg, cfg_name: str, device, dtype) -> int:
                 search_size=cfg.DATA.SEARCH.SIZE, stride=stride, seed=args.seed)
         return steps[rate]
 
-    return _run(cfg, save_dir, step_for_epoch(1), state, loader, step_for_epoch)
+    return _run(cfg, save_dir, step_for_epoch(1), state, loader, step_for_epoch, shard)
 
 
 if __name__ == "__main__":

@@ -5,7 +5,10 @@ base_trainer.py:62-230, ltr_trainer.py:61-191).
 Checkpoints are `torch.save` of the model, optimizer and scheduler state
 dicts with the step and epoch, written to a temporary file in the
 checkpoint directory and renamed into place (`os.replace`), so a crash
-never leaves a partial checkpoint under a checkpoint's name.
+never leaves a partial checkpoint under a checkpoint's name. Under data
+parallelism (a CheckpointManager given a `shard` of several ranks) rank 0
+alone writes, and every rank lists and reads after a barrier, so a resume
+or a fail-safe restart reads what rank 0 has written.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import traceback
 
 import torch
 
+from mmtrack_torch.parallel.mesh import SINGLE, Shard
 from mmtrack_torch.train.train_step import TrainState
 
 
@@ -42,11 +46,13 @@ class CheckpointManager:
 
     _NAME = re.compile(r"epoch_(\d+)\.pt")
 
-    def __init__(self, directory: str, save_interval: int = 1, keep_last: int = 2):
+    def __init__(self, directory: str, save_interval: int = 1, keep_last: int = 2,
+                 shard: Shard = SINGLE):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.save_interval = save_interval
         self.keep_last = keep_last
+        self.shard = shard
 
     def should_save(self, epoch: int, total_epochs: int) -> bool:
         return epoch % self.save_interval == 0 or epoch == total_epochs
@@ -59,6 +65,11 @@ class CheckpointManager:
                       if (m := self._NAME.fullmatch(f)))
 
     def save(self, epoch: int, state: TrainState) -> None:
+        if self.shard.rank == 0:
+            self._write(epoch, state)
+        self.shard.barrier()
+
+    def _write(self, epoch: int, state: TrainState) -> None:
         payload = {"epoch": epoch, "step": state.step, "model": state.model.state_dict(),
                    "optimizer": state.optimizer.state_dict(),
                    "scheduler": state.scheduler.state_dict()}
@@ -74,6 +85,7 @@ class CheckpointManager:
             os.unlink(self._path(old))
 
     def latest_epoch(self) -> int | None:
+        self.shard.barrier()
         epochs = self.epochs()
         return epochs[-1] if epochs else None
 

@@ -35,10 +35,16 @@ and LWL, port of mmtrack_tpu/train/zoo_actors.py (:39-348, :391-442,
     create_graph=True meta-learning); 'lwl_box' decodes the box encoder's
     mask encoding of the search crop, only the box encoder trainable.
 
-Each `make_*_train_step` returns `train_step(state, batch) -> (state,
-stats)` over the sampler's batch (template (B, T, T, C), search (B, S, S,
-C), search_anno (B, 4) normalised xywh), the contract of
-train_step.make_train_step.
+Each `make_*_train_step` returns `train_step(state, batch, shard=SINGLE)
+-> (state, stats)` over the sampler's global batch (template (B, T, T, C),
+search (B, S, S, C), search_anno (B, 4) normalised xywh), run on
+`shard`'s rows of it, the contract of train_step.make_train_step. Every
+loss here is a mean over equal rows (GIoU, L1, the score BCE over B
+positives and B negatives, LBHinge, the MDNet / APFNet patch CE over
+B x 128 patches, the per-image Lovász mean) but SiamFC's, whose positive
+and negative counts are summed over the ranks; the rolled negatives are
+rows of the global batch's roll; LWL's one filter for the batch is learned
+over the global batch (models/lwl.py::optimize_lwl_filter).
 """
 
 from __future__ import annotations
@@ -50,8 +56,10 @@ from mmtrack_torch.data.processing import MEAN_6, STD_6
 from mmtrack_torch.ops.box import box_cxcywh_to_xyxy, box_xywh_to_xyxy
 from mmtrack_torch.ops.crop import crop_resize
 from mmtrack_torch.ops.losses import giou_loss, l1_loss, lb_hinge_loss, lovasz_hinge_loss
+from mmtrack_torch.parallel.mesh import SINGLE, Shard
 from mmtrack_torch.train.dimp_actor import gaussian_label_map, per_sequence_scores
 from mmtrack_torch.train.train_step import (
+    BATCH_KEYS,
     TrainState,
     apply_update,
     batch_to_device,
@@ -93,23 +101,30 @@ def _score_loss(pos_logits, neg_logits, weight: float = 1.0):
     return loss, {"Loss/total": loss, "Acc": acc}
 
 
+def _rolled_search(batch: dict, shard: Shard, dev) -> torch.Tensor:
+    """`shard`'s rows of the global searches rolled one place along the
+    batch: each row's negative is the previous sequence's search."""
+    return torch.as_tensor(shard.rolled(batch["search"]), device=dev)
+
+
 def make_stark_train_step(stage: str = "bbox", weights=(2.0, 5.0),
                           dtype: torch.dtype = torch.float32):
     """STARK's step (zoo_actors.py:53-86) for `stage` 'bbox' or 'score'."""
 
-    def train_step(state: TrainState, batch: dict):
+    def train_step(state: TrainState, batch: dict, shard: Shard = SINGLE):
         model = state.model
-        b = batch_to_device(batch, next(model.parameters()).device)
-        with compute_context(b["search"].device, dtype):
+        dev = next(model.parameters()).device
+        b = batch_to_device(shard.local_batch(batch, BATCH_KEYS), dev)
+        with compute_context(dev, dtype):
             out = model(b["template"], b["search"])
             gt_xyxy = torch.clamp(box_xywh_to_xyxy(b["search_anno"]), 0, 1)
             if stage == "bbox":
                 loss, stats = _box_loss(out["pred_boxes"], gt_xyxy, weights)
             else:
-                neg_out = model(b["template"], torch.roll(b["search"], 1, dims=0))
+                neg_out = model(b["template"], _rolled_search(batch, shard, dev))
                 loss, stats = _score_loss(_logit(out["pred_scores"].float()),
                                           _logit(neg_out["pred_scores"].float()))
-        return apply_update(state, loss, stats)
+        return apply_update(state, loss, stats, shard)
 
     return train_step
 
@@ -120,22 +135,23 @@ def make_mixformer_train_step(stage: str = "bbox", weights=(2.0, 5.0),
     online template; stage 'score' pools the score head at the ground
     truth."""
 
-    def train_step(state: TrainState, batch: dict):
+    def train_step(state: TrainState, batch: dict, shard: Shard = SINGLE):
         model = state.model
-        b = batch_to_device(batch, next(model.parameters()).device)
+        dev = next(model.parameters()).device
+        b = batch_to_device(shard.local_batch(batch, BATCH_KEYS), dev)
         score = stage == "score"
-        with compute_context(b["search"].device, dtype):
+        with compute_context(dev, dtype):
             gt_xyxy = torch.clamp(box_xywh_to_xyxy(b["search_anno"]), 0, 1)
             out = model(b["template"], b["template"], b["search"], run_score_head=score,
                         score_box_xyxy=gt_xyxy if score else None)
             if not score:
                 loss, stats = _box_loss(out["pred_boxes"], gt_xyxy, weights)
             else:
-                neg_out = model(b["template"], b["template"], torch.roll(b["search"], 1, dims=0),
+                neg_out = model(b["template"], b["template"], _rolled_search(batch, shard, dev),
                                 run_score_head=True, score_box_xyxy=gt_xyxy)
                 loss, stats = _score_loss(out["score_logits"], neg_out["score_logits"],
                                           score_weight)
-        return apply_update(state, loss, stats)
+        return apply_update(state, loss, stats, shard)
 
     return train_step
 
@@ -159,20 +175,24 @@ def make_siamfc_train_step(search_size: int = 255, total_stride: int = 8,
                            dtype: torch.dtype = torch.float32):
     """SiamFC's step (zoo_actors.py:146-175)."""
 
-    def train_step(state: TrainState, batch: dict):
+    def train_step(state: TrainState, batch: dict, shard: Shard = SINGLE):
         model = state.model
-        b = batch_to_device(batch, next(model.parameters()).device)
-        with compute_context(b["search"].device, dtype):
+        dev = next(model.parameters()).device
+        b = batch_to_device(shard.local_batch(batch, BATCH_KEYS), dev)
+        with compute_context(dev, dtype):
             resp = model(_unnormalise(b["template"]), _unnormalise(b["search"])).float()
             y = siamfc_response_labels(b["search_anno"], search_size, resp.shape[-1],
                                        total_stride)
             ll = torch.logaddexp(torch.zeros_like(resp), -y * resp)
             pos = (y > 0).float()
             neg = 1.0 - pos
-            n_pos, n_neg = pos.sum().clamp(min=1), neg.sum().clamp(min=1)
-            loss = 0.5 * ((ll * pos).sum() / n_pos + (ll * neg).sum() / n_neg)
-            stats = {"Loss/total": loss, "Resp/pos_mean": (resp * pos).sum() / n_pos}
-        return apply_update(state, loss, stats)
+            # the global batch's counts; each rank's share scaled by the world
+            n_pos = shard.total(pos.sum()).clamp(min=1)
+            n_neg = shard.total(neg.sum()).clamp(min=1)
+            w = shard.world
+            loss = 0.5 * ((ll * pos).sum() / n_pos + (ll * neg).sum() / n_neg) * w
+            stats = {"Loss/total": loss, "Resp/pos_mean": (resp * pos).sum() / n_pos * w}
+        return apply_update(state, loss, stats, shard)
 
     return train_step
 
@@ -229,15 +249,17 @@ def make_mdnet_train_step(n_pos: int = 32, n_neg: int = 96, branch: int = 0, see
     APFNet: `train_step(state, batch, noise=None)`, `noise` as
     mdnet_box_noise gives it."""
 
-    def train_step(state: TrainState, batch: dict, noise=None):
+    def train_step(state: TrainState, batch: dict, noise=None, shard: Shard = SINGLE):
         model = state.model
-        b = batch_to_device(batch, next(model.parameters()).device)
+        dev = next(model.parameters()).device
+        b = batch_to_device(shard.local_batch(batch, BATCH_KEYS), dev)
         search = b["search"]
-        B, S, dev = search.shape[0], search.shape[1], search.device
+        B, S = search.shape[0], search.shape[1]
         if noise is None:
-            noise = mdnet_box_noise(drop_path_generator(seed, state.step, dev), B, n_pos,
-                                    n_neg, dev)
-        noise = {k: tuple(torch.as_tensor(t, device=dev) for t in v) for k, v in noise.items()}
+            noise = mdnet_box_noise(drop_path_generator(seed, state.step, dev),
+                                    len(batch["search"]), n_pos, n_neg, dev)
+        noise = {k: tuple(torch.as_tensor(shard.local(t), device=dev) for t in v)
+                 for k, v in noise.items()}
         raw = _unnormalise(search) * 255.0
         patches = mdnet_training_patches(raw, mdnet_sample_boxes(b["search_anno"], S, noise))
         labels = torch.cat([torch.ones(n_pos, device=dev), torch.zeros(n_neg, device=dev)])
@@ -247,7 +269,7 @@ def make_mdnet_train_step(n_pos: int = 32, n_neg: int = 96, branch: int = 0, see
             logp = torch.log_softmax(logits, dim=-1)
             loss = -(labels * logp[:, 1] + (1 - labels) * logp[:, 0]).mean()
             acc = ((logits[:, 1] > logits[:, 0]) == (labels > 0.5)).float().mean()
-        return apply_update(state, loss, {"Loss/total": loss, "Acc": acc})
+        return apply_update(state, loss, {"Loss/total": loss, "Acc": acc}, shard)
 
     return train_step
 
@@ -290,10 +312,10 @@ def make_kys_train_step(image_sz: int = 288, channels: int = 3, clf_weight: floa
     response. Only the predictor should be trainable (tools/train.py:
     362-366)."""
 
-    def train_step(state: TrainState, batch: dict):
+    def train_step(state: TrainState, batch: dict, shard: Shard = SINGLE):
         model = state.model
         dev = next(model.parameters()).device
-        b = kys_pair_adapt_batch({k: torch.as_tensor(batch[k], device=dev)
+        b = kys_pair_adapt_batch({k: torch.as_tensor(shard.local(batch[k]), device=dev)
                                   for k in KYS_BATCH_KEYS}, image_sz, channels=channels)
         label_cur = b["label_cur"]
         S = label_cur.shape[-1]
@@ -315,7 +337,7 @@ def make_kys_train_step(image_sz: int = 288, channels: int = 3, clf_weight: floa
             loss_aux = _bce_logits(is_target, (label_cur > 0.25).float())
             loss = clf_weight * loss_clf + is_target_weight * loss_aux
         return apply_update(state, loss, {"Loss/total": loss, "Loss/test_clf": loss_clf,
-                                          "Loss/is_target": loss_aux})
+                                          "Loss/is_target": loss_aux}, shard)
 
     return train_step
 
@@ -370,16 +392,16 @@ def make_lwl_train_step(image_sz: int = 256, template_factor: float = 6.0, chann
     against its mask. Every parameter trains (tools/train.py sets no
     mask)."""
 
-    def train_step(state: TrainState, batch: dict):
+    def train_step(state: TrainState, batch: dict, shard: Shard = SINGLE):
         model = state.model
         dev = next(model.parameters()).device
-        b = lwl_adapt_batch(batch_to_device(batch, dev), image_sz, template_factor, False,
-                            channels)
+        b = lwl_adapt_batch(batch_to_device(shard.local_batch(batch, BATCH_KEYS), dev),
+                            image_sz, template_factor, False, channels)
         with compute_context(dev, dtype):
-            seg = model(b["train_images"], b["test_images"], b["train_masks"]).float()
+            seg = model(b["train_images"], b["test_images"], b["train_masks"], shard).float()
             loss = lovasz_hinge_loss(seg, b["test_masks"])
         return apply_update(state, loss, {"Loss/total": loss, "Loss/segm": loss,
-                                          "Acc": _mask_accuracy(seg, b["test_masks"])})
+                                          "Acc": _mask_accuracy(seg, b["test_masks"])}, shard)
 
     return train_step
 
@@ -392,11 +414,11 @@ def make_lwl_box_train_step(image_sz: int = 256, template_factor: float = 6.0,
     mask. Only box_label_encoder.* should be trainable (tools/train.py:
     397-399); the frozen backbone runs outside the graph."""
 
-    def train_step(state: TrainState, batch: dict):
+    def train_step(state: TrainState, batch: dict, shard: Shard = SINGLE):
         model = state.model
         dev = next(model.parameters()).device
-        b = lwl_adapt_batch(batch_to_device(batch, dev), image_sz, template_factor, True,
-                            channels)
+        b = lwl_adapt_batch(batch_to_device(shard.local_batch(batch, BATCH_KEYS), dev),
+                            image_sz, template_factor, True, channels)
         im = b["train_images"]
         with compute_context(dev, dtype):
             bf = model.extract_backbone(im)
@@ -404,6 +426,6 @@ def make_lwl_box_train_step(image_sz: int = 256, template_factor: float = 6.0,
             raw = model.mask_from_box(b["train_anno"], tm, bf, tuple(im.shape[1:3])).float()
             loss = lovasz_hinge_loss(raw, b["train_masks"])
         return apply_update(state, loss, {"Loss/total": loss, "Stats/acc_box_train":
-                                          _mask_accuracy(raw, b["train_masks"])})
+                                          _mask_accuracy(raw, b["train_masks"])}, shard)
 
     return train_step
