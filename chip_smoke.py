@@ -289,12 +289,14 @@ non-zero:
  17. learning_demo: `python -m mmtrack_torch.train.learning_demo
      --lwl_only` in its own process, started when phase 16's timed steps
      are done and run beside its CPU-bound checks: LWL trained on the card
-     through the entry (4 epochs of 64 synthetic samples at B=8) and its
-     mask tracker run on 4 held-out sequences of 40 frames before and
-     after; the phase fails unless the process exits 0 with the AUC gate
-     passed (+0.02). It prints AUC, mean IoU and SR@0.5 before and after,
-     the training's seconds, the crop kernel's launches and the masks by
-     kind (empty, partial, full).
+     through the entry (4 epochs of 64 synthetic samples at B=8) under
+     deterministic algorithms (the demo's LWL phase sets them), so that every run
+     trains the same parameters, and its mask tracker run on 4 held-out
+     sequences of 40 frames before and after; the phase fails unless the
+     process exits 0 with the AUC gate passed (+0.02). It prints AUC, mean
+     IoU and SR@0.5 before and after, each epoch's loss in full and the
+     SHA-256 of the trained parameters, the training's seconds, the crop
+     kernel's launches and the masks by kind (empty, partial, full).
  18. host_tools: over a one-sequence phase-9 fixture (13 frames of
      640x480), `python -m mmtrack_torch.eval.benchmark_suite` for
      vipt_deep_rgbd, siamfc and mosse, and each recipe's own `run_ope
@@ -329,6 +331,23 @@ non-zero:
      --tracker mosse` under 2 ranks (a slice of the 8 sequences each) beside
      one: the result files byte-equal. Gloo on one card stages through the
      host and says nothing about NCCL across cards.
+ 20. heads_backbones: deep_rgbd at full width with MODEL.HEAD.TYPE CORNER
+     and MLP, bf16, B=16 on phase 3's frames: the eager step loop (9 / 12
+     / 1 launches a step asserted), a chunk of 16 steps as one CUDA graph
+     (nothing launched at replay), each ms/step; the kernels against
+     their plain versions without candidate elimination (printed with it):
+     the score map and score within 5% of their own largest value (both
+     are distributions over 256 cells), the boxes within MAP_BAR; an f32
+     forward on the card against the CPU (each within 1e-4 of its largest
+     value). SPT (f32) on the RepVGG-A0 and
+     the Swin-T trunk over phase 10's 640x480 sequence: median ms a frame,
+     one crop a frame and at init, boxes inside, one forward card against
+     CPU (1e-4). RepVGG-A0's fused form against its three-branch form on
+     the card (1e-4 of the largest value). One f32 Alpha-Refine training
+     step (B=8, input 256) on the card and on the CPU: each loss term
+     within 1e-4 relative, one xcorr launch. MobileNetV3-Large at 256 x
+     256 and the rpe and talking-heads attentions (768 wide, 320 tokens)
+     card against CPU within 1e-4 of the largest value.
 
 Every phase prints its seconds (a `<phase>_phase` line), and the last
 phase line the seconds of all of them.
@@ -3698,14 +3717,15 @@ DEMO_TIMEOUT_S = 600
 
 def start_learning_demo() -> dict:
     """Phase 17's process: `python -m mmtrack_torch.train.learning_demo
-    --lwl_only` on the card, in its own session (a timeout ends the demo
-    and the training run it started)."""
+    --lwl_only` on the card, in its own session (a timeout
+    ends the demo and the training run it started)."""
     tmp = tempfile.mkdtemp()
     here = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(tmp, "demo.json")
     env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.Popen([sys.executable, "-m", "mmtrack_torch.train.learning_demo",
-                             "--lwl_only", "--out", out, "--workdir", os.path.join(tmp, "ws")],
+                             "--lwl_only", "--out", out,
+                             "--workdir", os.path.join(tmp, "ws")],
                             cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, start_new_session=True)
     return {"proc": proc, "tmp": tmp, "out": out, "t0": time.perf_counter()}
@@ -3737,6 +3757,7 @@ def learning_demo_path(demo: dict) -> None:
         before={k: phase["before"].get(k) for k in keys},
         after={k: phase["after"].get(k) for k in keys},
         partial_masks_after=phase["after"].get("masks", {}).get("partial", 0),
+        epoch_losses=phase["epoch_losses"], params_sha256=phase["params_sha256"],
         train_seconds=phase["train_seconds"], demo_seconds=phase["seconds"],
         train_epochs=[ln for ln in stdout.splitlines() if ln.startswith("epoch ")],
         card=card_line())
@@ -4092,6 +4113,285 @@ def ddp_path() -> dict:
     return launches
 
 
+# phase 20: the last modules (ViPT's CORNER and MLP heads on the main path,
+# STARK's RepVGG-A0 and Swin-T trunks, Alpha-Refine's training step,
+# MobileNetV3 and the rpe / talking-heads attentions)
+HB_HEADS = ("CORNER", "MLP")
+HB_STEPS = 8                        # counted eager steps a head, after one warm-up step
+HB_GRAPH_CHUNKS = 2                 # timed replays of a SCAN_T-step chunk graph
+HB_MAP_REL_BAR = 0.05               # score_map / max_score kernels vs plain, of the plain max
+HB_F32_BAR = 1e-4                   # f32 card (TF32 off) vs CPU: each key, of the CPU's max
+HB_TRUNKS = ("repvgg_a0", "swin_tiny")
+HB_FUSE_REL_BAR = 1e-4              # RepVGG deploy vs three-branch on the card, of the max
+AR_B, AR_SIZE = 8, 256
+AR_LOSS_REL_BAR = 1e-4              # the Alpha-Refine step's loss terms, card vs CPU
+HB_MODULE_REL_BAR = 1e-4            # MobileNetV3 / attentions card vs CPU, of the max
+
+
+def _rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|, on the host."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def head_path(dev, rt, frames, box0, head: str) -> dict:
+    """One head at full width, bf16, B=16 on phase 3's frames: the eager
+    step loop (launches per step), a chunk of SCAN_T steps as one CUDA
+    graph, the kernels against their plain versions, an f32 forward on the
+    card against the CPU. Returns the launches counted."""
+    cfg = vipt_experiment_config("deep_rgbd")
+    cfg.MODEL.HEAD.TYPE = head
+    model = build_viptrack(cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    tracker = BatchedViPTTracker(model, dev, rt, scan=partial(vipt_track_scan_batched, rt, model))
+    tracker.initialize(frames[0], box0)
+    tracker.track(frames[1])
+    torch.cuda.synchronize()
+    for fn in SCAN_COUNTERS:
+        fn.launches = 0
+    tracker.initialize(frames[0], box0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    boxes = [tracker.track(frames[t])[0] for t in range(1, HB_STEPS + 1)]
+    eager_s = time.perf_counter() - t0
+    eager = scan_counts()
+    want = {k: n * HB_STEPS for k, n in SCAN_PER_STEP.items()}
+    want["crop_resize_normalized"] += 1                       # the init's template crop
+    inside = boxes_inside(np.stack(boxes))
+
+    chunk = frames[1:SCAN_T + 1]
+    with torch.inference_mode():
+        graph = make_track_scan(rt, model, dev)
+        state = vipt_init_state(rt, frames[0], torch.from_numpy(box0))
+        graph(state, chunk)                                       # warm-up + capture + replay
+        torch.cuda.synchronize()
+        before = scan_counts()
+        t0 = time.perf_counter()
+        for _ in range(HB_GRAPH_CHUNKS):
+            _, gboxes, _ = graph(state, chunk)
+        gboxes = gboxes.cpu()
+        graph_s = time.perf_counter() - t0
+    replayed = {k: v - before[k] for k, v in scan_counts().items()}
+    counted = scan_counts()
+
+    # the same forward with the kernels and with their plain versions, and at f32 card vs CPU
+    plain = build_viptrack(cfg, dtype=torch.bfloat16, device=dev, seed=0, use_kernels=False)
+    mean, std = torch.from_numpy(MEAN_6CH).to(dev), torch.from_numpy(STD_6CH).to(dev)
+    st = tracker.state
+    search, _ = crop_resize_normalized_plain(frames[HB_STEPS], st["box"], rt.search_factor,
+                                             rt.search_size, mean, std)
+    mask = generate_ctr_mask(rt.template_size // rt.stride, rt.ce_template_range, dev)
+    # CORNER's and MLP's maps are distributions over 256 cells (values near
+    # 1/256) and so is max_score: each is held relative to its own largest
+    # value; the boxes (normalised, in (0, 1)) absolutely, as phase 6's
+    keys = ("score_map", "pred_boxes", "max_score")
+    with torch.inference_mode():
+        vs_plain = {}
+        for lens in (None, rt.ce_keep_lens):
+            ok_, op = (m(st["template"], search, mask, lens) for m in (model, plain))
+            vs_plain["ce_on" if lens else "ce_off"] = {
+                "score_map_rel": _rel_max(ok_["score_map"], op["score_map"]),
+                "max_score_rel": _rel_max(ok_["max_score"], op["max_score"]),
+                "pred_boxes": (ok_["pred_boxes"].float() - op["pred_boxes"].float()
+                               ).abs().max().item()}
+    del plain, model, tracker, graph
+    torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(5)
+    z = torch.randn((2, rt.template_size, rt.template_size, 6), generator=g)
+    x = torch.randn((2, rt.search_size, rt.search_size, 6), generator=g)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        m = build_viptrack(cfg, dtype=torch.float32, device=d, seed=0)
+        with torch.inference_mode():
+            o = m(z.to(d), x.to(d), mask.to(d), None)
+        outs.append({k: o[k].float().cpu() for k in keys})
+        del m
+    card_vs_cpu = {f"{k}_rel": _rel_max(outs[0][k], outs[1][k]) for k in keys}
+    H, W = FRAME_HW
+    log("heads_backbones_head", head=head, config="deep_rgbd", dtype="bf16", B=B,
+        frame=f"{W}x{H}", eager_steps=HB_STEPS, eager_ms_per_step=eager_s / HB_STEPS * 1e3,
+        graph_T=SCAN_T, graph_chunks=HB_GRAPH_CHUNKS,
+        graph_ms_per_step=graph_s / (HB_GRAPH_CHUNKS * SCAN_T) * 1e3,
+        launches=eager, expected=want,
+        launches_per_step={k: (eager[k] - (k == "crop_resize_normalized")) / HB_STEPS
+                           for k in eager},
+        graph_replay_launches=replayed, boxes_inside=inside and boxes_inside(gboxes.numpy()),
+        kernels_vs_plain=vs_plain, map_rel_bar=HB_MAP_REL_BAR, box_bar=MAP_BAR,
+        f32_card_vs_cpu=card_vs_cpu, f32_rel_bar=HB_F32_BAR, card=card_line())
+    if eager != want or any(replayed.values()) or not inside:
+        raise AssertionError(f"{head} head: launches {eager} (want {want}), graph replay "
+                             f"{replayed}, boxes inside {inside}")
+    off = vs_plain["ce_off"]
+    if (off["score_map_rel"] > HB_MAP_REL_BAR or off["max_score_rel"] > HB_MAP_REL_BAR
+            or off["pred_boxes"] > MAP_BAR):
+        raise AssertionError(f"{head} head: kernels vs plain {vs_plain}")
+    if max(card_vs_cpu.values()) > HB_F32_BAR:
+        raise AssertionError(f"{head} head: f32 card vs CPU {card_vs_cpu}")
+    return counted
+
+
+def trunk_path(dev, seq_dir: str, trunk: str) -> dict:
+    """SPT (six_channel, 128 / 320, d = 256, 6 + 6 layers, f32) on `trunk`
+    over phase 10's 640x480 sequence: median ms a frame and the crop
+    launches; one forward card vs CPU. Returns the launches counted."""
+    from mmtrack_torch.eval.datasets import load_sequence
+    from mmtrack_torch.eval.ope import run_sequence
+    from mmtrack_torch.models.stark import STARK
+    from mmtrack_torch.trackers.stark_tracker import STARKRuntime, STARKTracker
+
+    model = init_vipt_weights(STARK(six_channel=True, backbone_type=trunk), 0)
+    cpu_model = init_vipt_weights(STARK(six_channel=True, backbone_type=trunk), 0).eval()
+    seq = load_sequence(seq_dir, "DepthTrack")
+    seq.dtype = TRACKER_REGISTRY["spt"].composition
+    tracker = FrameRecorder(STARKTracker(model, dev, STARKRuntime()))
+    for fn in OPE_COUNTERS:
+        fn.launches = 0
+    res = run_sequence(tracker, seq)
+    launches = ope_counts()
+    want = {"attn_block_fused": 0, "mlp_block_fused": 0,
+            "crop_resize_normalized": ZOO_FRAMES + tracker.updates}
+    H, W = OPE_HW
+    ok = zoo_boxes_ok("spt", res["boxes"], H, W)
+    g = torch.Generator().manual_seed(6)
+    z = torch.randn((1, 128, 128, 6), generator=g)
+    x = torch.randn((1, 320, 320, 6), generator=g)
+    with torch.inference_mode():
+        card = model(z.to(dev), x.to(dev))["pred_boxes"].cpu()
+        cpu = cpu_model(z, x)["pred_boxes"]
+    diff = (card - cpu).abs().max().item()
+    log("heads_backbones_trunk", tracker="spt", backbone_type=trunk, dtype="f32",
+        frames=ZOO_FRAMES, frame=f"{W}x{H}", boxes_ok=ok, launches=launches, expected=want,
+        median_ms_per_frame=float(np.median(tracker.ms[ZOO_WARMUP:])),
+        first_frame_ms=tracker.ms[0], init_ms=tracker.init_ms,
+        box_card_vs_cpu=diff, bar=HB_F32_BAR, card=card_line())
+    if not ok or launches != want or diff > HB_F32_BAR:
+        raise AssertionError(f"spt on {trunk}: boxes ok {ok}, launches {launches} (want "
+                             f"{want}), card vs CPU {diff}")
+    return launches
+
+
+def repvgg_fuse_check(dev) -> None:
+    """RepVGG-A0's deploy form (fuse_repvgg_params) against its three-branch
+    form on the card, BN statistics drawn from a seed, at SPT's 320 search."""
+    from mmtrack_torch.models.repvgg import fuse_repvgg_params, repvgg_a0
+
+    three = init_vipt_weights(repvgg_a0(last_layer="stage3"), 3)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, p in three.named_parameters():
+            if name.endswith(("bn.weight", "rbr_identity.weight")):
+                p.copy_(1.0 + 0.2 * torch.randn(p.shape, generator=g))
+            elif name.endswith(("bn.bias", "rbr_identity.bias", "running_mean")):
+                p.copy_(0.2 * torch.randn(p.shape, generator=g))
+            elif name.endswith("running_var"):
+                p.copy_(0.5 + torch.rand(p.shape, generator=g))
+    deploy = repvgg_a0(deploy=True, last_layer="stage3")
+    deploy.load_state_dict(fuse_repvgg_params(three.state_dict()))
+    x = torch.randn((2, 320, 320, 3), generator=g).to(dev)
+    with torch.inference_mode():
+        a = three.to(dev).eval()(x)["stage3"]
+        b = deploy.to(dev).eval()(x)["stage3"]
+    rel = _rel_max(b, a)
+    log("heads_backbones_repvgg_fuse", shape=list(a.shape), deploy_vs_three_branch_rel=rel,
+        bar=HB_FUSE_REL_BAR, card=card_line())
+    if rel > HB_FUSE_REL_BAR:
+        raise AssertionError(f"RepVGG fused vs three-branch: {rel}")
+
+
+def ar_train_check(dev) -> int:
+    """One f32 Alpha-Refine step (train/zoo_actors.py::make_ar_train_step,
+    B = 8, input 256, mask_valid alternating) on the card and on the CPU
+    from the same seeded weights and batch: each loss term within
+    AR_LOSS_REL_BAR. Returns the xcorr launches of the card's step."""
+    from mmtrack_torch.models.alpha_refine import build_alpha_refine
+    from mmtrack_torch.train.zoo_actors import make_ar_train_step
+
+    r = np.random.RandomState(8)
+    masks = np.zeros((AR_B, AR_SIZE, AR_SIZE), np.float32)
+    masks[:, 80:180, 60:200] = 1.0
+    batch = {"template": r.uniform(-1, 1, (AR_B, AR_SIZE, AR_SIZE, 3)).astype(np.float32),
+             "template_anno": np.tile(np.float32([[64.0, 64.0, 128.0, 128.0]]), (AR_B, 1)),
+             "search": r.uniform(-1, 1, (AR_B, AR_SIZE, AR_SIZE, 3)).astype(np.float32),
+             "search_anno": r.uniform(0.2, 0.4, (AR_B, 4)).astype(np.float32),
+             "masks": masks, "mask_valid": np.float32([1, 0] * (AR_B // 2))}
+    stats, launches = [], None
+    for d in (dev, torch.device("cpu")):
+        model = build_alpha_refine(AR_SIZE, seed=0).to(d).train()
+        opt, sched = build_optimizer(model, lr=1e-4)
+        depthwise_xcorr.launches = 0
+        t0 = time.perf_counter()
+        _, s = make_ar_train_step()(TrainState(model, opt, sched), batch)
+        stats.append(({k: float(v) for k, v in s.items()}, time.perf_counter() - t0))
+        if d == dev:
+            launches = depthwise_xcorr.launches
+    (card, card_s), (cpu, cpu_s) = stats
+    rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in cpu}
+    log("heads_backbones_ar_train", B=AR_B, input=AR_SIZE, dtype="f32", card=card, cpu=cpu,
+        rel=rel, bar=AR_LOSS_REL_BAR, xcorr_launches=launches, card_step_s=card_s,
+        cpu_step_s=cpu_s, card_name=card_line())
+    if max(rel.values()) > AR_LOSS_REL_BAR or launches != 1:
+        raise AssertionError(f"Alpha-Refine step card vs CPU {rel}, xcorr launches {launches}")
+    return launches
+
+
+def modules_check(dev) -> None:
+    """MobileNetV3-Large at 256 x 256 and the rpe and talking-heads
+    attentions at ViT-B's width over 8 x 8 + 16 x 16 tokens, f32, seeded
+    weights: the card against the CPU within HB_MODULE_REL_BAR."""
+    from mmtrack_torch.models.backbones import MOBILENET_LAYERS, mobilenetv3_large
+    from mmtrack_torch.models.layers import Attention, AttentionTalkingHead
+
+    g = torch.Generator().manual_seed(9)
+    cases = (("mobilenetv3_large", lambda: mobilenetv3_large(),
+              torch.randn((2, 256, 256, 3), generator=g)),
+             ("attention_rpe", lambda: Attention(768, 12, rpe=True),
+              torch.randn((2, 320, 768), generator=g)),
+             ("attention_talking_head", lambda: AttentionTalkingHead(768, 12),
+              torch.randn((2, 320, 768), generator=g)))
+    rows = {}
+    for name, build, x in cases:
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            m = init_vipt_weights(build(), 2).to(d).eval()
+            with torch.inference_mode():
+                o = m(x.to(d), MOBILENET_LAYERS) if name.startswith("mobilenet") else m(x.to(d))
+            o = o if isinstance(o, dict) else {"out": o[0] if isinstance(o, tuple) else o}
+            outs.append({k: v.cpu() for k, v in o.items()})
+        rows[name] = max(_rel_max(outs[0][k], outs[1][k]) for k in outs[1])
+    log("heads_backbones_modules", card_vs_cpu_rel=rows, bar=HB_MODULE_REL_BAR,
+        card=card_line())
+    if max(rows.values()) > HB_MODULE_REL_BAR:
+        raise AssertionError(f"modules card vs CPU: {rows}")
+
+
+def heads_backbones_path(dev, rt, frames, box0) -> dict:
+    """Phase 20: the CORNER and MLP heads on the main path, SPT on the
+    RepVGG-A0 and Swin-T trunks, RepVGG's fused form, Alpha-Refine's
+    training step, MobileNetV3 and the attentions. Returns the launches of
+    each kernel counted in it."""
+    from mmtrack_torch.eval.datasets import list_sequences
+
+    t_phase = time.perf_counter()
+    counted: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            counted[k] = counted.get(k, 0) + n
+
+    for head in HB_HEADS:
+        add(head_path(dev, rt, frames, box0, head))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "DepthTrack")
+        ope_fixture(root, n_seqs=1, n_frames=ZOO_FRAMES)
+        seq_dir = list_sequences(root, "DepthTrack")[0]
+        for trunk in HB_TRUNKS:
+            add(trunk_path(dev, seq_dir, trunk))
+    repvgg_fuse_check(dev)
+    add({"depthwise_xcorr": ar_train_check(dev)})
+    modules_check(dev)
+    log("heads_backbones_phase", seconds=time.perf_counter() - t_phase)
+    return counted
+
+
 def timed(phase: str, fn, *args):
     """fn(*args), then a line with the phase's seconds."""
     t0 = time.perf_counter()
@@ -4181,7 +4481,7 @@ def main() -> int:
         if demo and demo["proc"].poll() is None:
             os.killpg(demo["proc"].pid, 9)
             demo["proc"].communicate()
-    for counts in (host_launches, ddp_path()):
+    for counts in (host_launches, ddp_path(), heads_backbones_path(dev, rt, frames, box0)):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     log("phases", seconds=time.perf_counter() - t_main)

@@ -55,3 +55,12 @@ def default_image_loader(path: str) -> np.ndarray:
             return im
     raise IOError(f"could not read image {path}")
 
+
+
+def grayscale_loader(path: str) -> np.ndarray:
+    """The file as stored (cv2.IMREAD_UNCHANGED): a 16-bit depth or a
+    one-channel thermal image keeps its depth and channels."""
+    im = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if im is None:
+        raise IOError(f"could not read image {path}")
+    return im

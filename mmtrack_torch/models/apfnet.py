@@ -16,9 +16,10 @@ which mmtrack_tpu/models/convert.py::convert_apfnet_checkpoint reads:
 `transformer{s}_{encoder1..3,decoder1..2}.transformer{s}_<role>_{WK,WV,
 fc_reduce,fc_rise}.0`, `fc.fc4.0`, `fc.fc5.1`, `branches.{k}.1`.
 `stage_mask` selects the parameters each of the three training stages
-trains. The JAX model's stage-1 topology (`active_attribute`: one
-attribute branch, additive fusion, no transformers) is reached by no
-script and is not ported.
+trains. `active_attribute` selects the JAX model's stage-1 topology (one
+attribute branch, additive fusion, no transformers), which no script of
+tools/train.py reaches: `make_mdnet_train_step` trains every stage in the
+tracking topology, as JAX's does.
 """
 
 from __future__ import annotations
@@ -162,13 +163,23 @@ class APFNet(MDNetHead):
     def _fc_layer(name):
         return f"fc6_{name.split('.')[1]}" if name.startswith("branches.") else name.split(".")[1]
 
-    def extract_features(self, patches: torch.Tensor) -> torch.Tensor:
+    def extract_features(self, patches: torch.Tensor,
+                         active_attribute: int | None = None) -> torch.Tensor:
+        """The tracking topology, or with `active_attribute` (an index into
+        ATTRIBUTES) the stage-1 topology (model_stage1.py:255-258; JAX
+        apfnet.py:181-205): that attribute's branch alone, added to both
+        streams, no ensemble and no transformers."""
         x1, x2 = patches[:, :3], patches[:, 3:6]
         for st, (cv, ci) in enumerate(((self.layers_v.stage1, self.layers_i.stage1),
                                        (self.layers_v.stage2, self.layers_i.stage2),
                                        (self.layers_v.stage3, self.layers_i.stage3))):
             s = st + 1
             paths, gates = getattr(self, f"parallel{s}"), getattr(self, f"parallel{s}_skconv")
+            if active_attribute is not None:
+                path, gate = paths[active_attribute], gates[active_attribute]
+                V = gate(path(x1), path(x2))
+                x1, x2 = cv(x1) + V, ci(x2) + V
+                continue
             V = getattr(self, f"ensemble{s}_skconv")(
                 [gate(path(x1), path(x2)) for path, gate in zip(paths, gates)])
             x1, x2 = cv(x1), ci(x2)
@@ -189,8 +200,8 @@ class APFNet(MDNetHead):
         r1, r2 = draws.split(key)
         return draws.bernoulli(r1, 0.5, (n, 1, 512)), draws.bernoulli(r2, 0.5, (n, 512))
 
-    def forward(self, patches, branch: int = 0):
-        return self.score(self.extract_features(patches), branch)
+    def forward(self, patches, branch: int = 0, active_attribute: int | None = None):
+        return self.score(self.extract_features(patches, active_attribute), branch)
 
 
 def stage_mask(model: APFNet, stage: int, attribute: int | None = None) -> dict[str, bool]:

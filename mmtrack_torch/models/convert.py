@@ -1,8 +1,9 @@
 """Weight bridge: the JAX package's flax parameters -> the port's state_dict.
 
 Exact inverse of mmtrack_tpu/models/convert.py::convert_vipt_checkpoint
-(:43-183, CENTER head): the port's modules use the reference torch names
-that converter reads, so the bridge only relabels and re-lays out:
+(:43-183, the CENTER, CORNER and MLP heads): the port's modules use the
+reference torch names that converter reads, so the bridge only relabels
+and re-lays out:
 
   Dense kernel (I, O)            -> weight (O, I)
   conv kernel (kh, kw, I, O)     -> weight (O, I, kh, kw)
@@ -108,12 +109,18 @@ def _leaf_name(path: tuple[str, ...], value: np.ndarray) -> tuple[str, np.ndarra
         mod, i, leaf = m.groups()
         mod = f"prompt_norms.{i}" if i is not None else "norm"
         return f"backbone.{mod}.{'weight' if leaf == 'scale' else 'bias'}", value
-    if m := re.fullmatch(r"box_head/(ctr|offset|size)/conv5/(kernel|bias)", p):
+    if m := re.fullmatch(r"box_head/(ctr|offset|size|tl|br)/conv5/(kernel|bias)", p):
         branch, leaf = m.groups()
         if leaf == "kernel":
             return f"box_head.conv5_{branch}.weight", value.transpose(3, 2, 0, 1)
         return f"box_head.conv5_{branch}.bias", value
-    if m := re.fullmatch(r"box_head/(ctr|offset|size)/conv([1-4])/(conv|bn)/"
+    if m := re.fullmatch(r"box_head/layers_(\d+)/(kernel|bias)", p):
+        i, leaf = m.groups()
+        return (f"box_head.layers.{i}.{'weight' if leaf == 'kernel' else 'bias'}",
+                value.T if leaf == "kernel" else value)
+    if m := re.fullmatch(r"box_head/bn_(\d+)/(scale|bias|mean|var)", p):
+        return f"box_head.bn.{m.group(1)}.{_BN[m.group(2)]}", value
+    if m := re.fullmatch(r"box_head/(ctr|offset|size|tl|br)/conv([1-4])/(conv|bn)/"
                          r"(kernel|bias|scale|mean|var)", p):
         branch, k, mod, leaf = m.groups()
         base = f"box_head.conv{k}_{branch}"
@@ -128,8 +135,9 @@ def _leaf_name(path: tuple[str, ...], value: np.ndarray) -> tuple[str, np.ndarra
 
 
 def vipt_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
-    """flax `params['params']` tree of a CENTER-head ViPTrack -> the port's
-    ViPTrack state_dict (f32 CPU tensors; load_state_dict casts)."""
+    """flax `params['params']` tree of a ViPTrack with any head (CENTER,
+    CORNER's `conv{k}_{tl,br}`, MLP's `layers.{i}`) -> the port's ViPTrack
+    state_dict (f32 CPU tensors; load_state_dict casts)."""
     out = {}
     for path, value in _flatten(params).items():
         name, v = _leaf_name(path, value)
@@ -229,6 +237,130 @@ def _resnet_leaf(body: str, rest: str, value: np.ndarray):
     return _conv(mod, leaf, value) if leaf == "kernel" else _norm(mod, leaf, value)
 
 
+def _repvgg_leaf(body: str, rest: str, value: np.ndarray, last: int = 4):
+    """A JAX RepVGG leaf -> the reference's name under `body` (repvgg.py:
+    `stage0.*`, `stage{s}.{b}.*`; `rbr_dense` / `rbr_1x1` = conv + `bn`,
+    `rbr_identity` a BatchNorm's leaves, `rbr_reparam` the deploy conv);
+    None for a stage deeper than `last`."""
+    m = re.fullmatch(r"stage(\d)(?:_(\d+))?/(.+)", rest)
+    if int(m.group(1)) > last:
+        return None
+    block = f"{body}.stage{m.group(1)}" + (f".{m.group(2)}" if m.group(2) else "")
+    sub = m.group(3)
+    if m2 := re.fullmatch(r"(dense|one_by_one)/conv/kernel", sub):
+        branch = "rbr_dense" if m2.group(1) == "dense" else "rbr_1x1"
+        return _conv(f"{block}.{branch}.conv", "kernel", value)
+    if m2 := re.fullmatch(r"(dense|one_by_one)/bn_(scale|bias|mean|var)", sub):
+        branch = "rbr_dense" if m2.group(1) == "dense" else "rbr_1x1"
+        return _norm(f"{block}.{branch}.bn", m2.group(2), value)
+    if m2 := re.fullmatch(r"id_(scale|bias|mean|var)", sub):
+        return _norm(f"{block}.rbr_identity", m2.group(1), value)
+    if m2 := re.fullmatch(r"reparam/(kernel|bias)", sub):
+        return _conv(f"{block}.rbr_reparam", m2.group(1), value)
+    raise KeyError(f"no port counterpart for RepVGG leaf {rest}")
+
+
+def _swin_leaf(body: str, rest: str, value: np.ndarray, last: int = 3):
+    """A JAX Swin leaf -> the reference's name under `body`
+    (swin_transformer.py); None for a stage, merge or tap norm past the
+    deepest stage `last` the port builds."""
+    if m := re.fullmatch(r"patch_embed/(kernel|bias)", rest):
+        return _conv(f"{body}.patch_embed.proj", m.group(1), value)
+    if m := re.fullmatch(r"patch_norm/(scale|bias)", rest):
+        return _norm(f"{body}.patch_embed.norm", m.group(1), value)
+    if m := re.fullmatch(r"out_norm(\d)/(scale|bias)", rest):
+        return _norm(f"{body}.norm{m.group(1)}", m.group(2), value) if int(
+            m.group(1)) <= last else None
+    if m := re.fullmatch(r"merge(\d)/(norm|reduction)/(\w+)", rest):
+        s, mod, leaf = m.groups()
+        if int(s) >= last:
+            return None
+        base = f"{body}.layers.{s}.downsample.{mod}"
+        return _dense(base, leaf, value) if mod == "reduction" else _norm(base, leaf, value)
+    m = re.fullmatch(r"stage(\d)_(\d+)/(.+)", rest)
+    if int(m.group(1)) > last:
+        return None
+    base = f"{body}.layers.{m.group(1)}.blocks.{m.group(2)}"
+    sub = m.group(3)
+    if sub == "attn/relative_position_bias_table":
+        return f"{base}.attn.relative_position_bias_table", value.T
+    if m2 := re.fullmatch(r"(norm[12])/(scale|bias)", sub):
+        return _norm(f"{base}.{m2.group(1)}", m2.group(2), value)
+    if m2 := re.fullmatch(r"(attn/qkv|attn/proj|mlp_fc1|mlp_fc2)/(kernel|bias)", sub):
+        mod = m2.group(1).replace("/", ".").replace("mlp_", "mlp.")
+        return _dense(f"{base}.{mod}", m2.group(2), value)
+    raise KeyError(f"no port counterpart for Swin leaf {rest}")
+
+
+_SWIN = re.compile(r"patch_embed/|patch_norm/|merge\d/|out_norm\d/|stage\d_\d+/"
+                   r"(norm[12]|attn|mlp_fc[12])/")
+_REPVGG = re.compile(r"stage\d(_\d+)?/(dense|one_by_one|reparam|id_)")
+
+
+def _stark_trunk_leaf(body: str, rest: str, value: np.ndarray):
+    """A leaf of STARK's Swin, RepVGG or ResNet trunk (told apart by its
+    path); the Swin and RepVGG trunks stop at their stride-16 taps, Swin's
+    stage2 and RepVGG's stage3."""
+    if _SWIN.match(rest):
+        return _swin_leaf(body, rest, value, last=2)
+    if _REPVGG.match(rest):
+        return _repvgg_leaf(body, rest, value, last=3)
+    return _resnet_leaf(body, rest, value)
+
+
+def repvgg_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax `params['params']` tree of a RepVGG (three-branch or deploy) ->
+    the port's RepVGG state_dict (the reference's names, f32 CPU tensors)."""
+    pairs = (_repvgg_leaf("", "/".join(k), v) for k, v in _flatten(params).items())
+    return _tensors((name[1:], v) for name, v in pairs)
+
+
+def swin_state_dict_from_flax(params: dict, last_stage: int = 3) -> dict[str, torch.Tensor]:
+    """flax `params['params']` tree of a SwinTransformer -> the port's
+    SwinTransformer state_dict built to `last_stage` (deeper leaves left
+    out; the reference's names, f32 CPU tensors)."""
+    pairs = (_swin_leaf("", "/".join(k), v, last_stage) for k, v in _flatten(params).items())
+    return _tensors((p[0][1:], p[1]) for p in pairs if p is not None)
+
+
+def mobilenet_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax `params['params']` tree of a MobileNetV3 -> the port's
+    MobileNetV3 state_dict (the flax names: `layer{s}_{b}` as
+    `layer{s}.{b}`, `se/fc{1,2}` as `se.fc{1,2}`; f32 CPU tensors)."""
+    out = []
+    for path, value in _flatten(params).items():
+        *mod, leaf = path
+        mod = re.sub(r"^layer(\d)_(\d+)/", r"layer\1.\2/", "/".join(mod)).replace("/", ".")
+        if mod.endswith(("se.fc1", "se.fc2")):
+            out.append(_dense(mod, leaf, value))
+        elif leaf in ("kernel", "bias") and not mod.endswith("_bn"):
+            out.append(_conv(mod, leaf, value))
+        else:
+            out.append(_norm(mod, leaf, value))
+    return _tensors(out)
+
+
+def attention_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax `params['params']` tree of an Attention (rpe or not) or an
+    AttentionTalkingHead -> the port's state_dict: `qkv` and `proj` Dense,
+    the (heads, buckets) `relative_position_bias_table` as it is, and the
+    head-mixing `proj_l` / `proj_w` (an (in, out) kernel) as Linear
+    weights."""
+    out = []
+    for path, value in _flatten(params).items():
+        p = "/".join(path)
+        if m := re.fullmatch(r"(qkv|proj)/(kernel|bias)", p):
+            out.append(_dense(m.group(1), m.group(2), value))
+        elif p == "relative_position_bias_table":
+            out.append((p, value))
+        elif m := re.fullmatch(r"(proj_[lw])(_bias)?", p):
+            out.append((f"{m.group(1)}.bias", value) if m.group(2)
+                       else (f"{m.group(1)}.weight", value.T))
+        else:
+            raise KeyError(f"no port counterpart for flax leaf {p}")
+    return _tensors(out)
+
+
 def _corner_head_leaf(p: str, value: np.ndarray):
     m = re.fullmatch(r"box_head/(tl|br)/conv(\d)/(?:(conv|bn)/)?(\w+)", p)
     if not m:
@@ -245,7 +377,9 @@ def stark_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     STARK state_dict, named as the reference's (f32 CPU tensors). A tree
     with `backbone_x` is SPT: its trunks become `backbone_color` /
     `backbone_depth` and its encoders `encoder_color` / `encoder_depth` /
-    `fusion`."""
+    `fusion`. The trunks are ResNet-50, RepVGG-A0 or Swin-T, told apart by
+    their leaves; the RepVGG and Swin stages past the stride-16 tap, which
+    the JAX trunk runs and STARK never reads, are left out."""
     flat = {"/".join(k): v for k, v in _flatten(params).items()}
     spt = any(k.startswith("backbone_x/") for k in flat)
     suffix = "_color" if spt else ""
@@ -258,7 +392,8 @@ def stark_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     for p, value in flat.items():
         top, _, rest = p.partition("/")
         if top in backbones:
-            out.append(_resnet_leaf(backbones[top], rest, value))
+            if (item := _stark_trunk_leaf(backbones[top], rest, value)) is not None:
+                out.append(item)
         elif top in bottlenecks:
             out.append(_conv(bottlenecks[top], rest, value))
         elif top == "query_embed":

@@ -1,9 +1,10 @@
-"""Box heads, port of mmtrack_tpu/models/heads.py (the centre and corner heads).
+"""Box heads, port of mmtrack_tpu/models/heads.py (the centre, corner and
+MLP heads).
 
 The conv towers run NCHW inside the module; its input and output maps are
 NHWC like the JAX package's. Parameter names are the reference's
 (`box_head.conv{k}_{ctr,offset,size}.{0,1}.*`, head.py:98-201; the corner
-head's `conv{k}_{tl,br}`). MLPHead is not ported yet.
+head's `conv{k}_{tl,br}`; the MLP head's `layers.{i}`, head.py:204-221).
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mmtrack_torch.models.layers import Conv2d
+from mmtrack_torch.models.layers import Conv2d, Dense
 
 
 class FrozenBatchNorm(nn.Module):
@@ -107,13 +108,16 @@ class CornerPredictor(nn.Module):
     """
 
     def __init__(self, inplanes: int = 256, channel: int = 256, feat_sz: int = 20,
-                 stride: int = 16, dtype=torch.float32, device=None):
+                 stride: int = 16, dtype=torch.float32, device=None, param_dtype=None):
         super().__init__()
         self.feat_sz, self.stride = feat_sz, stride
         for branch in ("tl", "br"):
-            _add_tower(self, branch, inplanes, channel, 1, dtype=dtype, device=device)
+            _add_tower(self, branch, inplanes, channel, 1, dtype=dtype, device=device,
+                       param_dtype=param_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_dist: bool = False):
+        """With `return_dist`, (boxes, p_tl (B, S*S), p_br (B, S*S)): the
+        corner probabilities as well (head.py:57-62)."""
         x = x.permute(0, 3, 1, 2)
         n = self.feat_sz
         coord = torch.arange(n, dtype=torch.float32, device=x.device) * self.stride
@@ -122,11 +126,40 @@ class CornerPredictor(nn.Module):
 
         def soft_argmax(score):
             prob = torch.softmax(score.reshape(score.shape[0], -1).float(), dim=1)
-            return (prob * cx).sum(1), (prob * cy).sum(1)
+            return (prob * cx).sum(1), (prob * cy).sum(1), prob
 
-        x_tl, y_tl = soft_argmax(_conv_tower(self, "tl", x)[:, 0])
-        x_br, y_br = soft_argmax(_conv_tower(self, "br", x)[:, 0])
-        return torch.stack([x_tl, y_tl, x_br, y_br], dim=1) / (n * self.stride)
+        x_tl, y_tl, p_tl = soft_argmax(_conv_tower(self, "tl", x)[:, 0])
+        x_br, y_br, p_br = soft_argmax(_conv_tower(self, "br", x)[:, 0])
+        boxes = torch.stack([x_tl, y_tl, x_br, y_br], dim=1) / (n * self.stride)
+        return (boxes, p_tl, p_br) if return_dist else boxes
+
+
+class MLPHead(nn.Module):
+    """N-layer perceptron box head (head.py:204-221, build_box_head's MLP
+    branch: hidden = input dim, 4 outputs, 3 layers): ReLU between the
+    layers, none after the last; `use_bn` puts a frozen BatchNorm after
+    each layer (`bn.{i}`), as JAX's MLPHead(use_bn=True)."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int = 4, num_layers: int = 3,
+                 use_bn: bool = False, dtype=torch.float32, device=None, param_dtype=None):
+        super().__init__()
+        dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
+        self.layers = nn.ModuleList(
+            Dense(dims[i], dims[i + 1], dtype=dtype, device=device, param_dtype=param_dtype)
+            for i in range(num_layers))
+        self.bn = (nn.ModuleList(FrozenBatchNorm(d, device=device) for d in dims[1:])
+                   if use_bn else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = len(self.layers)
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if self.bn is not None:
+                x = self.bn[i](x[:, :, None, None])[:, :, 0, 0]
+            if i < n - 1:
+                x = torch.relu(x)
+        return x
+
 
 
 def cal_bbox(score_map: torch.Tensor, size_map: torch.Tensor, offset_map: torch.Tensor,

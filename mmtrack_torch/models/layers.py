@@ -16,8 +16,10 @@ kernels' rounding points apply instead.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -37,6 +39,52 @@ from mmtrack_torch.ops.mlp_fuse import (
     mlp_block_fused_plain,
 )
 from mmtrack_torch.parallel.mesh import RowDraws
+from mmtrack_torch.utils.device import device_constant
+
+
+@lru_cache(maxsize=None)
+def rpe_index_concat(z_size: int, x_size: int) -> np.ndarray:
+    """(N, N) relative-position bucket of every (query, key) pair of the
+    concatenated [template; search] tokens, N = z_size^2 + x_size^2
+    (rpe.py:27-58; JAX layers.py:24-51): one bucket per distinct (dh, dw,
+    query origin, key origin), numbered in sorted order."""
+    def grid(n):
+        h, w = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+        return h.ravel(), w.ravel()
+
+    (zh, zw), (xh, xw) = grid(z_size), grid(x_size)
+    h, w = np.concatenate([zh, xh]), np.concatenate([zw, xw])
+    origin = np.concatenate([np.zeros(z_size * z_size, np.int64),
+                             np.ones(x_size * x_size, np.int64)])
+    n = h.shape[0]
+    key = np.stack([h[:, None] - h[None, :], w[:, None] - w[None, :],
+                    np.broadcast_to(origin[:, None], (n, n)),
+                    np.broadcast_to(origin[None, :], (n, n))], axis=-1)
+    _, inverse = np.unique(key.reshape(-1, 4), axis=0, return_inverse=True)
+    return inverse.reshape(n, n)
+
+
+def _rpe_bias(table: torch.Tensor, z_size: int, x_size: int) -> torch.Tensor:
+    """(1, H, N, N) f32 bias gathered from a (H, buckets) table."""
+    idx = device_constant(("rpe_index", z_size, x_size),
+                          lambda: rpe_index_concat(z_size, x_size), table.device)
+    return table[:, idx][None].float()
+
+
+def _logits(qkv: torch.Tensor, num_heads: int, scale: float):
+    """(q k^T * scale in f32 (B, H, L, L), v (B, H, L, D)) from a fused
+    (B, L, 3C) qkv, q scaled in qkv's dtype as flax does."""
+    B, L, C3 = qkv.shape
+    parts = qkv.view(B, L, 3, num_heads, C3 // 3 // num_heads).permute(2, 0, 3, 1, 4)
+    q = parts[0] * torch.tensor(scale, dtype=qkv.dtype)
+    return q.float() @ parts[1].float().transpose(-1, -2), parts[2]
+
+
+def _attend(attn: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, L, C) of probabilities (B, H, L, L) in v's dtype over v."""
+    B, H, L, D = v.shape
+    out = (attn.to(v.dtype).float() @ v.float()).to(v.dtype)
+    return out.transpose(1, 2).reshape(B, L, H * D)
 
 
 class Dense(nn.Module):
@@ -125,17 +173,22 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    """Fused-qkv multi-head self-attention (layers.py:90-151, no rpe).
+    """Fused-qkv multi-head self-attention (layers.py:90-151).
 
     The unfused path of a block: the CE blocks, which need the probability
     matrix (`return_attn=True`), f32 models, and the training blocks with
     drop path. At bf16 without `return_attn` the attention itself goes to
     `flash_mhsa_qkv` (layers.py:129-136), its kernel on CUDA tensors;
-    `use_kernels=False` selects its plain version on any device.
+    `use_kernels=False` selects its plain version on any device. With
+    `rpe` the logits gain the learned relative-position bias of the
+    concatenated z_size^2 template and x_size^2 search tokens
+    (`relative_position_bias_table`, (heads, buckets); attn.py:23-45), and
+    the attention stays unfused (no block of the port builds one).
     """
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32, device=None,
-                 param_dtype=None, use_kernels: bool = True):
+                 param_dtype=None, use_kernels: bool = True, rpe: bool = False,
+                 z_size: int = 8, x_size: int = 16):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
@@ -144,14 +197,62 @@ class Attention(nn.Module):
         kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
         self.qkv = Dense(dim, 3 * dim, **kw)
         self.proj = Dense(dim, dim, **kw)
+        self.rpe, self.z_size, self.x_size = rpe, z_size, x_size
+        if rpe:
+            buckets = int(rpe_index_concat(z_size, x_size).max()) + 1
+            self.relative_position_bias_table = nn.Parameter(
+                torch.zeros(num_heads, buckets, device=device))
 
     def forward(self, x: torch.Tensor, return_attn: bool = False):
         qkv = self.qkv(x)
+        if self.rpe:
+            logits, v = _logits(qkv, self.num_heads, self.scale)
+            logits = logits + _rpe_bias(self.relative_position_bias_table, self.z_size,
+                                        self.x_size)
+            attn = torch.softmax(logits, dim=-1).to(qkv.dtype)
+            return self.proj(_attend(attn, v)), (attn if return_attn else None)
         if self.dtype == torch.bfloat16 and not return_attn:
             mhsa = flash_mhsa_qkv if self.use_kernels else flash_mhsa_qkv_plain
             return self.proj(mhsa(qkv, self.num_heads, self.scale)), None
         out, attn = mhsa_plain(qkv, self.num_heads, self.scale)
         return self.proj(out), (attn if return_attn else None)
+
+
+class AttentionTalkingHead(nn.Module):
+    """Talking-heads attention (attn.py:62-130; JAX layers.py:154-214): the
+    logits (with the relative-position bias when `rpe`) mixed across the
+    heads by `proj_l` before the softmax and the probabilities by `proj_w`
+    after it (each a heads x heads Linear with bias, applied in f32), then
+    the values; output through `proj`."""
+
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32, device=None,
+                 rpe: bool = True, z_size: int = 8, x_size: int = 16):
+        super().__init__()
+        self.num_heads, self.dtype = num_heads, dtype
+        self.scale = (dim // num_heads) ** -0.5
+        self.qkv = Dense(dim, 3 * dim, dtype=dtype, device=device)
+        self.proj = Dense(dim, dim, dtype=dtype, device=device)
+        self.proj_l = nn.Linear(num_heads, num_heads, device=device)
+        self.proj_w = nn.Linear(num_heads, num_heads, device=device)
+        self.rpe, self.z_size, self.x_size = rpe, z_size, x_size
+        if rpe:
+            buckets = int(rpe_index_concat(z_size, x_size).max()) + 1
+            self.relative_position_bias_table = nn.Parameter(
+                torch.zeros(num_heads, buckets, device=device))
+
+    @staticmethod
+    def _mix(t: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+        return (torch.einsum("bhqk,gh->bgqk", t, lin.weight.float())
+                + lin.bias.float()[None, :, None, None])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        qkv = self.qkv(x)
+        logits, v = _logits(qkv, self.num_heads, self.scale)
+        if self.rpe:
+            logits = logits + _rpe_bias(self.relative_position_bias_table, self.z_size,
+                                        self.x_size)
+        attn = torch.softmax(self._mix(logits, self.proj_l), dim=-1)
+        return self.proj(_attend(self._mix(attn, self.proj_w), v))
 
 
 def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],

@@ -15,10 +15,13 @@ The modules run NCHW; the public maps are NHWC like the JAX package's
 (views of NCHW memory, so the convolutions take them back for free); a
 filter is (num_filters, fh, fw, C). `interpolate` is JAX's bilinear
 `jax.image.resize`, which antialiases when it shrinks (the decoder's
-30 -> 15 onto layer4, the box encoder's image -> feature grid), so the
-port passes `antialias=True` there; the reference's F.interpolate does
-not. `resize_bicubic` is F.interpolate's bicubic (a = -0.75, border
-clamp), the kernel JAX's copy writes out.
+30 -> 15 onto layer4, the box encoder's image -> feature grid); the
+reference's F.interpolate does not. `resize_bicubic` is F.interpolate's
+bicubic (a = -0.75, border clamp), the kernel JAX's copy writes out. Both
+run as two products with fixed (out, in) weight matrices, one per axis,
+as jax.image.resize itself computes: their backward is a product too, so
+a training step is deterministic on the card (F.interpolate's backward
+scatters with atomics).
 
 Parameter names are the reference torch ones that
 mmtrack_tpu/models/convert.py::convert_lwl_checkpoint (:579-692) reads:
@@ -36,6 +39,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -46,6 +50,7 @@ from mmtrack_torch.models.layers import Conv2d
 from mmtrack_torch.models.resnet import resnet50
 from mmtrack_torch.ops.optimization import steepest_descent_gn
 from mmtrack_torch.parallel.mesh import SINGLE, Shard
+from mmtrack_torch.utils.device import device_constant
 
 LAYER_CHANNELS = {"layer1": 256, "layer2": 512, "layer3": 1024, "layer4": 2048}
 
@@ -60,23 +65,73 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------ resize
 
+def _bilinear_weights(in_sz: int, out_sz: int) -> torch.Tensor:
+    """(out, in) f32 weights of jax.image.resize's 'bilinear' along one axis
+    (jax/_src/image/scale.py::compute_weight_mat, antialias=True): the
+    triangle kernel, widened by in / out where the axis shrinks, each
+    output's weights divided by their sum, in f32 as JAX computes them."""
+    f32 = np.float32
+    inv = 1.0 / (out_sz / in_sz)
+    sample = (np.arange(out_sz, dtype=f32) + f32(0.5)) * f32(inv) - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_sz, dtype=f32)[:, None]) / f32(max(inv, 1.0))
+    w = np.maximum(f32(0.0), f32(1.0) - x)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    w = np.where(((sample >= -0.5) & (sample <= in_sz - 0.5))[None, :], w, f32(0.0))
+    return torch.from_numpy(np.ascontiguousarray(w.T, dtype=f32))
+
+
+def _bicubic_weights(in_sz: int, out_sz: int, a: float = -0.75) -> torch.Tensor:
+    """(out, in) f32 weights of F.interpolate's bicubic along one axis: the
+    Keys kernel at the four taps around each half-pixel centre, the taps
+    clamped at the border (and added where they clamp onto one input)."""
+    f32 = np.float32
+    pos = (np.arange(out_sz, dtype=f32) + f32(0.5)) * f32(in_sz / out_sz) - f32(0.5)
+    base = np.floor(pos)
+    taps = np.arange(-1, 3, dtype=f32)
+    ax = np.abs((pos - base)[:, None] - taps[None, :])
+    ax2, ax3 = ax * ax, ax * ax * ax
+    near = (f32(a + 2) * ax3 - f32(a + 3) * ax2 + f32(1.0))
+    far = f32(a) * ax3 - f32(5 * a) * ax2 + f32(8 * a) * ax - f32(4 * a)
+    k = np.where(ax <= 1, near, np.where(ax < 2, far, f32(0.0))).astype(f32)
+    idx = np.clip(base[:, None] + taps[None, :], 0, in_sz - 1).astype(np.int64)
+    w = np.zeros((out_sz, in_sz), f32)
+    np.add.at(w, (np.repeat(np.arange(out_sz), 4), idx.reshape(-1)), k.reshape(-1))
+    return torch.from_numpy(w)
+
+
+def _weights(kind: str, in_sz: int, out_sz: int, like: torch.Tensor) -> torch.Tensor:
+    """The (out, in) weights of `kind` in `like`'s dtype on its device."""
+    build = _bilinear_weights if kind == "bilinear" else _bicubic_weights
+    return device_constant(("lwl_resize", kind, in_sz, out_sz), lambda: build(in_sz, out_sz),
+                           like.device, like.dtype)
+
+
+def _resize(kind: str, x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """(N, C, H, W) -> (N, C, oh, ow): the H axis, then the W axis, each a
+    product with its fixed weight matrix."""
+    h, w = x.shape[-2:]
+    if (h, w) == tuple(out_hw):
+        return x
+    if out_hw[0] != h:
+        x = torch.matmul(_weights(kind, h, out_hw[0], x), x)
+    if out_hw[1] != w:
+        x = torch.matmul(x, _weights(kind, w, out_hw[1], x).T)
+    return x
+
+
 def resize_bicubic(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """(N, C, H, W) bicubic resize, half-pixel centres, a = -0.75, the taps
     clamped at the border (lwl.py:49-83)."""
-    if tuple(x.shape[-2:]) == tuple(out_hw):
-        return x
-    return F.interpolate(x, size=tuple(out_hw), mode="bicubic", align_corners=False)
+    return _resize("bicubic", x, out_hw)
 
 
 def interpolate(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """(N, C, H, W) bilinear resize, half-pixel centres, as
     jax.image.resize(..., 'bilinear') (lwl.py:86-92): antialiased along an
     axis it shrinks."""
-    h, w = x.shape[-2:]
-    if (h, w) == tuple(out_hw):
-        return x
-    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False,
-                         antialias=out_hw[0] < h or out_hw[1] < w)
+    return _resize("bilinear", x, out_hw)
 
 
 # ----------------------------------------------------------------- modules

@@ -240,3 +240,19 @@ def init_peak_matching_weights(net: PeakMatchingNetwork, seed: int) -> PeakMatch
             if isinstance(m, nn.Conv1d):
                 m.bias.zero_()
     return net
+
+
+def matcher_nll_loss(log_assignment: torch.Tensor, gt_matches0: torch.Tensor,
+                     valid0: torch.Tensor, valid1: torch.Tensor) -> torch.Tensor:
+    """Negative log-likelihood of the ground-truth assignment, SuperGlue's
+    nll loss (peak_matching.py:251-263): a matched peak of set 0 reads its
+    coupling entry, an unmatched one its dustbin column; averaged over the
+    valid peaks of set 0 (at least 1). log_assignment (B, M + 1, N + 1),
+    gt_matches0 (B, M) with -1 for unmatched; `valid1` is unread, as in
+    the JAX package."""
+    m = log_assignment.shape[1] - 1
+    col = torch.where(gt_matches0 >= 0, gt_matches0,
+                      torch.full_like(gt_matches0, log_assignment.shape[2] - 1))
+    rows = torch.gather(log_assignment[:, :m, :], 2, col[:, :, None].long())[..., 0]
+    weights = valid0.float()
+    return -(rows * weights).sum() / torch.clamp(weights.sum(), min=1.0)

@@ -1,7 +1,9 @@
 """STARK / SPT: encoder-decoder transformer tracker with a corner head, port
 of mmtrack_tpu/models/stark.py (:30-309).
 
-ResNet-50 to layer3 (stride 16, 1024 channels) bottlenecked to d = 256,
+A trunk tapped at stride 16 (`backbone_type`: ResNet-50 to layer3, 1024
+channels; RepVGG-A0 to stage3, 192; Swin-T to stage2, 384) bottlenecked to
+d = 256,
 DETR sine positional encodings (plain, or over the valid region of a
 padded crop), post-norm encoder layers over the template + search tokens,
 a one-query decoder with a final norm, and the corner head on the
@@ -12,7 +14,7 @@ adds STARK-ST's 3-layer MLP confidence head.
 
 Module and parameter names are the reference's (SPT lib/models/stark:
 `backbone.0.body.*` or `backbone_{color,depth}.0.body.*` with torchvision
-ResNet names, `bottleneck[_{color,depth}]`, `transformer.encoder[_color,
+ResNet names, or SPT's repvgg.py / swin_transformer.py names, `bottleneck[_{color,depth}]`, `transformer.encoder[_color,
 _depth].layers.{i}`, `transformer.fusion.layers.{i}`, `transformer.neck`
 (a Conv1d), `transformer.decoder.layers.{i}` with `self_attn` /
 `multihead_attn` as nn.MultiheadAttention lays them out, `query_embed`,
@@ -32,7 +34,9 @@ from torch import nn
 
 from mmtrack_torch.models.heads import CornerPredictor
 from mmtrack_torch.models.layers import Dense, LayerNorm
+from mmtrack_torch.models.repvgg import repvgg_a0
 from mmtrack_torch.models.resnet import ResNet
+from mmtrack_torch.models.swin import swin_tiny
 from mmtrack_torch.ops.crop import div_rn
 
 
@@ -196,11 +200,24 @@ class _Joiner(nn.Module):
         self.body = body
 
 
-def _resnet50_layer3(device) -> nn.ModuleList:
-    """ResNet-50 built to layer3 (backbone.py:101-106, last_layer='layer3'),
-    wrapped so its names are `.0.body.*`."""
-    return nn.ModuleList([_Joiner(ResNet(stage_sizes=(3, 4, 6), last_layer="layer3",
-                                         block="bottleneck", device=device))])
+# SPT's backbone menu (backbone.py:59-75, 101-116; JAX stark.py:163-186):
+# each trunk's stride-16 tap and its channels, which the bottleneck reads
+TRUNKS = {"resnet50": ("layer3", 1024), "repvgg_a0": ("stage3", 192),
+          "swin_tiny": ("stage2", 384)}
+
+
+def _trunk(backbone_type: str, device) -> nn.ModuleList:
+    """The trunk of `backbone_type` built to its tap (ResNet-50 to layer3,
+    RepVGG-A0 to stage3, Swin-T to stage2), wrapped so its names are
+    `.0.body.*`."""
+    if backbone_type == "repvgg_a0":
+        body = repvgg_a0(last_layer="stage3", device=device)
+    elif backbone_type == "swin_tiny":
+        body = swin_tiny(("stage2",), device=device)
+    else:
+        body = ResNet(stage_sizes=(3, 4, 6), last_layer="layer3", block="bottleneck",
+                      device=device)
+    return nn.ModuleList([_Joiner(body)])
 
 
 class STARK(nn.Module):
@@ -217,10 +234,10 @@ class STARK(nn.Module):
                  fusion_layers: int = 2, six_channel: bool = False, score_head: bool = False,
                  backbone_type: str = "resnet50", device=None):
         super().__init__()
-        if backbone_type != "resnet50":
-            raise NotImplementedError(
-                f"STARK backbone_type={backbone_type!r} is not ported (ROADMAP.md queue 1, "
-                "STARK's repvgg_a0 / swin_tiny backbones); the port builds 'resnet50'")
+        if backbone_type not in TRUNKS:
+            raise ValueError(f"backbone_type={backbone_type!r}: one of {sorted(TRUNKS)}")
+        self.backbone_type = backbone_type
+        self.tap, feat_ch = TRUNKS[backbone_type]
         self.dim, self.six_channel, self.has_score_head = dim, six_channel, score_head
         self.feat_sz_s = search_size // 16
 
@@ -229,17 +246,17 @@ class STARK(nn.Module):
 
         self.transformer = nn.Module()
         if six_channel:
-            self.backbone_color = _resnet50_layer3(device)
-            self.backbone_depth = _resnet50_layer3(device)
-            self.bottleneck_color = _Conv2d1x1(1024, dim, device=device)
-            self.bottleneck_depth = _Conv2d1x1(1024, dim, device=device)
+            self.backbone_color = _trunk(backbone_type, device)
+            self.backbone_depth = _trunk(backbone_type, device)
+            self.bottleneck_color = _Conv2d1x1(feat_ch, dim, device=device)
+            self.bottleneck_depth = _Conv2d1x1(feat_ch, dim, device=device)
             self.transformer.encoder_color = encoder(enc_layers)
             self.transformer.encoder_depth = encoder(enc_layers)
             self.transformer.neck = _Conv1d1x1(2 * dim, dim, device=device)
             self.transformer.fusion = encoder(fusion_layers)
         else:
-            self.backbone = _resnet50_layer3(device)
-            self.bottleneck = _Conv2d1x1(1024, dim, device=device)
+            self.backbone = _trunk(backbone_type, device)
+            self.bottleneck = _Conv2d1x1(feat_ch, dim, device=device)
             self.transformer.encoder = encoder(enc_layers)
         self.transformer.decoder = _Layers(
             [DecoderLayer(dim, heads, device=device) for _ in range(dec_layers)],
@@ -265,7 +282,7 @@ class STARK(nn.Module):
         trunks = self._trunks()
         feats = []
         for (backbone, bottleneck), sl in zip(trunks, (slice(0, 3), slice(3, 6))):
-            f = backbone[0].body(im[..., sl], ("layer3",))["layer3"]
+            f = backbone[0].body(im[..., sl], (self.tap,))[self.tap]
             feats.append(bottleneck(f))
         B, h, w, _ = feats[0].shape
         tokens_c = feats[0].reshape(B, h * w, self.dim)

@@ -19,9 +19,10 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from mmtrack_torch.models.heads import CenterPredictor, cal_bbox
+from mmtrack_torch.models.heads import CenterPredictor, CornerPredictor, MLPHead, cal_bbox
 from mmtrack_torch.models.layers import CEBlock, Conv2d, Dense, LayerNorm, Mlp, PatchEmbed
-from mmtrack_torch.ops.ce import gather_search_tokens, recover_search_tokens
+from mmtrack_torch.ops.box import box_xyxy_to_cxcywh
+from mmtrack_torch.ops.ce import ce_keep_schedule, gather_search_tokens, recover_search_tokens
 
 
 class Fovea(nn.Module):
@@ -65,17 +66,6 @@ class PromptBlock(nn.Module):
         x1 = self._dense(self.conv0_1, b)
         x0 = self.fovea(x0) + x1
         return self._dense(self.conv1x1, x0)
-
-
-def ce_keep_schedule(num_search_tokens: int, ce_loc: Sequence[int],
-                     keep_ratios: Sequence[float]) -> tuple[int, ...]:
-    """Kept-token count after each CE layer (ceil, attn_blocks.py:40)."""
-    lens = []
-    cur = num_search_tokens
-    for r in keep_ratios:
-        cur = math.ceil(r * cur)
-        lens.append(cur)
-    return tuple(lens)
 
 
 def generate_ctr_mask(template_feat_size: int, mode: str,
@@ -222,11 +212,20 @@ class ViTCEPrompt(nn.Module):
 
 
 class ViPTrack(nn.Module):
-    """Backbone + CenterPredictor (ostrack_prompt.py:17-91).
+    """Backbone + box head (ostrack_prompt.py:17-91; JAX vipt.py:248-337).
 
     forward(template (B,128,128,6), search (B,256,256,6)) -> dict with
     score_map (B,S,S), size_map/offset_map (B,S,S,2), pred_boxes (B,4)
     cxcywh in [0,1] crop coordinates, max_score (B,), backbone_tokens.
+
+    `head_type` (MODEL.HEAD.TYPE): CENTER, the centre / size / offset maps
+    decoded at the score map's argmax; CORNER, the corner head's
+    soft-argmax box, `score_map` its top-left distribution, zero size and
+    offset maps and max_score sqrt(max p_tl * max p_br); MLP, the sigmoid of
+    MLPHead on the mean search token, `score_map` the softmax over the
+    search tokens of their correlation with the mean template token over
+    sqrt(C), in f32, and max_score its largest value. The heads read the
+    search tokens in their image order (after `recover_search_tokens`).
     """
 
     def __init__(self, embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
@@ -236,8 +235,8 @@ class ViPTrack(nn.Module):
                  device=None, use_kernels: bool = True, drop_path_rate: float = 0.0,
                  param_dtype=None):
         super().__init__()
-        if head_type != "CENTER":
-            raise NotImplementedError(f"head_type={head_type}: only CENTER is ported")
+        if head_type not in ("CENTER", "CORNER", "MLP"):
+            raise ValueError(f"head_type={head_type!r}: one of CENTER, CORNER, MLP")
         self.head_type = head_type
         self.feat_sz = search_size // patch_size
         self.dtype = dtype
@@ -246,8 +245,14 @@ class ViPTrack(nn.Module):
             template_size=template_size, search_size=search_size, ce_loc=ce_loc,
             prompt_type=prompt_type, dtype=dtype, device=device, use_kernels=use_kernels,
             drop_path_rate=drop_path_rate, param_dtype=param_dtype)
-        self.box_head = CenterPredictor(embed_dim, head_channel, dtype=dtype, device=device,
-                                        param_dtype=param_dtype)
+        kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
+        if head_type == "CORNER":
+            self.box_head = CornerPredictor(embed_dim, head_channel, self.feat_sz, patch_size,
+                                            **kw)
+        elif head_type == "MLP":
+            self.box_head = MLPHead(embed_dim, embed_dim, **kw)
+        else:
+            self.box_head = CenterPredictor(embed_dim, head_channel, **kw)
 
     def forward(self, template: torch.Tensor, search: torch.Tensor,
                 box_mask_z: Optional[torch.Tensor] = None,
@@ -256,9 +261,27 @@ class ViPTrack(nn.Module):
         tokens = self.backbone(template, search, box_mask_z, ce_keep_lens, deterministic,
                                generator)
         S = self.feat_sz
-        feat = tokens[:, -S * S:].reshape(tokens.shape[0], S, S, -1)
-        score_map, size_map, offset_map = self.box_head(feat)
-        pred_boxes, max_score = cal_bbox(score_map, size_map, offset_map)
+        B = tokens.shape[0]
+        feat = tokens[:, -S * S:].reshape(B, S, S, -1)
+        if self.head_type == "CENTER":
+            score_map, size_map, offset_map = self.box_head(feat)
+            pred_boxes, max_score = cal_bbox(score_map, size_map, offset_map)
+        else:
+            if self.head_type == "CORNER":
+                xyxy, p_tl, p_br = self.box_head(feat, return_dist=True)
+                pred_boxes = box_xyxy_to_cxcywh(xyxy)
+                prob = p_tl
+                max_score = torch.sqrt(p_tl.amax(1) * p_br.amax(1))
+            else:
+                pred_boxes = torch.sigmoid(self.box_head(feat.mean(dim=(1, 2))))
+                z_tok = tokens[:, :tokens.shape[1] - S * S].float()
+                x_tok = feat.reshape(B, S * S, -1).float()
+                corr = torch.einsum("bnc,bc->bn", x_tok, z_tok.mean(dim=1))
+                prob = torch.softmax(corr / math.sqrt(x_tok.shape[-1]), dim=1)
+                max_score = prob.amax(1)
+            score_map = prob.reshape(B, S, S).to(self.dtype)
+            size_map = torch.zeros((B, S, S, 2), dtype=self.dtype, device=tokens.device)
+            offset_map = torch.zeros_like(size_map)
         return {"score_map": score_map, "size_map": size_map, "offset_map": offset_map,
                 "pred_boxes": pred_boxes, "max_score": max_score,
                 "backbone_tokens": tokens}
@@ -269,7 +292,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     card's machine has no jax to run `model.init`): LeCun-normal Dense and
     conv kernels (fan in = the product of all but the first axis),
     Xavier-uniform prompt convs, truncated-normal(0.02) position
-    embeddings and MixFormer's score token, a unit-normal query embedding
+    embeddings, relative-position bias tables and MixFormer's score token,
+    a unit-normal query embedding
     (STARK's), zero biases;
     LayerNorm, FrozenBatchNorm, the Fovea temperature and SiamFC's
     response scale keep their constructor values. Values are drawn in f32
@@ -280,7 +304,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if p.dim() >= 2 and ("pos_embed" in name or name.endswith("score_token")):
+            if p.dim() >= 2 and ("pos_embed" in name or name.endswith("score_token")
+                                 or "relative_position_bias_table" in name):
                 v = torch.empty(p.shape).normal_(0.0, 0.02, generator=g).clamp_(-0.04, 0.04)
             elif name == "query_embed.weight":
                 v = torch.empty(p.shape).normal_(0.0, 1.0, generator=g)

@@ -9,7 +9,36 @@ as `jnp.argsort(-score)` does (ce.py:71).
 
 from __future__ import annotations
 
+import math
+from typing import Sequence
+
 import torch
+
+
+def ce_keep_schedule(num_search_tokens: int, ce_loc: Sequence[int],
+                     keep_ratios: Sequence[float]) -> tuple[int, ...]:
+    """Kept-token count after each CE layer (ceil, attn_blocks.py:40)."""
+    lens = []
+    cur = num_search_tokens
+    for r in keep_ratios:
+        cur = math.ceil(r * cur)
+        lens.append(cur)
+    return tuple(lens)
+
+
+def ce_keep_lengths(lens_s: int, ce_loc: list[int], keep_ratio: float,
+                    depth: int) -> list[int]:
+    """The search-token count entering each of `depth` blocks, the counts
+    kept after each CE block from `ce_keep_schedule` (the ceiling of
+    attn_blocks.py:40; JAX ops/ce.py:17-34)."""
+    kept = ce_keep_schedule(lens_s, tuple(ce_loc), [keep_ratio] * len(ce_loc))
+    lengths, cur, k = [], lens_s, 0
+    for i in range(depth):
+        lengths.append(cur)
+        if i in ce_loc:
+            cur = kept[k]
+            k += 1
+    return lengths
 
 
 def _mean(x: torch.Tensor, dim: int) -> torch.Tensor:

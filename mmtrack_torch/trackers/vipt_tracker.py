@@ -110,11 +110,16 @@ def vipt_step_from_crop(rt: ViPTRuntime, model: ViPTrack, template: torch.Tensor
                         prev_box: torch.Tensor, search: torch.Tensor,
                         resize_factor: torch.Tensor, img_h: float, img_w: float):
     """Forward + window + decode + map-back + clip from normalised search
-    crops (vipt.py:71-110). Returns (boxes (B, 4), scores (B,))."""
+    crops (vipt.py:71-110). Returns (boxes (B, 4), scores (B,)). The CENTER
+    head's map is Hann-windowed and decoded; the CORNER and MLP heads'
+    boxes and scores are taken as they are (JAX vipt_tracker.py:97-106)."""
     box_mask_z, window = _head_constants(rt, search.device)
     out = model(template, search, box_mask_z, rt.ce_keep_lens)
-    bbox, score = cal_bbox(window[None] * out["score_map"], out["size_map"],
-                           out["offset_map"])
+    if getattr(model, "head_type", "CENTER") == "CENTER":
+        bbox, score = cal_bbox(window[None] * out["score_map"], out["size_map"],
+                               out["offset_map"])
+    else:
+        bbox, score = out["pred_boxes"], out["max_score"]
 
     rf = resize_factor[:, None]
     pred = bbox * rt.search_size / rf                                  # (cx, cy, w, h)

@@ -48,6 +48,7 @@ run that phase alone, merge it into --out and exit 0 when it passes.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -175,6 +176,16 @@ def _run_train(save_dir: str, epochs: int, extra: list, device: str,
         print(proc.stderr, file=sys.stderr, flush=True)
         raise subprocess.CalledProcessError(proc.returncode, cmd, proc.stdout, proc.stderr)
     return proc.stdout, seconds
+
+
+def params_digest(model: torch.nn.Module) -> str:
+    """SHA-256 of the model's state_dict, name by name, bytes as stored:
+    equal digests mean bit-equal parameters."""
+    h = hashlib.sha256()
+    for name, t in model.state_dict().items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def _latest_step_dir(root: str) -> str:
@@ -370,24 +381,34 @@ def run_lwl_phase(args, workdir: str) -> dict:
     """LWL (the segmentation family): trained on rasterised boxes, which on
     the synthetic corpus are the exact masks of its rectangles; the full
     mask tracker (few-shot learning on the init mask, segmentation, the
-    mask's box, memory updates) before and after."""
+    mask's box, memory updates) before and after. The phase runs under
+    deterministic algorithms, its training run too, so that its outcome is
+    one fixed number (without them cuDNN may pick convolution backwards that
+    sum with atomics, and the AUC spread 0.06-0.86 over runs); it is the
+    demo's last phase, so no other phase runs under them."""
     from mmtrack_torch.trackers.lwl_tracker import LWLTracker
+    from mmtrack_torch.utils.device import set_deterministic
 
+    set_deterministic()
     t0 = time.perf_counter()
     print("== lwl eval: random init", flush=True)
     model0 = _zoo_model("lwl")
     before = evaluate_factory(lambda: LWLTracker(model0, args.device), with_init_mask=True)
     print(json.dumps(before), flush=True)
     d = os.path.join(workdir, "lwl")
-    _, train_s = _run_train(d, args.lwl_epochs, ZOO_TRAIN_ARGS, args.device, "lwl")
+    _, train_s = _run_train(d, args.lwl_epochs, ZOO_TRAIN_ARGS + ["--deterministic"],
+                             args.device, "lwl")
     model1 = _restore_params(_latest_step_dir(os.path.join(d, "lwl-base", "checkpoints")),
                              _zoo_model("lwl"))
     print("== lwl eval: after training", flush=True)
     after = evaluate_factory(lambda: LWLTracker(model1, args.device), with_init_mask=True)
     print(json.dumps(after), flush=True)
+    with open(os.path.join(d, "lwl-base", "logs", "train.jsonl")) as f:
+        epoch_losses = [json.loads(line)["Loss/total"] for line in f]
     return {"epochs": args.lwl_epochs,
             "supervision": "rasterized boxes (exact: the synthetic target is a rectangle)",
-            "before": before, "after": after,
+            "before": before, "after": after, "epoch_losses": epoch_losses,
+            "params_sha256": params_digest(model1),
             "improved": bool(after["auc"] > before["auc"] + 0.02),
             "train_seconds": train_s, "seconds": time.perf_counter() - t0}
 

@@ -35,6 +35,14 @@ def count_trainable(model: nn.Module, mask: dict[str, bool]) -> int:
     return sum(p.numel() for name, p in model.named_parameters() if mask[name])
 
 
+def step_lr_schedule(base_lr: float, drop_step: int, decay: float = 0.1):
+    """The learning rate at an optimizer step under StepLR (JAX
+    optim.py:31-35): base_lr * decay ** (step // drop_step), decayed again
+    at every multiple of `drop_step` (DeT's StepLR(15, 0.2) drops at 15, 30,
+    45), as the StepLR of `build_optimizer` steps it."""
+    return lambda step: base_lr * decay ** (step // drop_step)
+
+
 def build_optimizer(model: nn.Module, *, lr: float, weight_decay: float = 1e-4,
                     lr_drop_step: int | None = None, decay_rate: float = 0.1,
                     grad_clip_norm: float = 0.1, trainable_mask: dict[str, bool] | None = None):

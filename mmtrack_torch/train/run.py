@@ -161,7 +161,14 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     p.add_argument("--distributed", action="store_true",
                    help="data-parallel over torchrun's processes (one per card)")
+    p.add_argument("--deterministic", action="store_true",
+                   help="deterministic algorithms only: two runs of the same seeds train "
+                        "the same parameters bit for bit")
     args = p.parse_args(argv)
+    if args.deterministic:
+        from mmtrack_torch.utils.device import set_deterministic
+
+        set_deterministic()
     if args.stage is not None and args.stage not in STAGES.get(args.script, ()):
         raise ValueError(f"--stage {args.stage} is not a stage of --script {args.script} "
                          f"(stages: {STAGES})")

@@ -1,6 +1,5 @@
-"""Training objectives of STARK, MixFormer, SiamFC, the MDNet family, KYS
-and LWL, port of mmtrack_tpu/train/zoo_actors.py (:39-348, :391-442,
-:472-500).
+"""Training objectives of STARK, MixFormer, SiamFC, the MDNet family, KYS,
+LWL and Alpha-Refine, port of mmtrack_tpu/train/zoo_actors.py.
 
   - STARK (SPT/lib/train, actors/stark_s.py + stark_st.py): stage 'bbox'
     is GIoU (2.0) + L1 (5.0) on the corner-decoded box; stage 'score' is
@@ -34,6 +33,9 @@ and LWL, port of mmtrack_tpu/train/zoo_actors.py (:39-348, :391-442,
     differentiating through the Gauss-Newton learner (the reference's
     create_graph=True meta-learning); 'lwl_box' decodes the box encoder's
     mask encoding of the search crop, only the box encoder trainable.
+  - Alpha-Refine (ARcm_Actor, ARcm.py:5-51): the corner L1 on the refined
+    box and 10000 x the mask BCE where the sample has a mask. No script of
+    tools/train.py trains it; its batch carries `masks` and `mask_valid`.
 
 Each `make_*_train_step` returns `train_step(state, batch, shard=SINGLE)
 -> (state, stats)` over the sampler's global batch (template (B, T, T, C),
@@ -42,7 +44,8 @@ search (B, S, S, C), search_anno (B, 4) normalised xywh), run on
 loss here is a mean over equal rows (GIoU, L1, the score BCE over B
 positives and B negatives, LBHinge, the MDNet / APFNet patch CE over
 B x 128 patches, the per-image Lovász mean) but SiamFC's, whose positive
-and negative counts are summed over the ranks; the rolled negatives are
+and negative counts are summed over the ranks, and Alpha-Refine's mask
+term, whose valid count is; the rolled negatives are
 rows of the global batch's roll; LWL's one filter for the batch is learned
 over the global batch (models/lwl.py::optimize_lwl_filter).
 """
@@ -299,6 +302,31 @@ def kys_pair_adapt_batch(batch: dict, search_sz: int, feat_stride: int = KYS_FEA
     }
 
 
+def kys_adapt_batch(batch: dict, search_sz: int, template_factor: float,
+                    feat_stride: int = KYS_FEAT_STRIDE, channels: int = 3) -> dict:
+    """The standard sampler batch (template, search, search_anno) as KYS's
+    step reads it, the template doubling as the previous frame
+    (zoo_actors.py:446-469): the target-centred template's box is the
+    centred square of side search_sz / template_factor by the crop's
+    construction; Gaussian labels (kernel 4) of that box and of the
+    search's on the stride-16 grid; the first `channels` channels."""
+    hS = search_sz // feat_stride
+    side = search_sz / template_factor
+    c = (search_sz - side) / 2.0
+    template = torch.as_tensor(batch["template"])
+    anno = torch.tensor([c, c, side, side], dtype=torch.float32,
+                        device=template.device).repeat(template.shape[0], 1)
+    cur = torch.as_tensor(batch["search_anno"], device=template.device) * search_sz
+    return {
+        "train_images": template[..., :channels],
+        "train_anno": anno,
+        "test_prev": template[..., :channels],
+        "test_cur": torch.as_tensor(batch["search"], device=template.device)[..., :channels],
+        "label_prev": gaussian_label_map(anno, hS, search_sz, kernel_sz=4),
+        "label_cur": gaussian_label_map(cur, hS, search_sz, kernel_sz=4),
+    }
+
+
 KYS_BATCH_KEYS = ("template", "template_anno", "search", "search_anno", "search_prev",
                   "search_prev_anno")
 
@@ -427,5 +455,46 @@ def make_lwl_box_train_step(image_sz: int = 256, template_factor: float = 6.0,
             loss = lovasz_hinge_loss(raw, b["train_masks"])
         return apply_update(state, loss, {"Loss/total": loss, "Stats/acc_box_train":
                                           _mask_accuracy(raw, b["train_masks"])}, shard)
+
+    return train_step
+
+
+# ----------------------------------------------------------- Alpha-Refine
+
+AR_BATCH_KEYS = ("template", "template_anno", "search", "search_anno", "masks", "mask_valid")
+
+
+def make_ar_train_step(corner_weight: float = 1.0, mask_weight: float = 10000.0,
+                       dtype: torch.dtype = torch.float32):
+    """Alpha-Refine's step (zoo_actors.py:351-388; ARcm_Actor / ARmask_Actor):
+    the L1 of the refined box's corners against the ground truth's (weight
+    1) plus 10000 x the sigmoid BCE of the mask logits, each sample's mask
+    term counted only where its `mask_valid` is 1 and divided by the
+    batch's valid count (at least 1).
+
+    Batch: template (B, t, t, 3), template_anno (B, 4) crop-pixel xywh,
+    search (B, s, s, 3), search_anno (B, 4) xywh in [0, 1], masks (B, s, s),
+    mask_valid (B,). The search features pass the xcorr kernel on the card
+    (its backward is the plain version's, ops/plain_grad.py)."""
+
+    def train_step(state: TrainState, batch: dict, shard: Shard = SINGLE):
+        model = state.model
+        dev = next(model.parameters()).device
+        b = {k: torch.as_tensor(v, device=dev)
+             for k, v in shard.local_batch(batch, AR_BATCH_KEYS).items()}
+        with compute_context(dev, dtype):
+            boxes, mask_logits = model(b["template"], b["template_anno"], b["search"])
+            pred_xyxy = box_cxcywh_to_xyxy(boxes.float())
+            loss_corner = (pred_xyxy - box_xywh_to_xyxy(b["search_anno"])).abs().mean()
+            m = mask_logits[..., 0] if mask_logits.dim() == 4 else mask_logits
+            y = b["masks"]
+            per_px = -y * F.logsigmoid(m.float()) - (1.0 - y) * F.logsigmoid(-m.float())
+            valid = b["mask_valid"].float()
+            n_valid = torch.clamp(shard.total(valid.sum()), min=1.0)
+            loss_mask = (per_px * valid[:, None, None]).mean(dim=(1, 2)).sum() * (
+                shard.world / n_valid)
+            loss = corner_weight * loss_corner + mask_weight * loss_mask
+        return apply_update(state, loss, {"Loss/total": loss, "loss_corner": loss_corner,
+                                          "loss_mask": loss_mask}, shard)
 
     return train_step

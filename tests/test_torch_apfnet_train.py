@@ -73,3 +73,31 @@ def test_apfnet_step_matches_jax(tree, stage, attribute):
     port_mask = apfnet.stage_mask(apfnet.APFNet(), stage, attribute)
     check_mdnet_step(japf.APFNet(), apfnet.APFNet, tree, 11, 21,
                      mask=jmask, port_mask=port_mask)
+
+
+@pytest.mark.parametrize("attribute", [0, 3])
+def test_stage1_topology_matches_jax(tree, attribute):
+    """`active_attribute`: one attribute's branch added to both streams, no
+    ensemble, no transformers (JAX apfnet.py:181-205), on tracker-scale
+    crops: the CHW features within 1e-4 of their largest magnitude and the
+    logits within 1e-4 relative, as tests/test_torch_mdnet.py holds the
+    tracking topology; it differs from the tracking topology."""
+    from functools import partial
+
+    import jax.numpy as jnp
+    from test_torch_mdnet import BLOCKS, chw, crops, nchw, port_model
+
+    jm = japf.APFNet()
+    x = crops(2, seed=attribute)
+    j_feats = np.asarray(jax.jit(partial(jm.apply, method=japf.APFNet.extract_features,
+                                         active_attribute=attribute))(tree, jnp.asarray(x)))
+    j_logits = np.asarray(jm.apply(tree, jnp.asarray(x), active_attribute=attribute))
+    port = port_model("apfnet", tree)
+    with torch.no_grad():
+        feats = port.extract_features(nchw(x), attribute).numpy()
+        logits = port(nchw(x), active_attribute=attribute).numpy()
+        tracking = port.extract_features(nchw(x)).numpy()
+    want = chw(j_feats, BLOCKS["apfnet"])
+    assert np.abs(feats - want).max() <= 1e-4 * np.abs(want).max()
+    assert np.abs(logits - j_logits).max() <= 1e-4 * np.abs(j_logits).max()
+    assert np.abs(tracking - feats).max() > 1e-2 * np.abs(want).max()

@@ -125,6 +125,27 @@ def test_kys_pair_adapt_batch_matches_jax(pair_batches, channels):
     assert got["train_images"].shape[-1] == channels and got["label_cur"].shape == (3, 6, 6)
 
 
+@pytest.mark.parametrize("channels", [3, 6])
+def test_kys_adapt_batch_matches_jax(pair_batches, channels):
+    """The template-as-previous-frame form (zoo_actors.py:446-469) on the
+    sampler's template / search / search_anno: the crops and the centred
+    template box bit-equal to JAX's jitted adaptation, the labels within
+    1e-6 of their peak."""
+    want_in, got_in = pair_batches[0]
+    keys = ("template", "search", "search_anno")
+    adapt = jax.jit(lambda b: jax_zoo.kys_adapt_batch(b, S, 5.0, channels=channels))
+    want = adapt({k: jnp.asarray(want_in[k]) for k in keys})
+    got = zoo_actors.kys_adapt_batch({k: torch.from_numpy(got_in[k]) for k in keys}, S, 5.0,
+                                     channels=channels)
+    assert set(got) == set(want)
+    for k in got:
+        if k.startswith("label"):
+            close(got[k], want[k], 1e-6)
+        else:
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    assert torch.equal(got["test_prev"], got["train_images"])
+
+
 def kys_tree(channels=3, seed=0):
     """KYSNet's flax tree, initialised (shapes only) on `channels`-channel
     images."""

@@ -171,3 +171,25 @@ def test_matcher_bridge_round_trip(trees):
     assert set(again) == {k for k in sd if not k.endswith("num_batches_tracked")}
     for k, v in again.items():
         assert torch.equal(v, sd[k]), k
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_matcher_nll_loss_and_gradient_match_jax(seed):
+    """KeepTrack's matcher loss: matched, unmatched (dustbin) and invalid
+    peaks; the loss within 1e-6 relative and its gradient with respect to
+    the log-assignment within 1e-6 of JAX's (jax.grad)."""
+    rng = np.random.RandomState(seed)
+    B, M, N = 3, 5, 4
+    la = rng.randn(B, M + 1, N + 1).astype(np.float32)
+    gt = rng.randint(-1, N, (B, M)).astype(np.int32)
+    valid0 = rng.rand(B, M) > 0.3
+    valid1 = rng.rand(B, N) > 0.3
+    if seed == 1:
+        valid0[:] = False                 # no valid peak: the mean's floor of 1
+    args = (jnp.asarray(gt), jnp.asarray(valid0), jnp.asarray(valid1))
+    want, want_g = jax.value_and_grad(lambda x: jpm.matcher_nll_loss(x, *args))(jnp.asarray(la))
+    x = T(la).requires_grad_(True)
+    got = pm.matcher_nll_loss(x, T(gt), T(valid0), T(valid1))
+    got.backward()
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_g), rtol=0, atol=1e-6)

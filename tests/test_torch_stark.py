@@ -220,8 +220,21 @@ def test_stark_npz_round_trips_and_backbone_menu(models, tmp_path):
     fresh.load_state_dict(load_checkpoint(path, "stark"))
     for k, v in port.state_dict().items():
         assert torch.equal(fresh.state_dict()[k], v), k
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stark.STARK(backbone_type="swin_tiny")
+    # SPT's other trunks build and load from their flax .npz as well
+    for trunk in ("repvgg_a0", "swin_tiny"):
+        jm = jax_stark.STARK(**SMALL, six_channel=True, backbone_type=trunk)
+        shapes = jax.eval_shape(lambda jm=jm: jm.init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 6)), jnp.zeros((1, 128, 128, 6))))
+        rng = np.random.RandomState(0)
+        tree = jax.tree.map(lambda s: rng.randn(*s.shape).astype(np.float32), shapes)
+        path = str(tmp_path / f"spt_{trunk}.npz")
+        np.savez(path, params=np.asarray(tree["params"], dtype=object))
+        port = stark.STARK(**SMALL, six_channel=True, backbone_type=trunk)
+        port.load_state_dict(load_checkpoint(path, "stark"))
+        want = stark_state_dict_from_flax(tree["params"])
+        assert port.state_dict().keys() == want.keys()
+        for k, v in want.items():
+            assert torch.equal(port.state_dict()[k], v), (trunk, k)
 
 
 def test_stark_host_crop_tracker_matches_jax(models):

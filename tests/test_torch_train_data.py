@@ -392,3 +392,30 @@ def test_disk_batches_bit_equal_to_jax(tmp_path, coco_api, corpus):
             np.testing.assert_array_equal(g[k], w[k], err_msg=f"{corpus} {k}")
         assert g["search"].shape == (4, 256, 256, channels)
         assert g["template"].shape == (4, 128, 128, channels)
+
+
+@pytest.mark.parametrize("mode", ["trident", "trident_pro", "stark"])
+def test_trident_modes_draw_as_jax(tmp_path, mode):
+    """The trident, trident_pro and stark modes (sampler.py:103-145) over
+    DepthTrack and VisEvent, whose sequences hold invisible frames and
+    boxes that are visible but not valid: two extra templates a sample
+    (max_gap [5, 10]), the raw frames and boxes of 12 samples bit-equal to
+    JAX's from the same seed, and the draws still in step after them."""
+    corpora = {"ours": [], "theirs": []}
+    for name in ("DepthTrack", "VisEvent"):
+        write, ours_cls, theirs_cls = READERS[name][:3]
+        write(str(tmp_path / name))
+        corpora["ours"].append(ours_cls(str(tmp_path / name)))
+        corpora["theirs"].append(theirs_cls(str(tmp_path / name)))
+    ours = sampler.TrackingSampler(corpora["ours"], [1, 1], 12, [5, 10],
+                                   frame_sample_mode=mode, seed=9)
+    theirs = jax_sampler.TrackingSampler(corpora["theirs"], [1, 1], 12, [5, 10],
+                                         frame_sample_mode=mode, seed=9)
+    for i in range(12):
+        got, want = ours.sample(), theirs.sample()
+        assert got.keys() == want.keys() and got["dataset"] == want["dataset"]
+        assert len(got["template_images"]) == 3 and len(got["search_images"]) == 1
+        for k in ("template_images", "template_anno", "search_images", "search_anno"):
+            for g, w in zip(got[k], want[k]):
+                np.testing.assert_array_equal(g, w, err_msg=f"{mode} sample {i} {k}")
+    assert ours.rng.integers(0, 2 ** 31) == theirs.rng.integers(0, 2 ** 31)
