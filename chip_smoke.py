@@ -279,7 +279,9 @@ non-zero:
      model, trainable set, optimizer and step: 2 steps each at B=16
      (MixFormer-L at B=4, APFNet at B=8), the ms of the second, the first
      and last loss (finite), peak memory, no launch of any of the five
-     kernels, one profiled step (device ms, idle share, kernels); one f32
+     kernels, one profiled step (device ms, idle share, kernels, from the
+     card's activity alone, without the host's op events: `card_only_*`,
+     not comparable with the CPU + CUDA windows of the other phases); one f32
      step each of dimp, mdnet, kys and lwl at B=1 on the card against the
      CPU on the same weights, batch and draws (each loss term within 1e-4
      relative, the trained leaves' relative L2 printed); and `python -m
@@ -348,6 +350,25 @@ non-zero:
      within 1e-4 relative, one xcorr launch. MobileNetV3-Large at 256 x
      256 and the rpe and talking-heads attentions (768 wide, 320 tokens)
      card against CPU within 1e-4 of the largest value.
+ 21. tools: JAX's serving opt-outs and its measuring tools, ported
+     (utils/optouts.py, kernels/ab_kernels.py, train/bench_train.py,
+     eval/wire_metric_ab.py). deep_rgbd bf16 built under each opt-out, one
+     forward without CE on phase 3's crops: 12 / 12 / 0 launches
+     (attention half-block, MLP half-block, flash_mhsa_qkv) with the
+     kernels, 0 / 0 / 0 under MMTRACK_ATTN=xla, 0 / 0 / 12 under
+     MMTRACK_MLP=xla (utils/optouts.py's switches for them); the maps
+     within phase 3's bars of the kernels' and the boxes (decoded at the
+     plain argmax) within MAP_BAR. `ab_kernels
+     fwd` in both modes at B=16, T=8 (9 / 12 launches a forward fused, 0 /
+     0 xla); `loop` in both modes and `crop gather`, one run each,
+     launches a step at capture 9 / 12 / 1 fused, 0 / 0 / 1 xla, 9 / 12 /
+     0 gather (`crop pallas` is the fused loop), boxes inside the frame
+     (their distance from fused's printed); `bench_train` at
+     B=32, 3 steps: finite losses, 8 / 1 / 1 launches a step
+     (flash_mhsa_qkv / attn / MLP half-block); the wire A/B on 4 x 21
+     frames with 200 overfit steps, host against rgbindex: SR / PR / NPR
+     within 0.001. The script refuses to start with MMTRACK_ATTN,
+     MMTRACK_MLP or MMTRACK_CROP set.
 
 Every phase prints its seconds (a `<phase>_phase` line), and the last
 phase line the seconds of all of them.
@@ -442,7 +463,8 @@ from mmtrack_torch.trackers.vipt_tracker import (
     vipt_step_from_crop,
     vipt_track_scan_batched,
 )
-from mmtrack_torch.utils.device import require_cuda
+from mmtrack_torch.utils import optouts
+from mmtrack_torch.utils.device import card_line, require_cuda
 
 B = 16
 OPE_SEQS, OPE_FRAMES, OPE_HW = 8, 13, (480, 640)   # the JAX bench's streamed cell, bench.py:47-55
@@ -498,13 +520,6 @@ def log(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() in ms over `iters` back-to-back calls."""
     for _ in range(warmup):
@@ -543,31 +558,50 @@ def device_rows(kept) -> list:
             and not e.key.startswith("ProfilerStep") and HEAD_MARKER not in e.key]
 
 
-def profile_window(fn, iters: int) -> tuple[list, float]:
+def profile_window(fn, iters: int, host_ops: bool = True) -> tuple[list, float]:
     """The CUDA rows of torch.profiler's key_averages over `iters` calls of
     fn(), largest device time first, and the window's wall seconds (host
-    clock, ending in a synchronize). One call runs before the window and
-    one in the profiler's warm-up step, whose events are dropped, and the
-    window opens with `window_head`."""
+    clock, ending in a synchronize). One call runs before the window, and
+    the window opens with `window_head`. With the host's op events
+    (`host_ops`, CPU + CUDA activity) one more call runs in the profiler's
+    warm-up step, whose events are dropped. `host_ops=False` records the
+    card's activity alone in a window without that schedule: on a
+    training step of 22-27k kernels it costs about half, and keeps the
+    kernel records (22,124 of 22,127 and 26,918 of 26,921, where the
+    scheduled CUDA-only window lost up to 621; docs/artifacts/
+    tools_probe.py profile). Its device ms read 7-15 % under a CPU + CUDA
+    window's and its wall carries none of the host events' cost, so its
+    numbers are not comparable with a CPU + CUDA window's (phase 16 prints
+    them under names of their own)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     for _ in range(3):   # a window now and then comes back without its device events
-        kept = []
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: kept.extend(p.key_averages())) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-            window_head()
-            t0 = time.perf_counter()
-            for _ in range(iters):
+        if host_ops:
+            kept = []
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=lambda p: kept.extend(p.key_averages())) as prof:
                 fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            prof.step()
+                torch.cuda.synchronize()
+                prof.step()
+                window_head()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                prof.step()
+        else:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                window_head()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            kept = prof.key_averages()
         rows = device_rows(kept)
         if rows:
             return sorted(rows, key=lambda e: -e.self_device_time_total), wall
@@ -3653,7 +3687,10 @@ def zoo_train_path(dev, side=None) -> None:
             losses.append(float(stats["Loss/total"]))
             ms.append((time.perf_counter() - t0) * 1e3)
         launches = {fn.__name__: fn.launches for fn in KERNEL_COUNTERS}
-        rows, wall_s = profile_window(lambda: step(state, batches[-1]), 1)
+        # the card's activity alone: the profiled steps took two thirds of
+        # this phase's seconds, half of that for the host's op events (which
+        # makes room for phase 21); its numbers go under card_only_* names
+        rows, wall_s = profile_window(lambda: step(state, batches[-1]), 1, host_ops=False)
         dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
         n_trained = count_trainable(model, trainable) if trainable is not None else sum(
             p.numel() for p in model.parameters())
@@ -3665,11 +3702,13 @@ def zoo_train_path(dev, side=None) -> None:
             median_step_ms=float(np.median(ms[1:])), first_loss=losses[0], last_loss=losses[-1],
             samples_per_s=B / (float(np.median(ms[1:])) / 1e3),
             peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20, launches=launches,
-            profiled_step_device_ms=dev_ms, profiled_step_wall_ms=wall_s * 1e3,
-            device_idle_share=1.0 - dev_ms / (wall_s * 1e3),
-            profiled_step_kernels=sum(e.count for e in rows),
-            top_kernels=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
-                         for e in rows[:5]], loader_s=loader_s,
+            profiler=("CUDA activity alone: not comparable with a CPU + CUDA window's "
+                      "profiled_step_* and device_idle_share"),
+            card_only_step_device_ms=dev_ms, card_only_step_wall_ms=wall_s * 1e3,
+            card_only_idle_share=1.0 - dev_ms / (wall_s * 1e3),
+            card_only_step_kernels=sum(e.count for e in rows),
+            card_only_top_kernels=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                                   for e in rows[:5]], loader_s=loader_s,
             seconds=time.perf_counter() - t_script, card=card_line())
         if not ok:
             raise AssertionError(f"zoo_train {script} {stage}: losses {losses}, "
@@ -4392,6 +4431,133 @@ def heads_backbones_path(dev, rt, frames, box0) -> dict:
     return counted
 
 
+# phase 21: the JAX package's serving opt-outs and its three measuring tools
+TOOLS_FWD_B, TOOLS_FWD_T = 16, 8
+TOOLS_LOOP_REPS = 1
+TOOLS_TRAIN_B, TOOLS_TRAIN_STEPS = 32, 3
+TOOLS_WIRE = dict(n_seq=4, n_frames=21, train_seqs=2, steps=200)
+TOOLS_WIRES = ("host", "rgbindex")
+# launches a forward (ab_kernels fwd) and a step (the loop's capture) by
+# mode: `xla` is MMTRACK_ATTN and MMTRACK_MLP at xla, the crop run
+# MMTRACK_CROP=gather (`pallas` is the fused loop's own crop)
+TOOLS_FWD_LAUNCHES = {"fused": {"attn_block_fused": 9, "mlp_block_fused": 12},
+                      "xla": {"attn_block_fused": 0, "mlp_block_fused": 0}}
+TOOLS_LOOP_LAUNCHES = {("fused", None): (9, 12, 1), ("xla", None): (0, 0, 1),
+                       ("fused", "gather"): (9, 12, 0)}
+# one forward without candidate elimination (12 blocks, all fusable) under
+# each opt-out: (attn_block_fused, mlp_block_fused, flash_mhsa_qkv)
+TOOLS_OPT_OUT_FORWARD = {"fused": ({}, (12, 12, 0)),
+                         "xla": ({"attn": "xla", "mlp": "xla"}, (0, 0, 0)),
+                         "mlp_xla": ({"mlp": "xla"}, (0, 0, 12))}
+
+
+def opt_out_forwards(dev, rt, frames, box0) -> None:
+    """Phase 3's check of the kernels against their plain versions, with
+    the plain versions chosen through JAX's opt-outs: deep_rgbd (bf16,
+    seed 0) built with the switches (utils/optouts.py::resolve) of each of
+    TOOLS_OPT_OUT_FORWARD's choices, one
+    forward without candidate elimination on the same crops, launches as
+    listed; the maps within MAP_BAR / OFFSET_REL_BAR of the fused model's
+    and the boxes, decoded at the xla run's score argmax, within MAP_BAR.
+    The run with candidate elimination is printed."""
+    cfg = vipt_experiment_config("deep_rgbd")
+    mean, std = torch.from_numpy(MEAN_6CH).to(dev), torch.from_numpy(STD_6CH).to(dev)
+    state = vipt_init_state(rt, frames[0], torch.from_numpy(box0))
+    search, _ = crop_resize_normalized_plain(frames[1], state["box"], rt.search_factor,
+                                             rt.search_size, mean, std)
+    mask = generate_ctr_mask(rt.template_size // rt.stride, rt.ce_template_range, dev)
+    counters = (attn_block_fused, mlp_block_fused, flash_mhsa_qkv)
+    outs, launched = {}, {}
+    for name, (env, _) in TOOLS_OPT_OUT_FORWARD.items():
+        model = build_viptrack(cfg, dtype=torch.bfloat16, device=dev, seed=0,
+                               **optouts.resolve(**env).model_kwargs())
+        with torch.inference_mode():
+            before = [fn.launches for fn in counters]
+            no_ce = model(state["template"], search, mask, None)
+            launched[name] = tuple(fn.launches - b for fn, b in zip(counters, before))
+            outs[name] = {None: no_ce, "ce": model(state["template"], search, mask,
+                                                   rt.ce_keep_lens)}
+        del model
+    want = {k: v[1] for k, v in TOOLS_OPT_OUT_FORWARD.items()}
+
+    def vs(a, b):
+        d = {k: (a[k].float() - b[k].float()).abs().max().item()
+             for k in ("score_map", "size_map")}
+        d["offset_map_rel"] = ((a["offset_map"].float() - b["offset_map"].float()).abs().max()
+                               / b["offset_map"].float().abs().max()).item()
+        at = cal_bbox(b["score_map"], a["size_map"], a["offset_map"])[0]
+        d["boxes_at_plain_argmax"] = (at.float() - b["pred_boxes"].float()).abs().max().item()
+        d["boxes"] = (a["pred_boxes"].float() - b["pred_boxes"].float()).abs().max().item()
+        return d
+
+    rows = {k: vs(outs["fused"][None], outs[k][None]) for k in ("xla", "mlp_xla")}
+    with_ce = {k: vs(outs["fused"]["ce"], outs[k]["ce"]) for k in ("xla", "mlp_xla")}
+    log("tools_opt_out_forward", launches=launched, expected=want, without_ce=rows, with_ce=with_ce,
+        map_bar=MAP_BAR, offset_rel_bar=OFFSET_REL_BAR, card=card_line())
+    bad = [k for k, d in rows.items() if d["score_map"] > MAP_BAR or d["size_map"] > MAP_BAR
+           or d["offset_map_rel"] > OFFSET_REL_BAR or d["boxes_at_plain_argmax"] > MAP_BAR]
+    if launched != want or bad:
+        raise AssertionError(f"opt-out forwards: launches {launched} (want {want}), beyond the "
+                             f"bars: {bad} {rows}")
+
+
+def tools_path(dev, rt, frames, box0) -> dict:
+    """Phase 21: the opt-outs and the three tools, in this process.
+    Returns the kernel launches counted in it."""
+    from mmtrack_torch.eval import wire_metric_ab
+    from mmtrack_torch.kernels import ab_kernels
+    from mmtrack_torch.train.bench_train import bench_train
+
+    t_phase = time.perf_counter()
+    for fn in KERNEL_COUNTERS:
+        fn.launches = 0
+    opt_out_forwards(dev, rt, frames, box0)
+    for mode, want in TOOLS_FWD_LAUNCHES.items():
+        rec = ab_kernels.run_fwd(mode, TOOLS_FWD_B, TOOLS_FWD_T, dev)
+        got = {k: rec["launches_per_forward"][k] for k in want}
+        if got != want or not np.isfinite(rec["pred_boxes"]).all():
+            raise AssertionError(f"ab_kernels fwd {mode}: launches {got} (want {want}), boxes "
+                                 f"finite {np.isfinite(rec['pred_boxes']).all()}")
+    loops = {}
+    for (mode, crop), want in TOOLS_LOOP_LAUNCHES.items():
+        rec = ab_kernels.run_loop(mode, TOOLS_LOOP_REPS, crop, dev)
+        got = tuple(rec["launches_per_step"][k] for k in SCAN_PER_STEP)
+        loops[(mode, crop)] = rec["boxes"]
+        if got != want or not boxes_inside(rec["boxes"]):
+            raise AssertionError(f"ab_kernels loop {mode} crop={crop}: launches a step {got} "
+                                 f"(want {want}), boxes inside {boxes_inside(rec['boxes'])}")
+    ref = loops[("fused", None)]
+    log("tools_loop_boxes", vs_fused_max_abs_px={f"{m}/crop={c}": float(np.abs(b - ref).max())
+                                                 for (m, c), b in loops.items()})
+
+    rows = bench_train(vipt_experiment_config("deep_rgbd"), (TOOLS_TRAIN_B,), TOOLS_TRAIN_STEPS,
+                       dev)
+    for row in rows:
+        if (not (math.isfinite(row["loss_first"]) and math.isfinite(row["loss_last"]))
+                or row["launches_per_step"] != DISK_PER_STEP):
+            raise AssertionError(f"bench_train: {row} (launches a step want {DISK_PER_STEP})")
+
+    model = build_viptrack(vipt_experiment_config("deep_rgbd"), dtype=torch.bfloat16,
+                           param_dtype=torch.float32, device=dev, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = wire_metric_ab.run(model, tmp, device=dev, wires=TOOLS_WIRES, log_every=100,
+                                 **TOOLS_WIRE)
+        yuv420 = wire_metric_ab.yuv_unavailable(tmp) or "runs"
+    losses = out["overfit"]["losses"]
+    log("tools_wire_ab", wires=list(out["boxes"]), within_budget=out["within_budget"],
+        deltas=out["deltas_vs_host"], decoder=out["decoder"],
+        yuv420=yuv420, loss_first=losses[0],
+        loss_last=losses[-1], samples=out["overfit"]["samples"],
+        calibration_delta=out["overfit"]["delta"].tolist(), card=card_line())
+    if not (out["within_budget"].get("rgbindex") and np.isfinite(losses).all()):
+        raise AssertionError(f"wire A/B: rgbindex within budget {out['within_budget']}, "
+                             f"losses finite {np.isfinite(losses).all()}")
+    del model
+    torch.cuda.empty_cache()
+    log("tools_phase", seconds=time.perf_counter() - t_phase)
+    return {fn.__name__: fn.launches for fn in KERNEL_COUNTERS}
+
+
 def timed(phase: str, fn, *args):
     """fn(*args), then a line with the phase's seconds."""
     t0 = time.perf_counter()
@@ -4402,6 +4568,10 @@ def timed(phase: str, fn, *args):
 
 def main() -> int:
     t_main = time.perf_counter()
+    opted_out = optouts.set_names()
+    if opted_out:
+        raise SystemExit(f"chip_smoke.py holds every kernel to its path: unset "
+                         f"{', '.join(opted_out)} (an opt-out would take a kernel off it)")
     dev = require_cuda()
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4481,7 +4651,8 @@ def main() -> int:
         if demo and demo["proc"].poll() is None:
             os.killpg(demo["proc"].pid, 9)
             demo["proc"].communicate()
-    for counts in (host_launches, ddp_path(), heads_backbones_path(dev, rt, frames, box0)):
+    for counts in (host_launches, ddp_path(), heads_backbones_path(dev, rt, frames, box0),
+                   tools_path(dev, rt, frames, box0)):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     log("phases", seconds=time.perf_counter() - t_main)

@@ -24,6 +24,9 @@ import torch
 
 
 def main(argv=None) -> int:
+    from mmtrack_torch.utils.optouts import refuse
+
+    refuse("mmtrack_torch.demo")
     p = argparse.ArgumentParser()
     p.add_argument("--tracker", default="vipt_deep_rgbt")
     p.add_argument("--out", default="./workspace/demo")

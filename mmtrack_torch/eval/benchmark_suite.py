@@ -26,6 +26,9 @@ import torch
 
 
 def main(argv=None) -> int:
+    from mmtrack_torch.utils.optouts import refuse
+
+    refuse("mmtrack_torch.eval.benchmark_suite")
     p = argparse.ArgumentParser()
     p.add_argument("--modality", default=None, choices=["rgbd", "rgbt", "rgbe", "rgb"])
     p.add_argument("--trackers", default=None, help="comma-separated names")

@@ -121,6 +121,9 @@ def compose_as_recipe(seqs, composition: str) -> None:
 
 
 def main(argv=None) -> int:
+    from mmtrack_torch.utils.optouts import refuse
+
+    refuse("mmtrack_torch.eval.run_ope")
     p = argparse.ArgumentParser(description="OPE evaluation with the PyTorch port")
     p.add_argument("--dataset", required=True,
                    help="LasHeR|RGBT234|GTOT|VTUAV|VisEvent|DepthTrack|CDTB|SYNTH")

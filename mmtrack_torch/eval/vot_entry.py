@@ -1,6 +1,8 @@
 """VOT toolkit entry of the port: `python -m mmtrack_torch.eval.vot_entry`,
 launched by `vot evaluate` per sequence through a trackers.ini stanza with
-protocol=traxpython. It speaks TraX over stdin/stdout.
+`protocol = trax` and `command = python -m mmtrack_torch.eval.vot_entry`
+(README.md). It speaks TraX over stdin/stdout and starts a session only
+when run as a program: importing the module answers nothing.
 
 Environment (the same variables as tools/run_vot_entry.py, plus the device):
 
@@ -34,6 +36,7 @@ from mmtrack_torch.eval.vot import run_vot_exp
 from mmtrack_torch.models.alpha_refine import ARcmSeg, ARRuntime, build_alpha_refine
 from mmtrack_torch.models.convert import alpha_refine_state_dict_from_flax, load_flax_npz
 from mmtrack_torch.registry import TRACKER_REGISTRY, build_tracker
+from mmtrack_torch.utils import optouts
 from mmtrack_torch.utils.device import require_cuda, set_f32_precision
 
 AR_INPUT_SIZE = 256
@@ -50,6 +53,7 @@ def refiner_factory(device, ckpt: str | None = None, seed: int = 0):
 
 
 def main(fin=None, fout=None) -> int:
+    optouts.refuse("mmtrack_torch.eval.vot_entry")
     name = os.environ.get("MMTRACK_TRACKER", "vipt_deep_rgbd")
     recipe = TRACKER_REGISTRY.get(name)
     dtype = os.environ.get("MMTRACK_DTYPE", recipe.composition if recipe else "rgbcolormap")

@@ -24,6 +24,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from mmtrack_torch.ops.crop import crop_resize_normalized
+from mmtrack_torch.utils import optouts
 
 B, ITERS = 16, 50
 MEAN = np.array([0.485, 0.456, 0.406] * 2, np.float32)
@@ -44,6 +45,7 @@ def boxes_for(H: int, W: int, rng: np.random.RandomState) -> np.ndarray:
 
 
 def main() -> None:
+    optouts.refuse("mmtrack_torch.kernels.time_crop")
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)

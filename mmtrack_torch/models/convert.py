@@ -609,8 +609,8 @@ def _mlp_leaf(prefix: str, p: str, value: np.ndarray):
 
 def _matcher_leaf(p: str, value: np.ndarray):
     """(port name, value) of one PeakMatcher flax leaf (params or
-    batch_stats). The attention's q / k / v outputs and merge inputs go
-    from flax's head-major channels to the port's d-major ones."""
+    batch_stats). The attention's q / k / v outputs and merge inputs are
+    reordered from flax's head-major channels to the port's d-major ones."""
     if p == "bin_score":
         return "matcher.bin_score", value
     if m := re.fullmatch(r"final_proj/(kernel|bias)", p):

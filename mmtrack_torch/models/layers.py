@@ -290,14 +290,19 @@ class CEBlock(nn.Module):
     wrappers launch the CUDA kernels for CUDA tensors and their plain
     versions on the CPU. `use_kernels=False` selects the plain versions on
     any device, for comparing a whole model with and without the kernels.
+    `fuse=False` runs the unfused layers at bf16 too, where JAX's gate sends
+    its blocks under MMTRACK_ATTN=xla or MMTRACK_MLP=xla (utils/optouts.py);
+    `use_kernels` then decides only the attention's `flash_mhsa_qkv`.
     """
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32, device=None,
-                 use_kernels: bool = True, drop_path_rate: float = 0.0, param_dtype=None):
+                 use_kernels: bool = True, drop_path_rate: float = 0.0, param_dtype=None,
+                 fuse: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.use_kernels = use_kernels
+        self.fuse = fuse
         self.drop_path_rate = drop_path_rate
         kw = dict(dtype=dtype, device=device)
         self.norm1 = LayerNorm(dim, **kw)
@@ -313,7 +318,7 @@ class CEBlock(nn.Module):
         lens_s = global_index_s.shape[1]
         needs_ce = lens_keep is not None and lens_keep < lens_s
         stochastic = not deterministic and self.drop_path_rate > 0
-        fused = self.dtype == torch.bfloat16 and not stochastic
+        fused = self.fuse and self.dtype == torch.bfloat16 and not stochastic
         attn_fn = attn_block_fused if self.use_kernels else attn_block_fused_plain
         mlp_fn = mlp_block_fused if self.use_kernels else mlp_block_fused_plain
         dt = self.dtype

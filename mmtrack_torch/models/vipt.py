@@ -105,7 +105,8 @@ class ViTCEPrompt(nn.Module):
                  patch_size: int = 16, template_size: int = 128,
                  search_size: int = 256, ce_loc: tuple[int, ...] = (3, 6, 9),
                  prompt_type: str = "vipt_deep", dtype=torch.float32, device=None,
-                 use_kernels: bool = True, drop_path_rate: float = 0.0, param_dtype=None):
+                 use_kernels: bool = True, drop_path_rate: float = 0.0, param_dtype=None,
+                 fuse: bool = True):
         super().__init__()
         self.depth = depth
         self.ce_loc = tuple(ce_loc)
@@ -126,7 +127,7 @@ class ViTCEPrompt(nn.Module):
         self.pos_embed_z = nn.Parameter(torch.zeros(1, self.lens_z, embed_dim, device=device))
         self.pos_embed_x = nn.Parameter(torch.zeros(1, self.lens_x, embed_dim, device=device))
         self.blocks = nn.ModuleList(
-            CEBlock(embed_dim, num_heads, use_kernels=use_kernels,
+            CEBlock(embed_dim, num_heads, use_kernels=use_kernels, fuse=fuse,
                     drop_path_rate=drop_path_rate * i / max(depth - 1, 1), **pkw)
             for i in range(depth))
         self.norm = LayerNorm(embed_dim, **kw)
@@ -233,7 +234,7 @@ class ViPTrack(nn.Module):
                  ce_loc: tuple[int, ...] = (3, 6, 9), prompt_type: str = "vipt_deep",
                  head_channel: int = 256, head_type: str = "CENTER", dtype=torch.float32,
                  device=None, use_kernels: bool = True, drop_path_rate: float = 0.0,
-                 param_dtype=None):
+                 param_dtype=None, fuse: bool = True):
         super().__init__()
         if head_type not in ("CENTER", "CORNER", "MLP"):
             raise ValueError(f"head_type={head_type!r}: one of CENTER, CORNER, MLP")
@@ -244,7 +245,7 @@ class ViPTrack(nn.Module):
             embed_dim=embed_dim, depth=depth, num_heads=num_heads, patch_size=patch_size,
             template_size=template_size, search_size=search_size, ce_loc=ce_loc,
             prompt_type=prompt_type, dtype=dtype, device=device, use_kernels=use_kernels,
-            drop_path_rate=drop_path_rate, param_dtype=param_dtype)
+            drop_path_rate=drop_path_rate, param_dtype=param_dtype, fuse=fuse)
         kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
         if head_type == "CORNER":
             self.box_head = CornerPredictor(embed_dim, head_channel, self.feat_sz, patch_size,
@@ -415,11 +416,13 @@ class ScoreTransformer(nn.Module):
 
 
 def build_viptrack(cfg, dtype=torch.float32, device=None, seed: Optional[int] = None,
-                   use_kernels: bool = True, param_dtype=None) -> ViPTrack:
+                   use_kernels: bool = True, param_dtype=None, fuse: bool = True) -> ViPTrack:
     """ViPTrack from a config (build_viptrack, ostrack_prompt.py:94-145);
     seeded random weights when `seed` is given. Matmul and conv weights are
     held in `param_dtype` (default `dtype`); training passes f32 with a
-    bf16 `dtype`, as flax keeps its parameters."""
+    bf16 `dtype`, as flax keeps its parameters. `use_kernels` and `fuse`
+    go to every block (CEBlock; utils/optouts.py maps JAX's opt-outs to
+    them)."""
     model = ViPTrack(
         template_size=cfg.DATA.TEMPLATE.SIZE,
         search_size=cfg.DATA.SEARCH.SIZE,
@@ -432,7 +435,8 @@ def build_viptrack(cfg, dtype=torch.float32, device=None, seed: Optional[int] = 
         head_channel=cfg.MODEL.HEAD.NUM_CHANNELS,
         head_type=cfg.MODEL.HEAD.TYPE,
         drop_path_rate=cfg.TRAIN.DROP_PATH_RATE,
-        dtype=dtype, device=device, use_kernels=use_kernels, param_dtype=param_dtype)
+        dtype=dtype, device=device, use_kernels=use_kernels, param_dtype=param_dtype,
+        fuse=fuse)
     if seed is not None:
         init_weights(model, seed)
     return model.eval()

@@ -239,6 +239,9 @@ def run(n: int, toy: bool = False, device: str = "cuda") -> dict:
 
 
 def main(argv=None) -> int:
+    from mmtrack_torch.utils.optouts import refuse
+
+    refuse("mmtrack_torch.parallel.dryrun")
     p = argparse.ArgumentParser(description="data-parallel dry run of the port")
     p.add_argument("--n", type=int, default=2, help="ranks (processes)")
     p.add_argument("--toy", action="store_true", help="the depth-2 dim-32 model")

@@ -31,6 +31,7 @@ from mmtrack_torch.models.vipt import ViPTrack, ce_keep_schedule, generate_ctr_m
 from mmtrack_torch.ops.box import clip_box
 from mmtrack_torch.ops.crop import crop_resize_normalized
 from mmtrack_torch.ops.window import hann2d
+from mmtrack_torch.utils.device import capture_graph
 
 # ImageNet statistics for both modality triplets (PreprocessorMM,
 # ViPT lib/test/tracker/data_utils.py:15-24).
@@ -94,15 +95,16 @@ def _head_constants(rt: ViPTRuntime, device: torch.device):
                 hann2d(rt.feat_sz, rt.feat_sz, device=device))
 
 
-def vipt_init_state(rt: ViPTRuntime, frames: torch.Tensor, init_boxes: torch.Tensor) -> dict:
+def vipt_init_state(rt: ViPTRuntime, frames: torch.Tensor, init_boxes: torch.Tensor,
+                    crop: Callable = crop_resize_normalized) -> dict:
     """Tracker state from the first frames (ViPTTrack.initialize,
     vipt.py:41-62): {'box' (B, 4) xywh, 'template' (B, T, T, C) f32
     normalised}. The template stays f32; the patch embed casts it on every
-    step, as in the JAX package."""
+    step, as in the JAX package. `crop` is the crop's wrapper, or its plain
+    version (JAX's MMTRACK_CROP=gather, utils/optouts.py)."""
     mean, std = _stats(frames.shape[-1], frames.device)
     boxes = init_boxes.to(device=frames.device, dtype=torch.float32)
-    template, _ = crop_resize_normalized(frames, boxes, rt.template_factor,
-                                         rt.template_size, mean, std)
+    template, _ = crop(frames, boxes, rt.template_factor, rt.template_size, mean, std)
     return {"box": boxes, "template": template}
 
 
@@ -133,22 +135,25 @@ def vipt_step_from_crop(rt: ViPTRuntime, model: ViPTrack, template: torch.Tensor
     return clip_box(new_box, img_h, img_w, margin=rt.margin), score
 
 
-def vipt_track_step(rt: ViPTRuntime, model: ViPTrack, state: dict, frames: torch.Tensor):
-    """One tracked frame for each of B sequences.
+def vipt_track_step(rt: ViPTRuntime, model: ViPTrack, state: dict, frames: torch.Tensor,
+                    crop: Callable = crop_resize_normalized):
+    """One tracked frame for each of B sequences, its search crop made by
+    `crop` (as in `vipt_init_state`).
     Returns (new_state, boxes (B, 4), scores (B,))."""
     H, W, c = frames.shape[1], frames.shape[2], frames.shape[3]
     mean, std = _stats(c, frames.device)
-    search, resize_factor = crop_resize_normalized(frames, state["box"], rt.search_factor,
-                                                   rt.search_size, mean, std)
+    search, resize_factor = crop(frames, state["box"], rt.search_factor, rt.search_size, mean,
+                                 std)
     boxes, scores = vipt_step_from_crop(rt, model, state["template"], state["box"], search,
                                         resize_factor, float(H), float(W))
     return {"box": boxes, "template": state["template"]}, boxes, scores
 
 
 def vipt_track_scan_batched(rt: ViPTRuntime, model: ViPTrack, state: dict,
-                            frames: torch.Tensor):
+                            frames: torch.Tensor, crop: Callable = crop_resize_normalized):
     """Track a chunk of frames (T, B, H, W, C) uint8 for B sequences in
-    lockstep: `vipt_track_step` once per frame, on any device.
+    lockstep: `vipt_track_step` once per frame (each crop made by `crop`),
+    on any device.
     Returns (final_state, boxes (T, B, 4), scores (T, B)).
 
     The loop that the JAX package's lax.scan runs; on the card
@@ -156,7 +161,7 @@ def vipt_track_scan_batched(rt: ViPTRuntime, model: ViPTrack, state: dict,
     against this loop."""
     boxes, scores = [], []
     for t in range(frames.shape[0]):
-        state, box, score = vipt_track_step(rt, model, state, frames[t])
+        state, box, score = vipt_track_step(rt, model, state, frames[t], crop)
         boxes.append(box)
         scores.append(score)
     return state, torch.stack(boxes), torch.stack(scores)
@@ -184,27 +189,20 @@ class _ChunkGraph:
     replays. The outputs live in the graph's private memory pool."""
 
     def __init__(self, rt: ViPTRuntime, model: ViPTrack, state: dict, frames: torch.Tensor,
-                 device: torch.device):
+                 device: torch.device, crop: Callable):
         self.frames = torch.empty(frames.shape, dtype=torch.uint8, device=device)
         self.box = torch.empty(state["box"].shape, dtype=torch.float32, device=device)
         self.template = torch.empty(state["template"].shape, dtype=torch.float32,
                                     device=device)
         self._load(state, frames)
         static = {"box": self.box, "template": self.template}
-        # Warm up on the capture stream first: library handles, the
-        # convolutions' algorithm choice, the kernel library's build and
-        # its one-time function attributes, and the step's constants are
-        # made here, outside the capture.
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
+
+        def warmup():
             for _ in range(SCAN_WARMUP_STEPS):
-                vipt_track_step(rt, model, static, self.frames[0])
-        torch.cuda.current_stream(device).wait_stream(stream)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream):
-            final, self.boxes, self.scores = vipt_track_scan_batched(rt, model, static,
-                                                                     self.frames)
+                vipt_track_step(rt, model, static, self.frames[0], crop)
+
+        self.graph, (final, self.boxes, self.scores) = capture_graph(
+            lambda: vipt_track_scan_batched(rt, model, static, self.frames, crop), device, warmup)
         self.final_box = final["box"]
 
     def _load(self, state: dict, frames: torch.Tensor) -> None:
@@ -221,7 +219,8 @@ class _ChunkGraph:
         return {"box": self.final_box, "template": self.template}, self.boxes, self.scores
 
 
-def make_track_scan(rt: ViPTRuntime, model: ViPTrack, device) -> Callable:
+def make_track_scan(rt: ViPTRuntime, model: ViPTrack, device,
+                    crop: Callable = crop_resize_normalized) -> Callable:
     """`vipt_track_scan_batched` on the card as one CUDA graph per chunk
     shape: the counterpart of jax.jit(partial(vipt_track_scan_batched, rt,
     model), donate_argnums=(1,)) (bench.py:378).
@@ -238,7 +237,8 @@ def make_track_scan(rt: ViPTRuntime, model: ViPTrack, device) -> Callable:
     shape overwrites (passing the returned state back in is fine), as the
     jitted scan's donated state is gone after the call; clone what must
     outlive it. The launch counters of the kernel wrappers count at
-    capture (and warm-up), not at replay.
+    capture (and warm-up), not at replay. `crop` makes the steps' search
+    crops (`vipt_track_step`).
 
     The CPU has no graphs: a CPU device raises (call
     `vipt_track_scan_batched` there)."""
@@ -254,7 +254,7 @@ def make_track_scan(rt: ViPTRuntime, model: ViPTrack, device) -> Callable:
     def scan(state: dict, frames: torch.Tensor):
         key = tuple(frames.shape)
         if key not in graphs:
-            graphs[key] = _ChunkGraph(rt, model, state, frames, device)
+            graphs[key] = _ChunkGraph(rt, model, state, frames, device, crop)
         return graphs[key](state, frames)
 
     return scan

@@ -414,6 +414,9 @@ def run_lwl_phase(args, workdir: str) -> dict:
 
 
 def main(argv=None) -> int:
+    from mmtrack_torch.utils.optouts import refuse
+
+    refuse("mmtrack_torch.train.learning_demo")
     ap = argparse.ArgumentParser(description="End-to-end learning demonstration of the port")
     ap.add_argument("--epochs", type=int, default=8,
                     help="stage-1 total epochs (the first run trains half)")

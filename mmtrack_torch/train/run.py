@@ -130,6 +130,9 @@ def load_init(model: torch.nn.Module, path: str, family: str) -> tuple[list, lis
 
 
 def main(argv=None) -> int:
+    from mmtrack_torch.utils.optouts import refuse
+
+    refuse("mmtrack_torch.train.run")
     p = argparse.ArgumentParser(description="Train a tracker with the PyTorch port")
     p.add_argument("--script", default="vipt", choices=SCRIPTS)
     p.add_argument("--stage", default=None, choices=["bbox", "score", "1", "2", "3"],

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import os
+import subprocess
 
 import torch
 
@@ -16,6 +17,33 @@ def require_cuda() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this entry point needs an NVIDIA GPU")
     return torch.device("cuda", 0)
+
+
+def card_line() -> str:
+    """The first card's name and power limit as nvidia-smi gives them
+    (`name, power.limit`), the tag every speed number of the port carries."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def capture_graph(fn, device, warmup=None):
+    """fn() captured as one CUDA graph on a side stream of `device`.
+    `warmup` (fn when not given) runs there first, eagerly: library
+    handles, the convolutions' algorithm choice, the kernel library's
+    build and its one-time function attributes, and constants are made
+    then, outside the capture. Returns (graph, what the captured call
+    returned); its tensors live in the graph's private pool, and every
+    replay rewrites them."""
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        (warmup or fn)()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn()
+    return graph, out
 
 
 def set_f32_precision() -> None:

@@ -4,8 +4,8 @@ Weights come from flax init and cross through
 mmtrack_torch.models.convert.vipt_state_dict_from_flax; inputs are made
 from numpy seeds. The tiny model of tests/test_golden.py (CE at block 1)
 must match every output map within 1e-4 and keep exactly the same
-candidate-elimination indices. The full-width deep_rgbd forward is the
-slow test, held to 1e-4 on the maps as well.
+candidate-elimination indices. The full-width deep_rgbd forward (B=1,
+~45 s on one CPU thread) is held to 1e-4 on the maps as well.
 """
 
 import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
@@ -124,7 +124,6 @@ def test_tiny_ostrack_rgb_only_matches_jax():
     _compare_forward(jm, params, port, z, x, mask, rt.ce_keep_lens, atol=1e-4)
 
 
-@pytest.mark.slow
 def test_deep_rgbd_forward_matches_jax():
     """Full-width deep_rgbd (ViT-B, 12 blocks, CE at 3/6/9) at f32, B=1."""
     jcfg = jax_config("deep_rgbd")

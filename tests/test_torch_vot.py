@@ -336,3 +336,20 @@ def test_entry_without_a_card_raises_before_answering(sequence, tmp_path):
                           input=_script(colors[:2], depths[:2], "10,10,20,20"), timeout=300)
     assert proc.returncode != 0 and proc.stdout == ""
     assert "CUDA is not available" in proc.stderr
+
+
+def test_importing_the_entry_starts_no_session(tmp_path):
+    """Importing the entry module (as the traxpython protocol would) with
+    stdin closed and the JAX side blocked starts no TraX session: exit 0
+    and nothing on stdout. The session starts only under `python -m`
+    (`protocol = trax`, README.md)."""
+    importer = (BLOCKER.replace('runpy.run_module("mmtrack_torch.eval.vot_entry", '
+                                'run_name="__main__")', "")
+                + "import os\nos.close(0)\nimport mmtrack_torch.eval.vot_entry\n")
+    assert "run_module" not in importer
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", importer], cwd=str(tmp_path), env=env,
+                          stdin=subprocess.DEVNULL, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout == ""
