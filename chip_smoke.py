@@ -463,7 +463,7 @@ from mmtrack_torch.trackers.vipt_tracker import (
     vipt_step_from_crop,
     vipt_track_scan_batched,
 )
-from mmtrack_torch.utils import optouts
+from mmtrack_torch.utils import optouts, profiling
 from mmtrack_torch.utils.device import card_line, require_cuda
 
 B = 16
@@ -514,6 +514,21 @@ def bound(n_bytes: float, flops: float, kind: str) -> dict:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+_ZERO: dict = {}   # the counters at each kernel wrapper's last reset_launches
+
+
+def reset_launches(*fns) -> None:
+    """Count the launches of each wrapper of `fns` from here (launch_counts)."""
+    now = profiling.counters()
+    for fn in fns:
+        _ZERO[f"launches.{fn.__name__}"] = now.get(f"launches.{fn.__name__}", 0)
+
+
+def launch_counts(fns) -> dict:
+    """The launches of each wrapper of `fns` since its last reset_launches."""
+    return profiling.launches(fns, _ZERO)
 
 
 def log(phase: str, **kw) -> None:
@@ -924,14 +939,13 @@ def main_path(cfg, rt, dev, frames, box0):
     torch.cuda.synchronize()
 
     counters = (attn_block_fused, mlp_block_fused, crop_resize_normalized)
-    for fn in counters:
-        fn.launches = 0
+    reset_launches(*counters)
     tracker.initialize(frames[0], box0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     all_boxes = [tracker.track(frames[t])[0] for t in range(1, STEPS + 1)]
     elapsed = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = launch_counts(counters)
 
     expected = {"attn_block_fused": 9 * STEPS, "mlp_block_fused": 12 * STEPS,
                 "crop_resize_normalized": STEPS + 1}
@@ -982,7 +996,7 @@ SCAN_PER_STEP = {"attn_block_fused": 9, "mlp_block_fused": 12, "crop_resize_norm
 
 
 def scan_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in SCAN_COUNTERS}
+    return launch_counts(SCAN_COUNTERS)
 
 
 def scan_reps(scan, rt, frames, box0, chunk) -> tuple[float, list, list]:
@@ -1035,8 +1049,7 @@ def scan_path(rt, dev, model, frames, box0) -> dict:
     """Phase 3b: the chunked scan, eager and as one CUDA graph per chunk,
     from the same initial state. Returns the launches counted in it."""
     chunk = frames[1:SCAN_T + 1]                                  # (T, B, H, W, 6)
-    for fn in SCAN_COUNTERS:
-        fn.launches = 0
+    reset_launches(*SCAN_COUNTERS)
     with torch.inference_mode():
         def eager(state, frames_t):
             return vipt_track_scan_batched(rt, model, state, frames_t)
@@ -1207,9 +1220,10 @@ def time_functions(dev, gen) -> list[dict]:
         def fwd_bwd(fn):
             return torch.autograd.grad(fn(x, *rest, **extra), x, g_out)[0]
 
-        before = kernel.launches
+        before = profiling.counters()
         got, want = fwd_bwd(kernel), fwd_bwd(plain)
-        if kernel.launches != before + 1 or not torch.equal(got, want):
+        if (list(profiling.launches([kernel], before).values()) != [1]
+                or not torch.equal(got, want)):
             raise AssertionError(f"{name}: the Function's gradient is not plain autograd's")
         row = dict(function=name, B=TRAIN_B, L=L, grad_equal=True,
                    fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(kernel), iters=10),
@@ -1289,14 +1303,13 @@ def train_path(cfg, dev) -> dict:
             losses.append(state_step(state, step, batch))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        for fn in counters:
-            fn.launches = 0
+        reset_launches(*counters)
         t0 = time.perf_counter()
         for _ in range(TRAIN_STEPS):
             losses.append(state_step(state, step, batch))
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in counters}
+        launches = launch_counts(counters)
         expected = {fn.__name__: n * TRAIN_STEPS for fn, n in zip(counters, per_step)}
         row = dict(mode=mode, B=TRAIN_B, steps=TRAIN_STEPS, ms_per_step=elapsed / TRAIN_STEPS * 1e3,
                    samples_per_s=TRAIN_B * TRAIN_STEPS / elapsed,
@@ -1507,12 +1520,11 @@ def vot_path(dev) -> dict:
                                       ("rectangle", {"crop_resize_normalized": VOT_FRAMES,
                                                      "depthwise_xcorr": 0})):
             timings = {}
-            for fn in counters:
-                fn.launches = 0
+            reset_launches(*counters)
             t0 = time.perf_counter()
             states = session(protocol, VOT_FRAMES, timings)
             elapsed = time.perf_counter() - t0
-            launches = {fn.__name__: fn.launches for fn in counters}
+            launches = launch_counts(counters)
             if protocol == "mask":
                 ok = all(isinstance(s, Mask) and (s.x, s.y) == (0, 0) and s.mask.shape == (H, W)
                          for s in states[1:])
@@ -1540,11 +1552,11 @@ def vot_path(dev) -> dict:
         for name in ("ostrack_online", "spt"):
             recipe = TRACKER_REGISTRY[name]
             zoo = FrameRecorder(recipe.build(device=dev))
-            crop_resize_normalized.launches = 0
+            reset_launches(crop_resize_normalized)
             t0 = time.perf_counter()
             states = session("rectangle", VOT_FRAMES, trk=zoo, dtype=recipe.composition)
             elapsed = time.perf_counter() - t0
-            crops = crop_resize_normalized.launches
+            crops = launch_counts([crop_resize_normalized])["crop_resize_normalized"]
             want = VOT_FRAMES + zoo.updates
             ok = len(states) == VOT_FRAMES and all(
                 isinstance(st, Rectangle) and np.isfinite(list(st)).all() for st in states[1:])
@@ -1564,12 +1576,11 @@ def vot_path(dev) -> dict:
         # one search crop a frame; one correlation a frame.
         recipe = TRACKER_REGISTRY["promixtrack"]
         zoo = FrameRecorder(recipe.build(device=dev))
-        for fn in counters:
-            fn.launches = 0
+        reset_launches(*counters)
         t0 = time.perf_counter()
         states = session("mask", VOT_FRAMES, trk=zoo, dtype=recipe.composition)
         elapsed = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in counters}
+        launches = launch_counts(counters)
         nominations = zoo.tracker.nominations
         want = {"crop_resize_normalized": 2 * VOT_FRAMES + nominations,
                 "depthwise_xcorr": VOT_FRAMES - 1}
@@ -1618,13 +1629,12 @@ def dimp_vot_session(dev, session, counters) -> None:
     recipe = TRACKER_REGISTRY["det_dimp50_max"]
     session("rectangle", 3, trk=recipe.build(device=dev), dtype=recipe.composition)
     zoo = recipe.build(device=dev)
-    for fn in counters:
-        fn.launches = 0
+    reset_launches(*counters)
     timings = {}
     t0 = time.perf_counter()
     states = session("rectangle", DIMP_VOT_FRAMES, timings, trk=zoo, dtype=recipe.composition)
     elapsed = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = launch_counts(counters)
     want = dict.fromkeys(launches, 0)
     ok = len(states) == DIMP_VOT_FRAMES and all(
         isinstance(st, Rectangle) and np.isfinite(list(st)).all() for st in states[1:])
@@ -1681,7 +1691,7 @@ def ope_fixture(root: str, n_seqs: int = OPE_SEQS, n_frames: int = OPE_FRAMES) -
 
 
 def ope_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in OPE_COUNTERS}
+    return launch_counts(OPE_COUNTERS)
 
 
 def profile_pass(fn, dev, kernels=OPE_KERNELS) -> tuple[dict, float, float]:
@@ -1810,8 +1820,7 @@ def ope_path(dev, cfg, rt) -> dict:
             return out, seconds, res_root
 
         wires = ["frames", "rgb_index"] + (["yuv420"] if decoder == "native" else [])
-        for fn in OPE_COUNTERS:
-            fn.launches = 0
+        reset_launches(*OPE_COUNTERS)
         results, roots, report = {}, {}, {}
         for wire in wires:
             passes = []
@@ -1956,10 +1965,10 @@ def ope_path(dev, cfg, rt) -> dict:
                   for t in range(OPE_FRAMES)]
         out = {}
         for name, host in (("host_crop", True), ("device_crop", False)):
-            crop_resize_normalized.launches = 0
+            reset_launches(crop_resize_normalized)
             res = run_sequence(ViPTTracker(model32, dev, rt, host_preproc=host), seq,
                                frame_loader=frames.__getitem__)
-            out[name] = (res, crop_resize_normalized.launches)
+            out[name] = (res, launch_counts([crop_resize_normalized])["crop_resize_normalized"])
         ious = iou_xywh(out["host_crop"][0]["boxes"][1:], out["device_crop"][0]["boxes"][1:])
         crops = {k: n for k, (_, n) in out.items()}
         log("ope_host_crop", dtype="f32", frames=OPE_FRAMES, frame=f"{W}x{H}",
@@ -2093,8 +2102,7 @@ def zoo_path(dev) -> dict:
             seq = load_sequence(seq_dir, "DepthTrack")
             seq.dtype = recipe.composition
             tracker = FrameRecorder(recipe.build(device=dev))
-            for fn in OPE_COUNTERS:
-                fn.launches = 0
+            reset_launches(*OPE_COUNTERS)
             res = run_sequence(tracker, seq)
             launches = ope_counts()
             extra = {}
@@ -2168,8 +2176,7 @@ def zoo_path(dev) -> dict:
         del plain
         tracker = FrameRecorder(OSTrackOnlineTracker(model, cls, dev, rt))
         run_sequence(tracker, seq, frame_loader=frames.__getitem__)   # warm-up pass
-        for fn in OPE_COUNTERS:
-            fn.launches = 0
+        reset_launches(*OPE_COUNTERS)
         tracker.updates, tracker.ms = 0, []
         res = run_sequence(tracker, seq, frame_loader=frames.__getitem__)
         launches = ope_counts()
@@ -2356,12 +2363,11 @@ def dimp_path(dev, seq_dir: str, res_in: str) -> None:
         t0 = time.perf_counter()
         tracker = FrameRecorder(recipe.build(device=dev))
         build_s = time.perf_counter() - t0
-        for fn in KERNEL_COUNTERS:
-            fn.launches = 0
+        reset_launches(*KERNEL_COUNTERS)
         t0 = time.perf_counter()
         res = run_sequence(tracker, seq, frame_loader=frames.__getitem__ if frames else None)
         run_s = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in KERNEL_COUNTERS}
+        launches = launch_counts(KERNEL_COUNTERS)
         want = dict.fromkeys(launches, 0)
         inner = tracker.tracker
         flags, iters = dict(inner.flags), inner.optimizer_iters
@@ -2630,8 +2636,7 @@ def disk_loader(datasets, ratios, cfg, n_batches: int, seed: int = 0) -> BatchLo
 
 
 def disk_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in (flash_mhsa_qkv, attn_block_fused,
-                                                mlp_block_fused)}
+    return launch_counts((flash_mhsa_qkv, attn_block_fused, mlp_block_fused))
 
 
 def disk_steps(state, step, batches, n: int) -> tuple[float, float, list]:
@@ -2772,8 +2777,7 @@ def train_disk_path(cfg, dev) -> dict:
         state_step(state, step, first_dev)                       # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        for fn in (flash_mhsa_qkv, attn_block_fused, mlp_block_fused):
-            fn.launches = 0
+        reset_launches(flash_mhsa_qkv, attn_block_fused, mlp_block_fused)
         # a loader started with the timed steps, as at an epoch's start: its
         # one thread is slower than the step, so no batch waits in its queue
         batches = iter(disk_loader(sets, [1], cfg, DISK_STEPS + DISK_PROFILED, seed=1))
@@ -2783,8 +2787,7 @@ def train_disk_path(cfg, dev) -> dict:
         counts, device_ms, wall_ms = profile_pass(
             lambda: disk_steps(state, step, batches, DISK_PROFILED), dev,
             kernels={"attention": (ATTENTION_KERNELS, 9)})
-        for fn in (flash_mhsa_qkv, attn_block_fused, mlp_block_fused):
-            fn.launches = 0
+        reset_launches(flash_mhsa_qkv, attn_block_fused, mlp_block_fused)
         t0 = time.perf_counter()
         for _ in range(DISK_STEPS):
             losses.append(state_step(state, step, first_dev))
@@ -2832,8 +2835,7 @@ def train_disk_path(cfg, dev) -> dict:
             raise AssertionError(f"train_disk ostrack: batch {warm['search'].shape}")
         state_step(state, step, warm)
         torch.cuda.synchronize()
-        for fn in (flash_mhsa_qkv, attn_block_fused, mlp_block_fused):
-            fn.launches = 0
+        reset_launches(flash_mhsa_qkv, attn_block_fused, mlp_block_fused)
         batches = iter(disk_loader(sets, ratios, cfg, OSTRACK_STEPS, seed=1))
         disk_s, wait_s, losses = disk_steps(state, step, batches, OSTRACK_STEPS)
         launches = disk_counts()
@@ -2908,12 +2910,11 @@ def atom_dcf_path(dev) -> None:
             t0 = time.perf_counter()
             tracker = FrameRecorder(recipe.build(device=dev))
             build_s = time.perf_counter() - t0
-            for fn in KERNEL_COUNTERS:
-                fn.launches = 0
+            reset_launches(*KERNEL_COUNTERS)
             t0 = time.perf_counter()
             res = run_sequence(tracker, seq)
             run_s = time.perf_counter() - t0
-            launches = {fn.__name__: fn.launches for fn in KERNEL_COUNTERS}
+            launches = launch_counts(KERNEL_COUNTERS)
             want = dict.fromkeys(launches, 0)
             inner = tracker.tracker
             flags = dict(getattr(inner, "flags", {}))
@@ -3106,12 +3107,11 @@ def mdnet_path(dev) -> None:
             tracker = FrameRecorder(recipe.build(device=dev))
             build_s = time.perf_counter() - t0
             inner = tracker.tracker
-            for fn in KERNEL_COUNTERS:
-                fn.launches = 0
+            reset_launches(*KERNEL_COUNTERS)
             t0 = time.perf_counter()
             res = run_sequence(tracker, seq)
             run_s = time.perf_counter() - t0
-            launches = {fn.__name__: fn.launches for fn in KERNEL_COUNTERS}
+            launches = launch_counts(KERNEL_COUNTERS)
             want = dict.fromkeys(launches, 0)
             peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
             updates, failures = dict(inner.updates), inner.failures
@@ -3278,12 +3278,11 @@ def keeptrack_kys_path(dev) -> None:
             tracker = FrameRecorder(recipe.build(device=dev))
             build_s = time.perf_counter() - t0
             inner = tracker.tracker
-            for fn in KERNEL_COUNTERS:
-                fn.launches = 0
+            reset_launches(*KERNEL_COUNTERS)
             t0 = time.perf_counter()
             res = run_sequence(tracker, seq)
             run_s = time.perf_counter() - t0
-            launches = {fn.__name__: fn.launches for fn in KERNEL_COUNTERS}
+            launches = launch_counts(KERNEL_COUNTERS)
             want = dict.fromkeys(launches, 0)
             peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
             flags = dict(inner.flags)
@@ -3438,12 +3437,11 @@ def lwl_stm_path(dev) -> None:
             tracker = MaskRecorder(recipe.build(device=dev), (H, W))
             build_s = time.perf_counter() - t0
             inner = tracker.tracker
-            for fn in KERNEL_COUNTERS:
-                fn.launches = 0
+            reset_launches(*KERNEL_COUNTERS)
             t0 = time.perf_counter()
             res = run_sequence(tracker, seq)
             run_s = time.perf_counter() - t0
-            launches = {fn.__name__: fn.launches for fn in KERNEL_COUNTERS}
+            launches = launch_counts(KERNEL_COUNTERS)
             want = dict.fromkeys(launches, 0)
             peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
             extra = ({"memory_updates": inner.updates, "gn_steps": inner.optimizer_iters}
@@ -3677,8 +3675,7 @@ def zoo_train_path(dev, side=None) -> None:
         trainable = run.zoo_trainable_mask(model, script, stage, APFNET_ATTRIBUTE)
         state = run.train_state(model, cfg, 1000, trainable)
         step = run.make_zoo_step(script, stage, 0, torch.float32)
-        for fn in KERNEL_COUNTERS:
-            fn.launches = 0
+        reset_launches(*KERNEL_COUNTERS)
         ms, losses = [], []
         for batch in batches[:ZOO_TRAIN_STEPS]:
             torch.cuda.synchronize()
@@ -3686,7 +3683,7 @@ def zoo_train_path(dev, side=None) -> None:
             state, stats = step(state, batch)
             losses.append(float(stats["Loss/total"]))
             ms.append((time.perf_counter() - t0) * 1e3)
-        launches = {fn.__name__: fn.launches for fn in KERNEL_COUNTERS}
+        launches = launch_counts(KERNEL_COUNTERS)
         # the card's activity alone: the profiled steps took two thirds of
         # this phase's seconds, half of that for the host's op events (which
         # makes room for phase 21); its numbers go under card_only_* names
@@ -3976,13 +3973,12 @@ def trace_check(dev, cfg, rt, frames, box0, tmp: str) -> dict:
     tracker.track(frames[1])
     torch.cuda.synchronize()
     counters = (attn_block_fused, mlp_block_fused, crop_resize_normalized)
-    for fn in counters:
-        fn.launches = 0
+    reset_launches(*counters)
     with trace_profile(os.path.join(tmp, "trace")) as prof:
         for t in range(TRACE_STEPS):
             tracker.track(frames[2 + t])
         torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = launch_counts(counters)
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
@@ -4185,8 +4181,7 @@ def head_path(dev, rt, frames, box0, head: str) -> dict:
     tracker.initialize(frames[0], box0)
     tracker.track(frames[1])
     torch.cuda.synchronize()
-    for fn in SCAN_COUNTERS:
-        fn.launches = 0
+    reset_launches(*SCAN_COUNTERS)
     tracker.initialize(frames[0], box0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4282,8 +4277,7 @@ def trunk_path(dev, seq_dir: str, trunk: str) -> dict:
     seq = load_sequence(seq_dir, "DepthTrack")
     seq.dtype = TRACKER_REGISTRY["spt"].composition
     tracker = FrameRecorder(STARKTracker(model, dev, STARKRuntime()))
-    for fn in OPE_COUNTERS:
-        fn.launches = 0
+    reset_launches(*OPE_COUNTERS)
     res = run_sequence(tracker, seq)
     launches = ope_counts()
     want = {"attn_block_fused": 0, "mlp_block_fused": 0,
@@ -4356,12 +4350,12 @@ def ar_train_check(dev) -> int:
     for d in (dev, torch.device("cpu")):
         model = build_alpha_refine(AR_SIZE, seed=0).to(d).train()
         opt, sched = build_optimizer(model, lr=1e-4)
-        depthwise_xcorr.launches = 0
+        reset_launches(depthwise_xcorr)
         t0 = time.perf_counter()
         _, s = make_ar_train_step()(TrainState(model, opt, sched), batch)
         stats.append(({k: float(v) for k, v in s.items()}, time.perf_counter() - t0))
         if d == dev:
-            launches = depthwise_xcorr.launches
+            launches = launch_counts([depthwise_xcorr])["depthwise_xcorr"]
     (card, card_s), (cpu, cpu_s) = stats
     rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in cpu}
     log("heads_backbones_ar_train", B=AR_B, input=AR_SIZE, dtype="f32", card=card, cpu=cpu,
@@ -4472,9 +4466,9 @@ def opt_out_forwards(dev, rt, frames, box0) -> None:
         model = build_viptrack(cfg, dtype=torch.bfloat16, device=dev, seed=0,
                                **optouts.resolve(**env).model_kwargs())
         with torch.inference_mode():
-            before = [fn.launches for fn in counters]
+            before = profiling.counters()
             no_ce = model(state["template"], search, mask, None)
-            launched[name] = tuple(fn.launches - b for fn, b in zip(counters, before))
+            launched[name] = tuple(profiling.launches(counters, before).values())
             outs[name] = {None: no_ce, "ce": model(state["template"], search, mask,
                                                    rt.ce_keep_lens)}
         del model
@@ -4509,8 +4503,7 @@ def tools_path(dev, rt, frames, box0) -> dict:
     from mmtrack_torch.train.bench_train import bench_train
 
     t_phase = time.perf_counter()
-    for fn in KERNEL_COUNTERS:
-        fn.launches = 0
+    reset_launches(*KERNEL_COUNTERS)
     opt_out_forwards(dev, rt, frames, box0)
     for mode, want in TOOLS_FWD_LAUNCHES.items():
         rec = ab_kernels.run_fwd(mode, TOOLS_FWD_B, TOOLS_FWD_T, dev)
@@ -4555,7 +4548,7 @@ def tools_path(dev, rt, frames, box0) -> dict:
     del model
     torch.cuda.empty_cache()
     log("tools_phase", seconds=time.perf_counter() - t_phase)
-    return {fn.__name__: fn.launches for fn in KERNEL_COUNTERS}
+    return launch_counts(KERNEL_COUNTERS)
 
 
 def timed(phase: str, fn, *args):

@@ -25,7 +25,8 @@ VOT entry with Alpha-Refine, the OPE entry with the streamed wire):
              (the OPE entry point), benchmark_suite, submission,
              transform_results
   utils/     device, logging, env (dataset roots), tb (tfevents writer),
-             profiling (Timer, trace_profile, flops_estimate)
+             profiling (the tracer: spans, counters, graph captures;
+             trace_profile, flops_estimate)
   registry   the 42 recipes
   native     the VOT polygon overlap over native/region.cc
   vis, vis_server, demo  debug images, the live dashboard, the demo entry

@@ -12,7 +12,10 @@ than composed frames: RGB + the JET-index plane at 4 B/px by default
 (bit-identical to the host-composed frames), or with MMTRACK_STREAM=yuv420
 the raw 4:2:0 planes + index at 2.5 B/px (decode-grade, needs the native
 decoder). The next frame is decoded on a thread while the card steps the
-current one.
+current one. Under `utils/profiling.py::tracing()` each streamed step is
+one chunk of spans: `ope.decode_wait` (the host waits for the decode
+thread), `ope.upload` and `ope.compose` (host and device), `track.replay`
+(the graph's submission) and `ope.read` (the boxes to the host).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from mmtrack_torch.data.composition import get_x_frame
 from mmtrack_torch.eval.datasets import EvalSequence
 from mmtrack_torch.eval.ope import result_path, save_result
 from mmtrack_torch.parallel.batched_eval import BatchedViPTTracker
+from mmtrack_torch.utils import profiling
 
 
 def _frame(seq: EvalSequence, i: int, loaders=None):
@@ -157,7 +161,8 @@ def run_batch(tracker: BatchedViPTTracker, seqs: list[EvalSequence],
         for t in range(1, max_len):
             s = t % 2
             if th is not None:
-                th.join()
+                with profiling.span("ope.decode_wait"):
+                    th.join()
                 if errs:
                     raise errs[0]
             if t + 1 < max_len:  # decode t+1 while the device steps t

@@ -54,7 +54,7 @@ from mmtrack_torch.trackers.vipt_tracker import (
     make_track_scan,
     vipt_init_state,
 )
-from mmtrack_torch.utils import optouts
+from mmtrack_torch.utils import optouts, profiling
 from mmtrack_torch.utils.device import capture_graph, card_line, require_cuda
 
 COUNTERS = (attn_block_fused, mlp_block_fused, crop_resize_normalized, flash_mhsa_qkv)
@@ -63,7 +63,7 @@ FRAME_HW = (240, 320)
 
 
 def counts() -> dict:
-    return {fn.__name__: fn.launches for fn in COUNTERS}
+    return profiling.launches(COUNTERS)
 
 
 def since(before: dict, per: int) -> dict:
@@ -116,7 +116,7 @@ def run_fwd(mode: str, B: int = 16, T: int = 32, device=None, reps: int = 8) -> 
         return carry, out["pred_boxes"]
 
     before = counts()
-    graph, (carry, boxes) = capture_graph(chain, device)   # an eager chain, then the capture
+    graph, (carry, boxes), _ = capture_graph(chain, device)   # an eager chain, then the capture
     launches = since(before, 2 * T)
     times = []
     for _ in range(reps):

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "mmt_crop_resize_normalize": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                                   _P),
     "mmt_depthwise_xcorr": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "mmt_stamp": (_P, _I, _P),
 }
 
 

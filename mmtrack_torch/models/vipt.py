@@ -23,6 +23,7 @@ from mmtrack_torch.models.heads import CenterPredictor, CornerPredictor, MLPHead
 from mmtrack_torch.models.layers import CEBlock, Conv2d, Dense, LayerNorm, Mlp, PatchEmbed
 from mmtrack_torch.ops.box import box_xyxy_to_cxcywh
 from mmtrack_torch.ops.ce import ce_keep_schedule, gather_search_tokens, recover_search_tokens
+from mmtrack_torch.utils import profiling
 
 
 class Fovea(nn.Module):
@@ -147,69 +148,73 @@ class ViTCEPrompt(nn.Module):
             raise ValueError("vipt_deep re-injects its prompts in every block: it needs "
                              "6-channel crops")
 
-        z_tok = self.patch_embed(z[..., :3])
-        x_tok = self.patch_embed(x[..., :3])
-        if rgb_only:
-            pass
-        elif has_prompt:
-            z_dte_tok = self.patch_embed_prompt(z[..., 3:])
-            x_dte_tok = self.patch_embed_prompt(x[..., 3:])
-            n0, p0 = self.prompt_norms[0], self.prompt_blocks[0]
-            z_prompted = p0(n0(z_tok), n0(z_dte_tok))
-            x_prompted = p0(n0(x_tok), n0(x_dte_tok))
-            z_tok = z_tok + z_prompted
-            x_tok = x_tok + x_prompted
-        else:
-            if self.patch_embed_prompt is None:
-                raise ValueError("this model has no patch_embed_prompt weights (a 3-channel "
-                                 "tree): it needs 3-channel crops")
-            z_tok = z_tok + self.patch_embed_prompt(z[..., 3:])
-            x_tok = x_tok + self.patch_embed_prompt(x[..., 3:])
+        with profiling.span("vipt.embed", x.device):
+            z_tok = self.patch_embed(z[..., :3])
+            x_tok = self.patch_embed(x[..., :3])
+            if rgb_only:
+                pass
+            elif has_prompt:
+                z_dte_tok = self.patch_embed_prompt(z[..., 3:])
+                x_dte_tok = self.patch_embed_prompt(x[..., 3:])
+                n0, p0 = self.prompt_norms[0], self.prompt_blocks[0]
+                z_prompted = p0(n0(z_tok), n0(z_dte_tok))
+                x_prompted = p0(n0(x_tok), n0(x_dte_tok))
+                z_tok = z_tok + z_prompted
+                x_tok = x_tok + x_prompted
+            else:
+                if self.patch_embed_prompt is None:
+                    raise ValueError("this model has no patch_embed_prompt weights (a 3-channel "
+                                     "tree): it needs 3-channel crops")
+                z_tok = z_tok + self.patch_embed_prompt(z[..., 3:])
+                x_tok = x_tok + self.patch_embed_prompt(x[..., 3:])
 
-        z_tok = z_tok + self.pos_embed_z.to(dt)
-        x_tok = x_tok + self.pos_embed_x.to(dt)
-        tokens = torch.cat([z_tok, x_tok], dim=1)
+            z_tok = z_tok + self.pos_embed_z.to(dt)
+            x_tok = x_tok + self.pos_embed_x.to(dt)
+            tokens = torch.cat([z_tok, x_tok], dim=1)
 
-        dev = tokens.device
-        gidx_t = torch.arange(lens_z, device=dev)[None].expand(B, -1)
-        gidx_s = torch.arange(lens_x, device=dev)[None].expand(B, -1)
-        if box_mask_z is not None and box_mask_z.shape[0] == 1:
-            box_mask_z = box_mask_z.expand(B, -1)
+            dev = tokens.device
+            gidx_t = torch.arange(lens_z, device=dev)[None].expand(B, -1)
+            gidx_s = torch.arange(lens_x, device=dev)[None].expand(B, -1)
+            if box_mask_z is not None and box_mask_z.shape[0] == 1:
+                box_mask_z = box_mask_z.expand(B, -1)
 
         ce_index = 0
         pruned = False
         x_cur = tokens
         for i, block in enumerate(self.blocks):
             if i >= 1 and self.prompt_type == "vipt_deep":
-                x_ori = x_cur
-                z_cur = x_cur[:, :lens_z]
-                xs = x_cur[:, lens_z:]
-                xs_full = recover_search_tokens(xs, gidx_s, lens_x) if pruned else xs
-                full = self.prompt_norms[i - 1](torch.cat([z_cur, xs_full], dim=1))
-                z_t, x_t = full[:, :lens_z], full[:, lens_z:]
-                zp = self.prompt_norms[i](z_prompted)
-                xp = self.prompt_norms[i](x_prompted)
-                z_prompted = self.prompt_blocks[i](z_t, zp)
-                x_prompted = self.prompt_blocks[i](x_t, xp)
-                x_sel = (gather_search_tokens(x_prompted, gidx_s) if pruned
-                         else x_prompted)
-                x_cur = x_ori + torch.cat([z_prompted, x_sel], dim=1)
+                with profiling.span("vipt.prompt", dev):
+                    x_ori = x_cur
+                    z_cur = x_cur[:, :lens_z]
+                    xs = x_cur[:, lens_z:]
+                    xs_full = recover_search_tokens(xs, gidx_s, lens_x) if pruned else xs
+                    full = self.prompt_norms[i - 1](torch.cat([z_cur, xs_full], dim=1))
+                    z_t, x_t = full[:, :lens_z], full[:, lens_z:]
+                    zp = self.prompt_norms[i](z_prompted)
+                    xp = self.prompt_norms[i](x_prompted)
+                    z_prompted = self.prompt_blocks[i](z_t, zp)
+                    x_prompted = self.prompt_blocks[i](x_t, xp)
+                    x_sel = (gather_search_tokens(x_prompted, gidx_s) if pruned
+                             else x_prompted)
+                    x_cur = x_ori + torch.cat([z_prompted, x_sel], dim=1)
 
             lens_keep = None
             if ce_keep_lens is not None and i in self.ce_loc:
                 lens_keep = ce_keep_lens[ce_index]
-            x_cur, gidx_t, gidx_s, removed = block(x_cur, gidx_t, gidx_s, box_mask_z,
-                                                   lens_keep, deterministic, generator)
+            with profiling.span("vipt.block" if lens_keep is None else "vipt.ce_block", dev):
+                x_cur, gidx_t, gidx_s, removed = block(x_cur, gidx_t, gidx_s, box_mask_z,
+                                                       lens_keep, deterministic, generator)
             if i in self.ce_loc and ce_keep_lens is not None:
                 ce_index += 1
                 if removed is not None:
                     pruned = True
 
-        x_cur = self.norm(x_cur)
-        z_out = x_cur[:, :lens_z]
-        xs = x_cur[:, lens_z:]
-        xs_full = recover_search_tokens(xs, gidx_s, lens_x) if pruned else xs
-        return torch.cat([z_out, xs_full], dim=1)
+        with profiling.span("vipt.head", dev):
+            x_cur = self.norm(x_cur)
+            z_out = x_cur[:, :lens_z]
+            xs = x_cur[:, lens_z:]
+            xs_full = recover_search_tokens(xs, gidx_s, lens_x) if pruned else xs
+            return torch.cat([z_out, xs_full], dim=1)
 
 
 class ViPTrack(nn.Module):
@@ -261,31 +266,32 @@ class ViPTrack(nn.Module):
                 generator: Optional[torch.Generator] = None) -> dict:
         tokens = self.backbone(template, search, box_mask_z, ce_keep_lens, deterministic,
                                generator)
-        S = self.feat_sz
-        B = tokens.shape[0]
-        feat = tokens[:, -S * S:].reshape(B, S, S, -1)
-        if self.head_type == "CENTER":
-            score_map, size_map, offset_map = self.box_head(feat)
-            pred_boxes, max_score = cal_bbox(score_map, size_map, offset_map)
-        else:
-            if self.head_type == "CORNER":
-                xyxy, p_tl, p_br = self.box_head(feat, return_dist=True)
-                pred_boxes = box_xyxy_to_cxcywh(xyxy)
-                prob = p_tl
-                max_score = torch.sqrt(p_tl.amax(1) * p_br.amax(1))
+        with profiling.span("vipt.head", tokens.device):
+            S = self.feat_sz
+            B = tokens.shape[0]
+            feat = tokens[:, -S * S:].reshape(B, S, S, -1)
+            if self.head_type == "CENTER":
+                score_map, size_map, offset_map = self.box_head(feat)
+                pred_boxes, max_score = cal_bbox(score_map, size_map, offset_map)
             else:
-                pred_boxes = torch.sigmoid(self.box_head(feat.mean(dim=(1, 2))))
-                z_tok = tokens[:, :tokens.shape[1] - S * S].float()
-                x_tok = feat.reshape(B, S * S, -1).float()
-                corr = torch.einsum("bnc,bc->bn", x_tok, z_tok.mean(dim=1))
-                prob = torch.softmax(corr / math.sqrt(x_tok.shape[-1]), dim=1)
-                max_score = prob.amax(1)
-            score_map = prob.reshape(B, S, S).to(self.dtype)
-            size_map = torch.zeros((B, S, S, 2), dtype=self.dtype, device=tokens.device)
-            offset_map = torch.zeros_like(size_map)
-        return {"score_map": score_map, "size_map": size_map, "offset_map": offset_map,
-                "pred_boxes": pred_boxes, "max_score": max_score,
-                "backbone_tokens": tokens}
+                if self.head_type == "CORNER":
+                    xyxy, p_tl, p_br = self.box_head(feat, return_dist=True)
+                    pred_boxes = box_xyxy_to_cxcywh(xyxy)
+                    prob = p_tl
+                    max_score = torch.sqrt(p_tl.amax(1) * p_br.amax(1))
+                else:
+                    pred_boxes = torch.sigmoid(self.box_head(feat.mean(dim=(1, 2))))
+                    z_tok = tokens[:, :tokens.shape[1] - S * S].float()
+                    x_tok = feat.reshape(B, S * S, -1).float()
+                    corr = torch.einsum("bnc,bc->bn", x_tok, z_tok.mean(dim=1))
+                    prob = torch.softmax(corr / math.sqrt(x_tok.shape[-1]), dim=1)
+                    max_score = prob.amax(1)
+                score_map = prob.reshape(B, S, S).to(self.dtype)
+                size_map = torch.zeros((B, S, S, 2), dtype=self.dtype, device=tokens.device)
+                offset_map = torch.zeros_like(size_map)
+            return {"score_map": score_map, "size_map": size_map, "offset_map": offset_map,
+                    "pred_boxes": pred_boxes, "max_score": max_score,
+                    "backbone_tokens": tokens}
 
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from mmtrack_torch.kernels.build import load_library, stream_handle
+from mmtrack_torch.utils import profiling
 
 CROP_MAX_THREADS = 256                # csrc/crop.cu: __launch_bounds__(256)
 CROP_ROWS = 4                         # csrc/crop.cu: output rows per block (kRows)
@@ -166,11 +167,9 @@ def crop_resize_normalized(frames: torch.Tensor, boxes: torch.Tensor,
         std.data_ptr(), out.data_ptr(), rf.data_ptr(), B, H, W, C, out_size,
         float(search_area_factor), plan.threads, plan.row_bytes, plan.smem_bytes,
         stream_handle(dev))
-    crop_resize_normalized.launches += 1
+    profiling.count("launches.crop_resize_normalized")
     return out, rf
 
-
-crop_resize_normalized.launches = 0
 
 
 def div_rn(a: torch.Tensor, b: float) -> torch.Tensor:

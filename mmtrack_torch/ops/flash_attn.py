@@ -45,6 +45,7 @@ from mmtrack_torch.ops.mlp_fuse import (
     linear_f32,
 )
 from mmtrack_torch.ops.plain_grad import launch_with_plain_grad
+from mmtrack_torch.utils import profiling
 
 HEAD_DIM = 64  # the attention kernel is specialised to ViT-B's head width
 
@@ -111,7 +112,7 @@ def _flash_mhsa_launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch
     check_kernel_input(qkv)
     B, L, C3 = qkv.shape
     out = mhsa_bf16(qkv.view(B * L, C3), B, L, num_heads, scale)
-    flash_mhsa_qkv.launches += 1
+    profiling.count("launches.flash_mhsa_qkv")
     return out.view(B, L, C3 // 3)
 
 
@@ -127,8 +128,6 @@ def flash_mhsa_qkv(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Ten
                                   num_heads=num_heads, scale=scale)
 
 
-flash_mhsa_qkv.launches = 0
-
 
 def _attn_block_launch(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
                        wqkv: torch.Tensor, bqkv: torch.Tensor, wproj: torch.Tensor,
@@ -141,7 +140,7 @@ def _attn_block_launch(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.T
     qkv = gemm_bf16(h, wqkv, bqkv, EPI_BIAS)
     att = mhsa_bf16(qkv, B, L, num_heads, scale)
     y = gemm_bf16(att, wproj, bproj, EPI_BIAS_RESIDUAL, residual=x2d)
-    attn_block_fused.launches += 1
+    profiling.count("launches.attn_block_fused")
     return y.view(B, L, C)
 
 
@@ -162,5 +161,3 @@ def attn_block_fused(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Ten
                                   (x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj),
                                   num_heads=num_heads, scale=scale, eps=eps)
 
-
-attn_block_fused.launches = 0

@@ -27,6 +27,7 @@ import torch
 
 from mmtrack_torch.kernels.build import load_library, stream_handle
 from mmtrack_torch.ops.plain_grad import launch_with_plain_grad
+from mmtrack_torch.utils import profiling
 
 EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESIDUAL = 0, 1, 2
 
@@ -195,7 +196,7 @@ def _mlp_block_launch(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Te
     h = layernorm_bf16(x2d, ln_scale, ln_bias, eps)
     h = gemm_bf16(h, w1, b1, EPI_BIAS_GELU)
     y = gemm_bf16(h, w2, b2, EPI_BIAS_RESIDUAL, residual=x2d)
-    mlp_block_fused.launches += 1
+    profiling.count("launches.mlp_block_fused")
     return y.view(B, L, C)
 
 
@@ -214,5 +215,3 @@ def mlp_block_fused(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tens
     return launch_with_plain_grad(_mlp_block_launch, mlp_block_fused_plain,
                                   (x, ln_scale, ln_bias, w1, b1, w2, b2), eps=eps)
 
-
-mlp_block_fused.launches = 0

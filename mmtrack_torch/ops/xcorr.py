@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from mmtrack_torch.kernels.build import load_library, stream_handle
 from mmtrack_torch.ops.plain_grad import launch_with_plain_grad
+from mmtrack_torch.utils import profiling
 
 
 def xcorr(z_feat: torch.Tensor, x_feat: torch.Tensor) -> torch.Tensor:
@@ -90,7 +91,7 @@ def _launch(z_feat: torch.Tensor, x_feat: torch.Tensor, pad: int = 0) -> torch.T
     load_library().launch(
         "mmt_depthwise_xcorr", x.data_ptr(), z.data_ptr(), out.data_ptr(), N, H, W, C, fh,
         fw, pad, int(z.dim() == 4), stream_handle(dev))
-    depthwise_xcorr.launches += 1
+    profiling.count("launches.depthwise_xcorr")
     return out
 
 
@@ -108,5 +109,3 @@ def depthwise_xcorr(z_feat: torch.Tensor, x_feat: torch.Tensor, pad: int = 0) ->
         return depthwise_xcorr_plain(z_feat, x_feat, pad)
     return launch_with_plain_grad(_launch, depthwise_xcorr_plain, (z_feat, x_feat), pad=pad)
 
-
-depthwise_xcorr.launches = 0

@@ -44,6 +44,7 @@ from mmtrack_torch.trackers.vipt_tracker import (
     vipt_init_state,
     vipt_track_scan_batched,
 )
+from mmtrack_torch.utils import profiling
 
 
 class BatchedViPTTracker:
@@ -88,21 +89,28 @@ class BatchedViPTTracker:
                                      boxes)
 
     def _step(self, frames: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
-        final, boxes, scores = self.scan(self.state, frames[None])
-        # a graph's results live in its buffers, which the next replay of
-        # this shape (by any tracker sharing the scan) overwrites
-        self.state = {"box": final["box"].clone(), "template": self.state["template"]}
-        return (self.shard.gather(boxes[0]).cpu().numpy(),
-                self.shard.gather(scores[0]).cpu().numpy())
+        with profiling.chunk():
+            final, boxes, scores = self.scan(self.state, frames[None])
+            # a graph's results live in its buffers, which the next replay of
+            # this shape (by any tracker sharing the scan) overwrites
+            self.state = {"box": final["box"].clone(), "template": self.state["template"]}
+            with profiling.span("ope.read"):
+                return (self.shard.gather(boxes[0]).cpu().numpy(),
+                        self.shard.gather(scores[0]).cpu().numpy())
 
     def _upload(self, *planes) -> list[torch.Tensor]:
-        if self._lut is None:
-            self._lut = torch.from_numpy(jet_lut()).to(self.device)
-        return [torch.as_tensor(self.shard.local(p)).to(self.device, non_blocking=True)
-                for p in planes]
+        with profiling.span("ope.upload", self.device):
+            if self._lut is None:
+                self._lut = torch.from_numpy(jet_lut()).to(self.device)
+            return [torch.as_tensor(self.shard.local(p)).to(self.device, non_blocking=True)
+                    for p in planes]
 
     def _composed_step(self, compose, *planes) -> tuple[np.ndarray, np.ndarray]:
-        return self._step(compose(*self._upload(*planes), self._lut))
+        with profiling.chunk():
+            planes = self._upload(*planes)
+            with profiling.span("ope.compose", self.device):
+                frames = compose(*planes, self._lut)
+            return self._step(frames)
 
     @torch.inference_mode()
     def track(self, frames) -> tuple[np.ndarray, np.ndarray]:

@@ -31,6 +31,8 @@ import time
 import numpy as np
 import torch
 
+from mmtrack_torch.utils import profiling
+
 LOSS_REL_BAR = 1e-3
 PARAM_BAR = 1e-3
 BOX_BAR = 1e-2
@@ -54,15 +56,12 @@ def kernel_counters() -> dict:
 
 
 def counted(fn, device) -> tuple[object, dict]:
-    """fn() with the kernel counters set to 0 before it; (its result, the
-    launches)."""
-    counters = kernel_counters()
-    for f in counters.values():
-        f.launches = 0
+    """(fn()'s result, the kernel launches counted in it)."""
+    before = profiling.counters()
     out = fn()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return out, {k: f.launches for k, f in counters.items()}
+    return out, profiling.launches(kernel_counters().values(), before)
 
 
 def setup(toy: bool, n: int, device):

@@ -31,6 +31,7 @@ from mmtrack_torch.models.vipt import ViPTrack, ce_keep_schedule, generate_ctr_m
 from mmtrack_torch.ops.box import clip_box
 from mmtrack_torch.ops.crop import crop_resize_normalized
 from mmtrack_torch.ops.window import hann2d
+from mmtrack_torch.utils import profiling
 from mmtrack_torch.utils.device import capture_graph
 
 # ImageNet statistics for both modality triplets (PreprocessorMM,
@@ -102,9 +103,10 @@ def vipt_init_state(rt: ViPTRuntime, frames: torch.Tensor, init_boxes: torch.Ten
     normalised}. The template stays f32; the patch embed casts it on every
     step, as in the JAX package. `crop` is the crop's wrapper, or its plain
     version (JAX's MMTRACK_CROP=gather, utils/optouts.py)."""
-    mean, std = _stats(frames.shape[-1], frames.device)
-    boxes = init_boxes.to(device=frames.device, dtype=torch.float32)
-    template, _ = crop(frames, boxes, rt.template_factor, rt.template_size, mean, std)
+    with profiling.span("track.init", frames.device):
+        mean, std = _stats(frames.shape[-1], frames.device)
+        boxes = init_boxes.to(device=frames.device, dtype=torch.float32)
+        template, _ = crop(frames, boxes, rt.template_factor, rt.template_size, mean, std)
     return {"box": boxes, "template": template}
 
 
@@ -117,22 +119,23 @@ def vipt_step_from_crop(rt: ViPTRuntime, model: ViPTrack, template: torch.Tensor
     boxes and scores are taken as they are (JAX vipt_tracker.py:97-106)."""
     box_mask_z, window = _head_constants(rt, search.device)
     out = model(template, search, box_mask_z, rt.ce_keep_lens)
-    if getattr(model, "head_type", "CENTER") == "CENTER":
-        bbox, score = cal_bbox(window[None] * out["score_map"], out["size_map"],
-                               out["offset_map"])
-    else:
-        bbox, score = out["pred_boxes"], out["max_score"]
+    with profiling.span("vipt.decode", search.device):
+        if getattr(model, "head_type", "CENTER") == "CENTER":
+            bbox, score = cal_bbox(window[None] * out["score_map"], out["size_map"],
+                                   out["offset_map"])
+        else:
+            bbox, score = out["pred_boxes"], out["max_score"]
 
-    rf = resize_factor[:, None]
-    pred = bbox * rt.search_size / rf                                  # (cx, cy, w, h)
-    half_side = torch.full_like(resize_factor, 0.5 * rt.search_size) / resize_factor
-    cx_prev = prev_box[:, 0] + 0.5 * prev_box[:, 2]
-    cy_prev = prev_box[:, 1] + 0.5 * prev_box[:, 3]
-    cx = pred[:, 0] + (cx_prev - half_side)
-    cy = pred[:, 1] + (cy_prev - half_side)
-    new_box = torch.stack([cx - 0.5 * pred[:, 2], cy - 0.5 * pred[:, 3],
-                           pred[:, 2], pred[:, 3]], dim=1)
-    return clip_box(new_box, img_h, img_w, margin=rt.margin), score
+        rf = resize_factor[:, None]
+        pred = bbox * rt.search_size / rf                              # (cx, cy, w, h)
+        half_side = torch.full_like(resize_factor, 0.5 * rt.search_size) / resize_factor
+        cx_prev = prev_box[:, 0] + 0.5 * prev_box[:, 2]
+        cy_prev = prev_box[:, 1] + 0.5 * prev_box[:, 3]
+        cx = pred[:, 0] + (cx_prev - half_side)
+        cy = pred[:, 1] + (cy_prev - half_side)
+        new_box = torch.stack([cx - 0.5 * pred[:, 2], cy - 0.5 * pred[:, 3],
+                               pred[:, 2], pred[:, 3]], dim=1)
+        return clip_box(new_box, img_h, img_w, margin=rt.margin), score
 
 
 def vipt_track_step(rt: ViPTRuntime, model: ViPTrack, state: dict, frames: torch.Tensor,
@@ -142,8 +145,9 @@ def vipt_track_step(rt: ViPTRuntime, model: ViPTrack, state: dict, frames: torch
     Returns (new_state, boxes (B, 4), scores (B,))."""
     H, W, c = frames.shape[1], frames.shape[2], frames.shape[3]
     mean, std = _stats(c, frames.device)
-    search, resize_factor = crop(frames, state["box"], rt.search_factor, rt.search_size, mean,
-                                 std)
+    with profiling.span("vipt.crop", frames.device):
+        search, resize_factor = crop(frames, state["box"], rt.search_factor, rt.search_size,
+                                     mean, std)
     boxes, scores = vipt_step_from_crop(rt, model, state["template"], state["box"], search,
                                         resize_factor, float(H), float(W))
     return {"box": boxes, "template": state["template"]}, boxes, scores
@@ -160,10 +164,12 @@ def vipt_track_scan_batched(rt: ViPTRuntime, model: ViPTrack, state: dict,
     `make_track_scan` replays the same steps as one CUDA graph and is held
     against this loop."""
     boxes, scores = [], []
-    for t in range(frames.shape[0]):
-        state, box, score = vipt_track_step(rt, model, state, frames[t], crop)
-        boxes.append(box)
-        scores.append(score)
+    with profiling.chunk():
+        for t in range(frames.shape[0]):
+            with profiling.span("vipt.step", frames.device, step=t):
+                state, box, score = vipt_track_step(rt, model, state, frames[t], crop)
+            boxes.append(box)
+            scores.append(score)
     return state, torch.stack(boxes), torch.stack(scores)
 
 
@@ -186,10 +192,11 @@ class _ChunkGraph:
     The chunk, the box and the template live in buffers allocated once;
     every call copies into them (never reallocates them, so the addresses
     that the graph baked in, TMA descriptors included, stay valid) and
-    replays. The outputs live in the graph's private memory pool."""
+    replays. The outputs live in the graph's private memory pool. `key`
+    names the capture (`profiling.Capture`)."""
 
     def __init__(self, rt: ViPTRuntime, model: ViPTrack, state: dict, frames: torch.Tensor,
-                 device: torch.device, crop: Callable):
+                 device: torch.device, crop: Callable, key: tuple):
         self.frames = torch.empty(frames.shape, dtype=torch.uint8, device=device)
         self.box = torch.empty(state["box"].shape, dtype=torch.float32, device=device)
         self.template = torch.empty(state["template"].shape, dtype=torch.float32,
@@ -201,21 +208,26 @@ class _ChunkGraph:
             for _ in range(SCAN_WARMUP_STEPS):
                 vipt_track_step(rt, model, static, self.frames[0], crop)
 
-        self.graph, (final, self.boxes, self.scores) = capture_graph(
-            lambda: vipt_track_scan_batched(rt, model, static, self.frames, crop), device, warmup)
+        self.graph, (final, self.boxes, self.scores), self.capture = capture_graph(
+            lambda: vipt_track_scan_batched(rt, model, static, self.frames, crop), device, warmup,
+            key)
         self.final_box = final["box"]
 
     def _load(self, state: dict, frames: torch.Tensor) -> None:
-        for dst, src in ((self.frames, frames), (self.box, state["box"]),
-                         (self.template, state["template"])):
-            if src.shape != dst.shape:
-                raise ValueError(f"track scan captured for {tuple(dst.shape)}, "
-                                 f"got {tuple(src.shape)}")
-            dst.copy_(src)
+        with profiling.span("track.load", self.frames.device):
+            for dst, src in ((self.frames, frames), (self.box, state["box"]),
+                             (self.template, state["template"])):
+                if src.shape != dst.shape:
+                    raise ValueError(f"track scan captured for {tuple(dst.shape)}, "
+                                     f"got {tuple(src.shape)}")
+                dst.copy_(src)
+                profiling.count("load.bytes", dst.nbytes)
 
     def __call__(self, state: dict, frames: torch.Tensor):
         self._load(state, frames)
-        self.graph.replay()
+        with profiling.span("track.replay"):
+            self.graph.replay()
+            self.capture.replayed()
         return {"box": self.final_box, "template": self.template}, self.boxes, self.scores
 
 
@@ -236,9 +248,18 @@ def make_track_scan(rt: ViPTRuntime, model: ViPTrack, device,
     Donation: the results alias buffers that the next call of the same
     shape overwrites (passing the returned state back in is fine), as the
     jitted scan's donated state is gone after the call; clone what must
-    outlive it. The launch counters of the kernel wrappers count at
-    capture (and warm-up), not at replay. `crop` makes the steps' search
-    crops (`vipt_track_step`).
+    outlive it. The kernel wrappers count their launches
+    (`profiling.count`) at warm-up and capture, not at replay: the
+    launches of replays are `graph.replays` x `graph.nodes`. `crop` makes
+    the steps' search crops (`vipt_track_step`).
+
+    Under `profiling.tracing()` a chunk shape gets a second graph, captured
+    with the steps' device spans stamped in it (the cache's key holds
+    whether tracing is on), so the graph replayed with tracing off is the
+    same with or without one. Each call is one chunk of the tracer
+    (`profiling.chunk`): `track.capture` (host: warm-up and capture, on a
+    shape's first call), `track.load` (host and device: the copies into
+    the static buffers), `track.replay` (host: the graph's submission).
 
     The CPU has no graphs: a CPU device raises (call
     `vipt_track_scan_batched` there)."""
@@ -252,10 +273,12 @@ def make_track_scan(rt: ViPTRuntime, model: ViPTrack, device,
 
     @torch.inference_mode()
     def scan(state: dict, frames: torch.Tensor):
-        key = tuple(frames.shape)
-        if key not in graphs:
-            graphs[key] = _ChunkGraph(rt, model, state, frames, device, crop)
-        return graphs[key](state, frames)
+        key = (tuple(frames.shape), profiling.tracing_on())
+        with profiling.chunk():
+            if key not in graphs:
+                with profiling.span("track.capture"):
+                    graphs[key] = _ChunkGraph(rt, model, state, frames, device, crop, key)
+            return graphs[key](state, frames)
 
     return scan
 

@@ -37,7 +37,7 @@ from mmtrack_torch.ops.mlp_fuse import mlp_block_fused
 from mmtrack_torch.train.actor import vipt_forward_and_loss
 from mmtrack_torch.train.optim import build_optimizer, prompt_only_mask
 from mmtrack_torch.train.train_step import TrainState, make_train_step
-from mmtrack_torch.utils import optouts
+from mmtrack_torch.utils import optouts, profiling
 from mmtrack_torch.utils.device import card_line, require_cuda
 from mmtrack_torch.utils.profiling import flops_estimate
 
@@ -87,7 +87,7 @@ def bench_train(cfg, batches=(16, 32), steps: int = 10, device=None) -> list[dic
         for _ in range(WARM_STEPS):
             state, stats = step(state, batch)
         loss_first = float(stats["Loss/total"])
-        before = {fn.__name__: fn.launches for fn in COUNTERS}
+        before = profiling.counters()
         t0 = time.perf_counter()
         for _ in range(steps):
             state, stats = step(state, batch)
@@ -99,8 +99,8 @@ def bench_train(cfg, batches=(16, 32), steps: int = 10, device=None) -> list[dic
                "loss_first": loss_first, "loss_last": loss_last,
                "ms_per_step": dt * 1e3, "samples_per_s": B / dt, "model_tflops": tflops,
                "mfu_vs_bf16_peak": tflops / PEAK_BF16_TFLOPS,
-               "launches_per_step": {fn.__name__: (fn.launches - before[fn.__name__]) / steps
-                                     for fn in COUNTERS},
+               "launches_per_step": {k: n / steps for k, n in
+                                     profiling.launches(COUNTERS, before).items()},
                "device": str(device)}
         print(json.dumps(row), flush=True)
         rows.append(row)

@@ -114,11 +114,12 @@ def evaluate_factory(make_tracker, modality: str = "both", with_init_mask: bool 
     from mmtrack_torch.data.synthetic import make_synthetic_sequence
     from mmtrack_torch.eval.metrics import iou_xywh, success_auc
     from mmtrack_torch.ops.crop import crop_resize_normalized
+    from mmtrack_torch.utils import profiling
 
     kw = {"both": {}, "rgb_only": {"target_aux": None},
           "aux_only": {"target_rgb": None}}[modality]
     ious, flags, masks = [], {}, {}
-    launches0 = crop_resize_normalized.launches
+    before = profiling.counters()
     for spec in HELDOUT:
         frames, gt = make_synthetic_sequence(n_frames=N_FRAMES, height=FRAME_HW[0],
                                              width=FRAME_HW[1], distractor=distractor,
@@ -144,7 +145,8 @@ def evaluate_factory(make_tracker, modality: str = "both", with_init_mask: bool 
     ious = np.concatenate(ious)
     out = {"mean_iou": float(ious.mean()), "auc": float(success_auc(ious)),
            "sr50": float((ious > 0.5).mean()),
-           "crop_launches": crop_resize_normalized.launches - launches0}
+           "crop_launches": profiling.launches([crop_resize_normalized],
+                                               before)["crop_resize_normalized"]}
     if flags:
         out["flags"] = flags
     if masks:

@@ -7,6 +7,8 @@ import subprocess
 
 import torch
 
+from mmtrack_torch.utils import profiling
+
 
 def require_cuda() -> torch.device:
     """Return the first CUDA device, or raise if CUDA is absent.
@@ -27,23 +29,28 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def capture_graph(fn, device, warmup=None):
+def capture_graph(fn, device, warmup=None, key=None):
     """fn() captured as one CUDA graph on a side stream of `device`.
     `warmup` (fn when not given) runs there first, eagerly: library
     handles, the convolutions' algorithm choice, the kernel library's
     build and its one-time function attributes, and constants are made
     then, outside the capture. Returns (graph, what the captured call
-    returned); its tensors live in the graph's private pool, and every
-    replay rewrites them."""
+    returned, its `profiling.Capture` under `key`: the graph's node count,
+    and under `profiling.tracing()` the device spans that each replay
+    stamps; call its `replayed()` after each replay). The graph's tensors
+    live in its private pool, and every replay rewrites them."""
     stream = torch.cuda.Stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(stream):
         (warmup or fn)()
     torch.cuda.current_stream(device).wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        out = fn()
-    return graph, out
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with profiling.capturing(device, key) as capture:
+        with torch.cuda.graph(graph, stream=stream):
+            out = fn()
+        capture.count_nodes(graph)
+    graph.instantiate()
+    return graph, out, capture
 
 
 def set_f32_precision() -> None:

@@ -51,6 +51,7 @@ from mmtrack_torch.models.convert import vipt_state_dict_from_flax  # noqa: E402
 from mmtrack_torch.models.vipt import ViPTrack  # noqa: E402
 from mmtrack_torch.parallel.batched_eval import BatchedViPTTracker  # noqa: E402
 from mmtrack_torch.trackers.vipt_tracker import ViPTRuntime, ViPTTracker  # noqa: E402
+from mmtrack_torch.utils import profiling  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(embed_dim=32, depth=2, num_heads=2, patch_size=16,
@@ -159,6 +160,22 @@ def test_rgb_index_wire_bit_equal_to_host_composed_frames(tiny, disk, tmp_path):
             rel = os.path.join("DepthTrack", "cfg", seq.name + suffix)
             assert open(tmp_path / "w2" / rel, "rb").read() == \
                 open(tmp_path / "w1" / rel, "rb").read()
+
+
+def test_streamed_stages_are_traced(tiny, disk, tmp_path):
+    """Under the tracer each streamed step is one chunk: its upload,
+    compose, tracking step and read; the waits for the decode thread are
+    spans of their own."""
+    _, _, port = tiny
+    with profiling.tracing() as tr:
+        batched_ope.run_dataset_batched(_port(port), _load(disk), str(tmp_path), "DepthTrack",
+                                        "cfg", batch_size=2, verbose=False)
+    spans = tr.snapshot()["spans"]
+    steps = 4                                     # frames 1-4 of the longer sequence
+    for name in ("ope.upload", "ope.compose", "vipt.step", "ope.read"):
+        found = [s for s in spans if s["name"] == name]
+        assert sorted(s["chunk"] for s in found) == list(range(steps)), name
+    assert len([s for s in spans if s["name"] == "ope.decode_wait"]) == steps - 1
 
 
 def test_rgb_index_wire_matches_jax(tiny, disk, tmp_path):

@@ -82,6 +82,8 @@ NOT_PORTED = {
                                                "local.yaml (utils/env.py)",
     "utils/env.py::enable_compile_cache": DO_NOT_PORT + "XLA's compile cache",
     "utils/hostmem.py::tune_host_allocator": DO_NOT_PORT + "the TPU VM's host allocator",
+    "utils/profiling.py::Timer": "read by nothing; the port's tracer (utils/profiling.py "
+                                 "span, tracing) times its layers",
 }
 
 

@@ -64,6 +64,7 @@ from mmtrack_torch.ops.mlp_fuse import (  # noqa: E402
     mlp_block_fused_plain,
 )
 from mmtrack_torch.ops.xcorr import depthwise_xcorr, depthwise_xcorr_plain  # noqa: E402
+from mmtrack_torch.utils import profiling  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 C = 768
@@ -122,9 +123,9 @@ def test_attn_block_kernel_matches_plain(dev, B, L, spread):
         h = layer_norm_f32(x, p[0], p[1], 1e-6).to(torch.bfloat16)
         assert _max_logit_spread(linear_f32(h, p[2], p[3]).to(torch.bfloat16)) > 80
     kw = dict(num_heads=12, scale=64 ** -0.5)
-    before = attn_block_fused.launches
+    before = profiling.counters()
     got = attn_block_fused(x, *p, **kw)
-    assert attn_block_fused.launches == before + 1
+    assert profiling.launches([attn_block_fused], before) == {"attn_block_fused": 1}
     _assert_row_ulps(got, attn_block_fused_plain(x, *p, **kw), x)
 
 
@@ -132,9 +133,9 @@ def test_attn_block_kernel_matches_plain(dev, B, L, spread):
 def test_mlp_block_kernel_matches_plain(dev, B, L):
     p = _params(4 * C, 4 * C, dev, seed=L)
     x = _x(B, L, dev, seed=B)
-    before = mlp_block_fused.launches
+    before = profiling.counters()
     got = mlp_block_fused(x, *p)
-    assert mlp_block_fused.launches == before + 1
+    assert profiling.launches([mlp_block_fused], before) == {"mlp_block_fused": 1}
     _assert_row_ulps(got, mlp_block_fused_plain(x, *p), x)
 
 
@@ -231,9 +232,9 @@ def test_crop_kernel_bit_equal_to_plain(dev, H, W, S, factor, C, B):
     boxes = boxes.to(dev)
     mean = torch.rand(C, generator=g).to(dev)
     std = (0.1 + torch.rand(C, generator=g)).to(dev)
-    before = crop_resize_normalized.launches
+    before = profiling.counters()
     got, rf = crop_resize_normalized(frames, boxes, factor, S, mean, std)
-    assert crop_resize_normalized.launches == before + 1
+    assert profiling.launches([crop_resize_normalized], before) == {"crop_resize_normalized": 1}
     want, rf_w = crop_resize_normalized_plain(frames, boxes, factor, S, mean, std)
     assert torch.equal(rf, rf_w)
     assert torch.equal(got, want)
@@ -245,11 +246,11 @@ def test_crop_kernel_refuses_host_arguments(dev, host):
     args = {"boxes": torch.zeros(2, 4, device=dev), "mean": torch.zeros(6, device=dev),
             "std": torch.ones(6, device=dev)}
     args[host] = args[host].cpu()
-    before = crop_resize_normalized.launches
+    before = profiling.counters()
     with pytest.raises(TypeError, match=host):
         crop_resize_normalized(torch.zeros(2, 24, 32, 6, dtype=torch.uint8, device=dev),
                                args["boxes"], 4.0, 16, args["mean"], args["std"])
-    assert crop_resize_normalized.launches == before
+    assert profiling.launches([crop_resize_normalized], before) == {"crop_resize_normalized": 0}
 
 
 def test_graphed_scan_bit_equal_to_eager_scan(dev):
@@ -286,13 +287,13 @@ def test_graphed_scan_bit_equal_to_eager_scan(dev):
         eager.append(vipt_track_scan_batched(rt, model, eager[0][0], chunks[1]))
         scan = make_track_scan(rt, model, dev)
         counters = (attn_block_fused, mlp_block_fused, crop_resize_normalized)
-        before = [fn.launches for fn in counters]
+        before = profiling.counters()
         s, boxes, scores = scan(state, chunks[0])
         got = [(boxes.clone(), scores.clone())]
-        captured = [fn.launches - b for fn, b in zip(counters, before)]
+        captured = list(profiling.launches(counters, before).values())
         s, boxes, scores = scan(s, chunks[1])
         got.append((boxes.clone(), scores.clone()))
-        replayed = [fn.launches - b for fn, b in zip(counters, before)]
+        replayed = list(profiling.launches(counters, before).values())
     torch.cuda.synchronize()
     steps = SCAN_WARMUP_STEPS + T
     assert captured == replayed == [3 * steps, 4 * steps, steps]
@@ -323,9 +324,9 @@ def test_flash_mhsa_qkv_kernel_matches_plain(dev, B, L, spread):
     if spread:       # q x 32: a row's logits spread over more than 80
         qkv[..., :C] *= 32
         assert _max_logit_spread(qkv) > 80
-    before = flash_mhsa_qkv.launches
+    before = profiling.counters()
     got = flash_mhsa_qkv(qkv, 12, 64 ** -0.5)
-    assert flash_mhsa_qkv.launches == before + 1
+    assert profiling.launches([flash_mhsa_qkv], before) == {"flash_mhsa_qkv": 1}
     want = flash_mhsa_qkv_plain(qkv, 12, 64 ** -0.5)
     gf, wf = got.float(), want.float()
     scale = torch.maximum(gf.abs(), wf.abs()).amax(-1, keepdim=True)
@@ -360,15 +361,15 @@ def test_function_gradients_equal_plain_autograd(dev, kind, needs, L):
     wants = [i == 0 or needs == "all" for i in range(len(tensors))]
     a = [t.clone().requires_grad_(w) for t, w in zip(tensors, wants)]
     b = [t.clone().requires_grad_(w) for t, w in zip(tensors, wants)]
-    before = kernel.launches
+    before = profiling.counters()
     out = kernel(*a, **kw)
-    assert kernel.launches == before + 1
+    assert list(profiling.launches([kernel], before).values()) == [1]
     assert out.grad_fn is not None
     ref = plain(*b, **kw)
     g_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(dev, out.dtype)
     got = torch.autograd.grad(out, [t for t in a if t.requires_grad], g_out)
     want = torch.autograd.grad(ref, [t for t in b if t.requires_grad], g_out)
-    assert kernel.launches == before + 1        # the backward launches no kernel
+    assert list(profiling.launches([kernel], before).values()) == [1]  # none in the backward
     for x, y in zip(got, want):
         assert torch.equal(x, y)
 
@@ -416,9 +417,9 @@ def test_depthwise_xcorr_kernel_bit_equal_to_plain(dev, case):
     g = torch.Generator().manual_seed(N * H + C_)
     x = torch.randn(N, H, W, C_, generator=g).to(dev)
     z = torch.randn(*((N,) if per_sample else ()), fh, fw, C_, generator=g).to(dev)
-    before = depthwise_xcorr.launches
+    before = profiling.counters()
     got = depthwise_xcorr(z, x, pad=pad)
-    assert depthwise_xcorr.launches == before + 1
+    assert profiling.launches([depthwise_xcorr], before) == {"depthwise_xcorr": 1}
     want = depthwise_xcorr_plain(z, x, pad=pad)
     assert got.shape == (N, H + 2 * pad - fh + 1, W + 2 * pad - fw + 1, C_)
     assert torch.equal(got, want)
@@ -526,7 +527,7 @@ def test_shared_scan_captures_once_per_shape(dev):
     counters = (attn_block_fused, mlp_block_fused, crop_resize_normalized)
 
     def counts():
-        return [fn.launches for fn in counters]
+        return list(profiling.launches(counters).values())
 
     for tr in (a, b, alone):
         tr.initialize(frames[0], box0)
@@ -579,3 +580,89 @@ def test_device_compose_on_the_card_bit_equal_to_the_cpu(dev):
         want = fn(*args)
         got = fn(*(a.to(dev) for a in args))
         assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+LAYERS = ["vipt.crop", "vipt.embed", "vipt.block", "vipt.prompt", "vipt.ce_block", "vipt.head",
+          "vipt.decode"]
+
+
+def _chunk_inputs(dev, T=4, B=2, H=96, W=128):
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    frames = torch.from_numpy(rng.randint(0, 256, (T + 1, B, H, W, 6)).astype(np.uint8)).to(dev)
+    box0 = torch.tensor([[40.0, 30.0, 30.0, 24.0], [60.0, 40.0, 20.0, 28.0]])
+    return frames[0], box0, frames[1:]
+
+
+def test_traced_chunk_graph_stamps_every_step(dev):
+    """Under profiling.tracing() a chunk shape is captured a second time,
+    with the steps' device spans stamped in the graph: every replay gives
+    each step its seven layers in order under its `vipt.step`, one chunk
+    id a replay, and the layers cover the stamped step within 2 %."""
+    from mmtrack_torch.trackers.vipt_tracker import make_track_scan, vipt_init_state
+
+    rt, model = _depth4_model(dev)
+    first, box0, chunk = _chunk_inputs(dev)
+    T = chunk.shape[0]
+    with torch.inference_mode():
+        state = vipt_init_state(rt, first, box0)
+        scan = make_track_scan(rt, model, dev)
+        scan(state, chunk)
+        with profiling.tracing() as tr:
+            for _ in range(3):
+                scan(state, chunk)
+            snap = tr.snapshot()
+    assert [c["traced"] for c in profiling.captures()[-2:]] == [False, True]
+    spans = snap["spans"]
+    steps = [i for i, s in enumerate(spans) if s["name"] == "vipt.step"]
+    assert len(steps) == 3 * T
+    assert sorted({spans[i]["chunk"] for i in steps}) == [0, 1, 2]
+    for i in steps:
+        kids = [s for s in spans if s["parent"] == i]
+        names = list(dict.fromkeys(s["name"] for s in kids))
+        assert names == LAYERS
+        assert all(s["chunk"] == spans[i]["chunk"] for s in kids)
+        step = spans[i]["dend"] - spans[i]["dstart"]
+        covered = sum(s["dend"] - s["dstart"] for s in kids)
+        assert step > 0 and 0.98 * step <= covered <= step
+    assert len([s for s in spans if s["name"] == "track.replay"]) == 3
+    loads = [s for s in spans if s["name"] == "track.load"]
+    assert loads and all(s["dend"] >= s["dstart"] for s in loads)
+
+
+def test_graph_nodes_of_the_untraced_graph(dev):
+    """The untraced chunk graph has the same nodes whether or not a traced
+    graph of the shape was captured before it in the process; the kernels
+    the profiler sees in a replay are its nodes to within the copies (a
+    copy or fill node shows as a kernel, `memcpy32_post` or `memset32`, or
+    as a copy)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmtrack_torch.trackers.vipt_tracker import make_track_scan, vipt_init_state
+
+    rt, model = _depth4_model(dev)
+    first, box0, chunk = _chunk_inputs(dev)
+    with torch.inference_mode():
+        state = vipt_init_state(rt, first, box0)
+        plain = make_track_scan(rt, model, dev)
+        plain(state, chunk)
+        alone = profiling.captures()[-1]
+        with profiling.tracing():
+            make_track_scan(rt, model, dev)(state, chunk)
+        again = make_track_scan(rt, model, dev)
+        again(state, chunk)
+        after = profiling.captures()[-1]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                again(state, chunk)
+            torch.cuda.synchronize()
+    assert not alone["traced"] and not after["traced"]
+    assert after["nodes"] == alone["nodes"] and after["kernels"] == alone["kernels"]
+    assert alone["kernels"] <= alone["nodes"]
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.name().startswith(("Memcpy", "Memset"))
+               and not getattr(e, "is_user_annotation", lambda: False)()]
+    assert 3 * alone["kernels"] <= len(kernels) <= 3 * alone["nodes"]

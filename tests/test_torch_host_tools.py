@@ -25,7 +25,7 @@
   padding and FlopCounterMode counts every tap of every output (both held
   to their closed forms), and on elementwise work, which XLA counts and
   FlopCounterMode does not. `trace_profile` writes a Chrome trace on the
-  CPU naming the ops it ran; Timer.
+  CPU naming the ops it ran (the tracer: tests/test_torch_tracing.py).
 """
 
 import test_torch_threads  # noqa: F401  (first: caps torch's CPU threads)
@@ -268,11 +268,3 @@ def test_trace_profile_writes_a_chrome_trace(tmp_path):
         events = json.load(f)["traceEvents"]
     assert any("aten::mm" in e.get("name", "") for e in events)
     assert any(r.key == "aten::mm" for r in prof.key_averages())
-
-
-def test_timer_accumulates():
-    t = profiling.Timer()
-    for _ in range(3):
-        with t:
-            sum(range(1000))
-    assert t.count == 3 and t.total > 0 and t.avg == pytest.approx(t.total / 3)
