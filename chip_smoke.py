@@ -31,12 +31,17 @@ non-zero:
      the zoo's shapes on 640x480: S = 320 at factor 5 on 3 and 6
      channels, SAMF's outer scales (factors 4.0 and 6.25, 6 channels) on
      boxes whose windows overhang every edge, and ProMixTrack's 3-channel
-     S = 128 template; bar bit equality. Times from CUDA events and the
+     S = 128 template; bar bit equality; ViPT's prompt step (ops/prompt.py)
+     against prompt_step_plain at B=32 for block 0's form and every token
+     count (L_a = 320, 244, 190, 153, live rows random per lane), bar two
+     ulps of the row's scale on the tokens and the new state, each row
+     with its plain time and byte bound. Times from CUDA events and the
      profiler's device time.
   3. main path: BatchedViPTTracker with deep_rgbd in bf16 on seeded random
      weights, B=16 sequences of 320x240 6-channel synthetic frames,
      initialize + 16 tracked steps. The launch counters must show 9 x 16
-     attention half-blocks, 12 x 16 MLP half-blocks and 1 + 16 crops; every
+     attention half-blocks, 12 x 16 MLP half-blocks, 12 x 16 prompt steps
+     and 1 + 16 crops; every
      box must be finite and inside its frame. Reports ms/step and frames/s.
      Then PROFILE_STEPS more steps under torch.profiler: the attention,
      GEMM and LayerNorm kernels' device ms and calls per step (9 attention
@@ -49,8 +54,9 @@ non-zero:
      chunk) from the same initial state. The graph's boxes and scores over
      the 4 x 16 frames must equal the eager loop's bit for bit and lie
      inside their frames; the wrappers count (warm-up + T) steps at capture
-     and nothing at replay; torch.profiler over one replayed chunk must
-     count 9 attention, 42 GEMM, 21 LayerNorm and 1 crop kernel per step.
+     (12 prompt steps a step among them) and nothing at replay;
+     torch.profiler over one replayed chunk must count 9 attention, 42
+     GEMM, 21 LayerNorm, 1 crop and 24 prompt kernels per step.
      Prints ms/step and frames/s of both, and the device ms per step and
      idle share of both (profiler windows of one chunk).
   4. one full forward with the kernels against the same model on the plain
@@ -445,6 +451,7 @@ from mmtrack_torch.ops.mlp_fuse import (
     mlp_block_fused,
     mlp_block_fused_plain,
 )
+from mmtrack_torch.ops.prompt import prompt_step, prompt_step_plain
 from mmtrack_torch.ops.xcorr import depthwise_xcorr, depthwise_xcorr_plain
 from mmtrack_torch.parallel.batched_eval import BatchedViPTTracker
 from mmtrack_torch.registry import TRACKER_REGISTRY, build_tracker
@@ -480,6 +487,8 @@ PROFILE_STEPS = 3                  # tracking steps under torch.profiler, after 
 ATTENTION_KERNELS = ("attention_resident_kernel", "attention_streaming_kernel")
 GEMM_KERNEL, LAYERNORM_KERNEL = "gemm_bf16_kernel", "layernorm_bf16_kernel"
 CROP_KERNEL = "crop_rows_kernel"
+PROMPT_KERNELS = ("prompt_proj_kernel", "prompt_out_kernel")
+PROMPT_B, PROMPT_LZ, PROMPT_LX = 32, 64, 256   # the tracking cell's lanes; template, search grid
 SCAN_T, SCAN_CHUNKS, SCAN_REPS = 16, 4, 2   # bench.py:47 and :409-418 (3 repetitions there)
 GEMM_SHAPES = (("qkv", 2304, 768, EPI_BIAS), ("proj", 768, 768, EPI_BIAS_RESIDUAL),
                ("fc1", 3072, 768, EPI_BIAS_GELU), ("fc2", 768, 3072, EPI_BIAS_RESIDUAL))
@@ -902,6 +911,81 @@ def compare_crops(dev, gen) -> list[dict]:
     return rows
 
 
+def compare_prompt(dev, gen) -> list[dict]:
+    """ViPT's prompt step (ops/prompt.py over csrc/prompt.cu) against
+    prompt_step_plain on the same card tensors, at B = 32: a later block
+    at every token count of the main path (L_a = 320 unpruned, 244 / 190 /
+    153 with random live rows per lane) and block 0's form (the RGB and
+    the auxiliary tokens, one LayerNorm for both), bar BLOCK_ULPS of the
+    row's scale on the tokens and the new state. Product weights at a
+    scale that keeps the Fovea's logits spread by a few units (its sharp
+    regime, the tracking cell's weights, is tests/test_torch_cuda.py's);
+    the plain products without reduced-precision reductions, as the
+    kernels accumulate in f32. Bound: the tokens and the state read once
+    and written once; operations of the three C <-> 8 products."""
+    from mmtrack_torch.models.layers import LayerNorm
+    from mmtrack_torch.models.vipt import PromptBlock
+
+    bf, C, n = torch.bfloat16, 768, PROMPT_B
+    norms = [LayerNorm(C, dtype=bf, device=dev) for _ in range(2)]
+    block = PromptBlock(C, dtype=bf, device=dev)
+    with torch.no_grad():
+        for m in norms:
+            m.weight.copy_(1 + 0.1 * torch.randn(C, generator=gen))
+            m.bias.copy_(0.1 * torch.randn(C, generator=gen))
+        for conv, scale in ((block.conv0_0, 0.3 * C ** -0.5), (block.conv0_1, 0.3 * C ** -0.5),
+                            (block.conv1x1, 8 ** -0.5)):
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) * scale)
+            conv.bias.copy_(0.05 * torch.randn(conv.bias.shape, generator=gen))
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rows = []
+    try:
+        for La in (None,) + TOKENS:                   # None: block 0's form
+            if La is None:
+                tokens, state = [tuple((torch.randn(n, L, C, generator=gen) * 2).to(dev, bf)
+                                       for L in (PROMPT_LZ, PROMPT_LX)) for _ in range(2)]
+                gidx, norm_a, norm_b = None, norms[0], norms[0]
+            else:
+                x_cur = (torch.randn(n, La, C, generator=gen) * 2 + 0.3).to(dev, bf)
+                tokens = (x_cur[:, :PROMPT_LZ], x_cur[:, PROMPT_LZ:])
+                state = tuple(torch.randn(n, L, C, generator=gen).to(dev, bf)
+                              for L in (PROMPT_LZ, PROMPT_LX))
+                live = La - PROMPT_LZ
+                gidx = (None if live == PROMPT_LX else torch.stack(
+                    [torch.randperm(PROMPT_LX, generator=gen)[:live] for _ in range(n)]).to(dev))
+                norm_a, norm_b = norms
+
+            def kernel():
+                return prompt_step(tokens, state, norm_a, norm_b, block, gidx)
+
+            def plain():
+                return prompt_step_plain(tokens, state, norm_a, norm_b, block, gidx)
+
+            (out, (p_z, p_s)), (w_out, (w_z, w_s)) = kernel(), plain()
+            torch.cuda.synchronize()
+            w_state = torch.cat([w_z, w_s], 1)
+            tok = row_ulps(out, w_out, torch.cat(tokens, 1))
+            st = row_ulps(torch.cat([p_z, p_s], 1), w_state, torch.zeros_like(w_state))
+            row = dict(kernel="prompt_step", B=n, L="block0" if La is None else La, C=C,
+                       max_abs_err=max(tok["max_abs_err"], st["max_abs_err"]),
+                       max_row_ulps=max(tok["max_row_ulps"], st["max_row_ulps"]),
+                       token_row_ulps=tok["max_row_ulps"], state_row_ulps=st["max_row_ulps"],
+                       bar_row_ulps=BLOCK_ULPS, ms=cuda_ms(kernel), device_ms=device_ms(kernel),
+                       plain_ms=cuda_ms(plain), plain_device_ms=device_ms(plain),
+                       library_ms=None,
+                       **bound(nbytes(*tokens, *state, out, w_state),
+                               2 * n * (PROMPT_LZ + PROMPT_LX) * 3 * 8 * C, "bf16"))
+            log("kernels", **row, card=card_line())
+            if row["max_row_ulps"] > BLOCK_ULPS:
+                raise AssertionError(f"prompt_step B={n} L={row['L']}: {row}")
+            rows.append(row)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    # the main path's shape first, as the other kernels' rows: L_a = 320
+    return rows[1:2] + rows[:1] + rows[2:]
+
+
 def synthetic_frames(n: int, gen: np.random.RandomState):
     """(n, B, H, W, 6) uint8 frames of B moving bright squares on texture,
     and the (B, 4) xywh boxes of frame 0."""
@@ -938,7 +1022,7 @@ def main_path(cfg, rt, dev, frames, box0):
     tracker.track(frames[1])
     torch.cuda.synchronize()
 
-    counters = (attn_block_fused, mlp_block_fused, crop_resize_normalized)
+    counters = (attn_block_fused, mlp_block_fused, crop_resize_normalized, prompt_step)
     reset_launches(*counters)
     tracker.initialize(frames[0], box0)
     torch.cuda.synchronize()
@@ -948,7 +1032,7 @@ def main_path(cfg, rt, dev, frames, box0):
     launches = launch_counts(counters)
 
     expected = {"attn_block_fused": 9 * STEPS, "mlp_block_fused": 12 * STEPS,
-                "crop_resize_normalized": STEPS + 1}
+                "crop_resize_normalized": STEPS + 1, "prompt_step": 12 * STEPS}
     inside = boxes_inside(np.stack(all_boxes))
     H, W = FRAME_HW
     ms = elapsed / STEPS * 1e3
@@ -991,8 +1075,9 @@ def profile_steps(tracker, frame, steps: int = PROFILE_STEPS) -> dict:
                                  for e in rows[:8]})
 
 
-SCAN_COUNTERS = (attn_block_fused, mlp_block_fused, crop_resize_normalized)
-SCAN_PER_STEP = {"attn_block_fused": 9, "mlp_block_fused": 12, "crop_resize_normalized": 1}
+SCAN_COUNTERS = (attn_block_fused, mlp_block_fused, crop_resize_normalized, prompt_step)
+SCAN_PER_STEP = {"attn_block_fused": 9, "mlp_block_fused": 12, "crop_resize_normalized": 1,
+                 "prompt_step": 12}
 
 
 def scan_counts() -> dict:
@@ -1021,7 +1106,8 @@ def scan_reps(scan, rt, frames, box0, chunk) -> tuple[float, list, list]:
     return best, runs, counts
 
 
-SCAN_KERNELS = {"attention": 9, "gemm": GEMM_CALLS_PER_STEP, "layernorm": 21, "crop": 1}
+SCAN_KERNELS = {"attention": 9, "gemm": GEMM_CALLS_PER_STEP, "layernorm": 21, "crop": 1,
+                "prompt": 12 * len(PROMPT_KERNELS)}
 
 
 def profile_chunk(scan, rt, frames, box0, chunk) -> dict:
@@ -1037,7 +1123,8 @@ def profile_chunk(scan, rt, frames, box0, chunk) -> dict:
             return sum(e.count for e in rows if any(k in e.key for k in names)) / SCAN_T
 
         kernels = {"attention": per_step(ATTENTION_KERNELS), "gemm": per_step((GEMM_KERNEL,)),
-                   "layernorm": per_step((LAYERNORM_KERNEL,)), "crop": per_step((CROP_KERNEL,))}
+                   "layernorm": per_step((LAYERNORM_KERNEL,)), "crop": per_step((CROP_KERNEL,)),
+                   "prompt": per_step(PROMPT_KERNELS)}
         if kernels == SCAN_KERNELS:
             break
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
@@ -4436,6 +4523,7 @@ TOOLS_WIRES = ("host", "rgbindex")
 # MMTRACK_CROP=gather (`pallas` is the fused loop's own crop)
 TOOLS_FWD_LAUNCHES = {"fused": {"attn_block_fused": 9, "mlp_block_fused": 12},
                       "xla": {"attn_block_fused": 0, "mlp_block_fused": 0}}
+TOOLS_LOOP_COUNTED = ("attn_block_fused", "mlp_block_fused", "crop_resize_normalized")
 TOOLS_LOOP_LAUNCHES = {("fused", None): (9, 12, 1), ("xla", None): (0, 0, 1),
                        ("fused", "gather"): (9, 12, 0)}
 # one forward without candidate elimination (12 blocks, all fusable) under
@@ -4514,7 +4602,7 @@ def tools_path(dev, rt, frames, box0) -> dict:
     loops = {}
     for (mode, crop), want in TOOLS_LOOP_LAUNCHES.items():
         rec = ab_kernels.run_loop(mode, TOOLS_LOOP_REPS, crop, dev)
-        got = tuple(rec["launches_per_step"][k] for k in SCAN_PER_STEP)
+        got = tuple(rec["launches_per_step"][k] for k in TOOLS_LOOP_COUNTED)
         loops[(mode, crop)] = rec["boxes"]
         if got != want or not boxes_inside(rec["boxes"]):
             raise AssertionError(f"ab_kernels loop {mode} crop={crop}: launches a step {got} "
@@ -4601,6 +4689,7 @@ def main() -> int:
         compare_gemms(dev, gen)
         compare_layernorm(dev, gen)
         crop_rows = compare_crops(dev, gen)
+        prompt_rows = compare_prompt(dev, gen)
         log("kernels_phase", seconds=time.perf_counter() - t_kernels)
         xcorr_rows = timed("xcorr", compare_xcorr, dev, gen)
 
@@ -4684,6 +4773,12 @@ def main() -> int:
               "mmtrack_tpu/ops/flash_attn.py:63", mhsa_rows),
         entry("depthwise_xcorr", "mmtrack_torch/csrc/xcorr.cu",
               "mmtrack_tpu/ops/xcorr.py:50", xcorr_rows),
+        # no Pallas kernel there: JAX runs the prompt step as plain XLA
+        {**entry("prompt_step", "mmtrack_torch/csrc/prompt.cu",
+                 "mmtrack_tpu/models/vipt.py:215", prompt_rows),
+         "rows": [{k: r[k] for k in ("L", "ms", "device_ms", "plain_ms", "plain_device_ms",
+                                     "bound_ms", "token_row_ulps", "state_row_ulps")}
+                  for r in prompt_rows]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

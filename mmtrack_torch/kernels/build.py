@@ -36,6 +36,7 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # name -> argtypes; every function returns a cudaError_t as int
 _SIGNATURES = {
     "mmt_layernorm_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
@@ -45,6 +46,8 @@ _SIGNATURES = {
                                   _P),
     "mmt_depthwise_xcorr": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "mmt_stamp": (_P, _I, _P),
+    "mmt_prompt_step_bf16": (_P, _L, _P, _L, _P, _L, _P, _L, _P, _P, _P, _F, _P, _P, _F, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -22,7 +22,8 @@ from torch import nn
 from mmtrack_torch.models.heads import CenterPredictor, CornerPredictor, MLPHead, cal_bbox
 from mmtrack_torch.models.layers import CEBlock, Conv2d, Dense, LayerNorm, Mlp, PatchEmbed
 from mmtrack_torch.ops.box import box_xyxy_to_cxcywh
-from mmtrack_torch.ops.ce import ce_keep_schedule, gather_search_tokens, recover_search_tokens
+from mmtrack_torch.ops.ce import ce_keep_schedule, recover_search_tokens
+from mmtrack_torch.ops.prompt import prompt_step, prompt_step_plain
 from mmtrack_torch.utils import profiling
 
 
@@ -100,7 +101,10 @@ class ViTCEPrompt(nn.Module):
 
     Block i has drop-path rate drop_path_rate * i / (depth - 1)
     (vipt.py:204); drop path acts only when forward gets
-    `deterministic=False`, with its masks drawn from `generator`."""
+    `deterministic=False`, with its masks drawn from `generator`. The
+    prompt steps run `ops/prompt.py::prompt_step` (the kernels on the
+    card) where the blocks run theirs, with `use_kernels` at bf16, and
+    `prompt_step_plain` otherwise."""
 
     def __init__(self, embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  patch_size: int = 16, template_size: int = 128,
@@ -113,6 +117,7 @@ class ViTCEPrompt(nn.Module):
         self.ce_loc = tuple(ce_loc)
         self.prompt_type = prompt_type
         self.dtype = dtype
+        self.use_kernels = use_kernels
         self.lens_z = (template_size // patch_size) ** 2
         self.lens_x = (search_size // patch_size) ** 2
         kw = dict(dtype=dtype, device=device)
@@ -141,6 +146,7 @@ class ViTCEPrompt(nn.Module):
         lens_z, lens_x = self.lens_z, self.lens_x
         dt = self.dtype
         has_prompt = self.prompt_type in ("vipt_deep", "vipt_shaw")
+        step = prompt_step if self.use_kernels and dt == torch.bfloat16 else prompt_step_plain
 
         # 3-channel crops: plain OSTrack, no auxiliary-modality stream
         rgb_only = z.shape[-1] == 3
@@ -156,11 +162,10 @@ class ViTCEPrompt(nn.Module):
             elif has_prompt:
                 z_dte_tok = self.patch_embed_prompt(z[..., 3:])
                 x_dte_tok = self.patch_embed_prompt(x[..., 3:])
-                n0, p0 = self.prompt_norms[0], self.prompt_blocks[0]
-                z_prompted = p0(n0(z_tok), n0(z_dte_tok))
-                x_prompted = p0(n0(x_tok), n0(x_dte_tok))
-                z_tok = z_tok + z_prompted
-                x_tok = x_tok + x_prompted
+                n0 = self.prompt_norms[0]
+                tokens, prompted = step((z_tok, x_tok), (z_dte_tok, x_dte_tok), n0, n0,
+                                        self.prompt_blocks[0])
+                z_tok, x_tok = tokens[:, :lens_z], tokens[:, lens_z:]
             else:
                 if self.patch_embed_prompt is None:
                     raise ValueError("this model has no patch_embed_prompt weights (a 3-channel "
@@ -184,19 +189,10 @@ class ViTCEPrompt(nn.Module):
         for i, block in enumerate(self.blocks):
             if i >= 1 and self.prompt_type == "vipt_deep":
                 with profiling.span("vipt.prompt", dev):
-                    x_ori = x_cur
-                    z_cur = x_cur[:, :lens_z]
-                    xs = x_cur[:, lens_z:]
-                    xs_full = recover_search_tokens(xs, gidx_s, lens_x) if pruned else xs
-                    full = self.prompt_norms[i - 1](torch.cat([z_cur, xs_full], dim=1))
-                    z_t, x_t = full[:, :lens_z], full[:, lens_z:]
-                    zp = self.prompt_norms[i](z_prompted)
-                    xp = self.prompt_norms[i](x_prompted)
-                    z_prompted = self.prompt_blocks[i](z_t, zp)
-                    x_prompted = self.prompt_blocks[i](x_t, xp)
-                    x_sel = (gather_search_tokens(x_prompted, gidx_s) if pruned
-                             else x_prompted)
-                    x_cur = x_ori + torch.cat([z_prompted, x_sel], dim=1)
+                    x_cur, prompted = step(
+                        (x_cur[:, :lens_z], x_cur[:, lens_z:]), prompted,
+                        self.prompt_norms[i - 1], self.prompt_norms[i], self.prompt_blocks[i],
+                        gidx_s if pruned else None)
 
             lens_keep = None
             if ce_keep_lens is not None and i in self.ce_loc:

@@ -21,7 +21,15 @@ two bf16 ulps of the largest |x|, |y - x| or |y| in the element's token
 row (the two versions sum in another f32 order, so y = x + h may differ by
 one ulp of h plus one of y);
 the crop and the depthwise correlation bit for bit; flash_mhsa_qkv within
-two bf16 ulps of the row's largest |output|.
+two bf16 ulps of the row's largest |output|. ViPT's prompt step
+(ops/prompt.py) against its plain composition at B = 1 and 32, for every
+token count of the main path with random live rows, block 0's form and
+inside a CUDA graph replayed twice, each output within two bf16 ulps of
+its row's largest value; with the tracking cell's weights (sharp Fovea
+logits), tokens within PROMPT_SHARP_TOKEN_ULPS and the state within two
+ulps but on a few rows; under autograd the kernels' forward with the
+plain gradient, bit for bit; f32 refused; and a model's prompt steps
+launching the kernels only where its blocks run theirs.
 
 The streamed OPE step (parallel/batched_eval.py) on the card: track_split
 (rgb + JET-index planes from pinned memory, composed on the card) gives
@@ -666,3 +674,273 @@ def test_graph_nodes_of_the_untraced_graph(dev):
                and not e.name().startswith(("Memcpy", "Memset"))
                and not getattr(e, "is_user_annotation", lambda: False)()]
     assert 3 * alone["kernels"] <= len(kernels) <= 3 * alone["nodes"]
+
+
+# ViPT's prompt step (ops/prompt.py over csrc/prompt.cu) against the plain
+# composition. Inputs: tokens of a ViT-B block (C = 768, 64 template rows,
+# a 256-row grid), product weights at a scale that keeps the Fovea's
+# logits (x0 times the temperature 10) spread by ~3 per part, so that a
+# one-ulp flip of x0 in the two versions' f32 orders moves the output by
+# well under the bar; the plain products without reduced-precision
+# reductions, as the kernel accumulates in f32.
+PROMPT_LZ, PROMPT_LX = 64, 256
+
+
+def _prompt_modules(dev, seed, dtype=torch.bfloat16):
+    from mmtrack_torch.models.layers import LayerNorm
+    from mmtrack_torch.models.vipt import PromptBlock
+
+    g = torch.Generator().manual_seed(seed)
+    norms = [LayerNorm(C, dtype=dtype, device=dev) for _ in range(2)]
+    block = PromptBlock(C, dtype=dtype, device=dev)
+    with torch.no_grad():
+        for n in norms:
+            n.weight.copy_(1 + 0.1 * torch.randn(C, generator=g))
+            n.bias.copy_(0.1 * torch.randn(C, generator=g))
+        for conv, scale in ((block.conv0_0, 0.3 * C ** -0.5), (block.conv0_1, 0.3 * C ** -0.5),
+                            (block.conv1x1, 8 ** -0.5)):
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * scale)
+            conv.bias.copy_(0.05 * torch.randn(conv.bias.shape, generator=g))
+    return norms, block
+
+
+def _prompt_case(dev, B, La, seed, permuted=False):
+    """(tokens pair, state pair, live index or None) of a later block with
+    La tokens entering it: La - 64 live grid rows, random per lane."""
+    g = torch.Generator().manual_seed(seed)
+    live = La - PROMPT_LZ
+    x_cur = (torch.randn(B, La, C, generator=g) * 2 + 0.3).to(dev, torch.bfloat16)
+    state = tuple(torch.randn(B, L, C, generator=g).to(dev, torch.bfloat16)
+                  for L in (PROMPT_LZ, PROMPT_LX))
+    gidx = None
+    if live < PROMPT_LX or permuted:
+        gidx = torch.stack([torch.randperm(PROMPT_LX, generator=g)[:live]
+                            for _ in range(B)]).to(dev)
+    return (x_cur[:, :PROMPT_LZ], x_cur[:, PROMPT_LZ:]), state, gidx
+
+
+def _assert_prompt_close(got, want, tokens):
+    out, (p_z, p_s) = got
+    w_out, (w_z, w_s) = want
+    x = torch.cat(tokens, dim=1)
+    assert out.shape == w_out.shape and p_z.shape == w_z.shape and p_s.shape == w_s.shape
+    _assert_row_ulps(out, w_out, x)
+    _assert_row_ulps(p_z, w_z, torch.zeros_like(p_z))
+    _assert_row_ulps(p_s, w_s, torch.zeros_like(p_s))
+
+
+@pytest.fixture
+def f32_products(monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_bf16_reduced_precision_reduction",
+                        False)
+
+
+@pytest.mark.parametrize("B", [1, 32])
+@pytest.mark.parametrize("La,permuted", [(320, False), (320, True), (244, False),
+                                         (190, False), (153, False)],
+                         ids=["320", "320_permuted", "244", "190", "153"])
+def test_prompt_kernel_matches_plain(dev, f32_products, B, La, permuted):
+    from mmtrack_torch.ops.prompt import prompt_step, prompt_step_plain
+
+    (norm_a, norm_b), block = _prompt_modules(dev, seed=La)
+    tokens, state, gidx = _prompt_case(dev, B, La, seed=B, permuted=permuted)
+    before = profiling.counters()
+    with torch.no_grad():
+        got = prompt_step(tokens, state, norm_a, norm_b, block, gidx)
+        want = prompt_step_plain(tokens, state, norm_a, norm_b, block, gidx)
+    assert profiling.launches([prompt_step], before) == {"prompt_step": 1}
+    _assert_prompt_close(got, want, tokens)
+
+
+@pytest.mark.parametrize("B", [1, 32])
+def test_prompt_kernel_block0_form_matches_plain(dev, f32_products, B):
+    """Block 0: the RGB tokens and the auxiliary tokens (separate tensors,
+    one LayerNorm for both) in place of the tokens and the state."""
+    from mmtrack_torch.ops.prompt import prompt_step, prompt_step_plain
+
+    (n0, _), block = _prompt_modules(dev, seed=0)
+    g = torch.Generator().manual_seed(B)
+    rgb, aux = [tuple((torch.randn(B, L, C, generator=g) * 2).to(dev, torch.bfloat16)
+                      for L in (PROMPT_LZ, PROMPT_LX)) for _ in range(2)]
+    before = profiling.counters()
+    with torch.no_grad():
+        got = prompt_step(rgb, aux, n0, n0, block)
+        want = prompt_step_plain(rgb, aux, n0, n0, block)
+    assert profiling.launches([prompt_step], before) == {"prompt_step": 1}
+    _assert_prompt_close(got, want, rgb)
+
+
+def test_prompt_kernel_in_a_captured_graph_replayed_twice(dev, f32_products):
+    from mmtrack_torch.ops.prompt import prompt_step, prompt_step_plain
+
+    (norm_a, norm_b), block = _prompt_modules(dev, seed=1)
+    tokens, state, gidx = _prompt_case(dev, 4, 190, seed=0)
+    x_cur = torch.cat(tokens, dim=1)
+    static = (x_cur, *state, gidx)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = profiling.counters()
+    with torch.no_grad():
+        with torch.cuda.stream(side):
+            prompt_step((x_cur[:, :PROMPT_LZ], x_cur[:, PROMPT_LZ:]), state, norm_a, norm_b,
+                        block, gidx)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = prompt_step((x_cur[:, :PROMPT_LZ], x_cur[:, PROMPT_LZ:]), state, norm_a,
+                              norm_b, block, gidx)
+        for seed in (5, 6):
+            fresh_tokens, fresh_state, fresh_gidx = _prompt_case(dev, 4, 190, seed=seed)
+            for dst, src in zip(static, (torch.cat(fresh_tokens, dim=1), *fresh_state,
+                                         fresh_gidx)):
+                dst.copy_(src)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = prompt_step_plain(fresh_tokens, fresh_state, norm_a, norm_b, block,
+                                     fresh_gidx)
+            _assert_prompt_close(out, want, fresh_tokens)
+    assert profiling.launches([prompt_step], before) == {"prompt_step": 2}   # warm-up, capture
+
+
+def test_prompt_step_under_autograd_launches_with_the_plain_gradient(dev, f32_products):
+    """Prompt tuning: the kernels run the forward (one launch, none in the
+    backward) and every input and parameter gets the plain step's
+    gradient, bit for bit (ops/plain_grad.py)."""
+    from mmtrack_torch.ops.prompt import prompt_step, prompt_step_plain
+
+    (norm_a, norm_b), block = _prompt_modules(dev, seed=2)
+    tokens, state, gidx = _prompt_case(dev, 2, 244, seed=3)
+    x_cur = torch.cat(tokens, dim=1).requires_grad_()
+    state = tuple(t.requires_grad_() for t in state)
+    tokens = (x_cur[:, :PROMPT_LZ], x_cur[:, PROMPT_LZ:])
+    g = torch.Generator().manual_seed(4)
+    weights = [torch.randn(2, n, C, generator=g).to(dev) for n in (244, PROMPT_LZ + PROMPT_LX)]
+    leaves = [x_cur, *state, *norm_a.parameters(), *norm_b.parameters(), *block.parameters()]
+
+    def grads(step):
+        for t in leaves:
+            t.grad = None
+        out, (p_z, p_s) = step(tokens, state, norm_a, norm_b, block, gidx)
+        ((out.float() * weights[0]).sum()
+         + (torch.cat([p_z, p_s], 1).float() * weights[1]).sum()).backward()
+        return out, [t.grad.clone() for t in leaves]
+
+    before = profiling.counters()
+    got, got_grads = grads(prompt_step)
+    assert profiling.launches([prompt_step], before) == {"prompt_step": 1}
+    want, want_grads = grads(prompt_step_plain)
+    assert got.grad_fn is not None
+    _assert_row_ulps(got.detach(), want.detach(), x_cur.detach())
+    for gg, wg in zip(got_grads, want_grads):
+        assert torch.equal(gg, wg)
+
+
+def test_prompt_step_refuses_f32_on_the_card(dev):
+    """A CUDA step launches the kernels or raises: an f32 model's steps
+    are `prompt_step_plain`, chosen by the model."""
+    from mmtrack_torch.ops.prompt import prompt_step
+
+    (norm_a, norm_b), block = _prompt_modules(dev, seed=2, dtype=torch.float32)
+    tokens, state, gidx = _prompt_case(dev, 2, 244, seed=3)
+    tokens, state = (tuple(t.float() for t in pair) for pair in (tokens, state))
+    before = profiling.counters()
+    with torch.no_grad(), pytest.raises(TypeError, match="bf16"):
+        prompt_step(tokens, state, norm_a, norm_b, block, gidx)
+    assert profiling.launches([prompt_step], before) == {"prompt_step": 0}
+
+
+@pytest.mark.parametrize("use_kernels,dtype,launches", [
+    (True, torch.bfloat16, 2), (False, torch.bfloat16, 0), (True, torch.float32, 0)],
+    ids=["kernels_bf16", "plain_bf16", "kernels_f32"])
+def test_a_models_prompt_steps_launch_where_its_blocks_do(dev, use_kernels, dtype, launches):
+    """ViT-B with two blocks: block 0's step and block 1's launch the
+    kernels with `use_kernels` at bf16; with use_kernels=False and at f32
+    (CEBlock's plain layers) the steps are plain and launch nothing."""
+    from mmtrack_torch.models.vipt import ViTCEPrompt, init_weights
+    from mmtrack_torch.ops.prompt import prompt_step
+
+    model = ViTCEPrompt(depth=2, ce_loc=(), dtype=dtype, device=dev, use_kernels=use_kernels)
+    init_weights(model, 0)
+    g = torch.Generator().manual_seed(0)
+    z, x = (torch.randn(2, S, S, 6, generator=g).to(dev) for S in (128, 256))
+    before = profiling.counters()
+    with torch.no_grad():
+        out = model(z, x)
+    assert profiling.launches([prompt_step], before) == {"prompt_step": launches}
+    assert torch.isfinite(out.float()).all()
+
+
+# The tracking cell's weight statistics: `init_weights`' Xavier-uniform
+# prompt convs and zero biases, unit LayerNorms, the Fovea's temperature
+# 10. x0 of a normalised row is ~1.4 a channel, so a part's logits spread
+# by ~60 and its top two often tie: one x0 flipped by an ulp between the
+# kernels' f32 order and the plain one moves the softmax of the few rows
+# that dominate a channel, and with it those rows of the state. Read on
+# an H100, 16 seeds of each form below: tokens (whose scale is the
+# residual stream) within 1 ulp, at most 2 state rows a step past two
+# ulps, the worst 5 ulps; in the tracking cell's own steps (384 steps of
+# 32 lanes) the worst state row read 7.75. Bars: tokens within
+# PROMPT_SHARP_TOKEN_ULPS, at most PROMPT_SHARP_ROWS state rows past two
+# ulps, none past PROMPT_SHARP_ROW_ULPS. Softmax statistics gone wrong
+# move whole channels of every row, by far more.
+PROMPT_SHARP_TOKEN_ULPS = 2
+PROMPT_SHARP_ROWS = 4
+PROMPT_SHARP_ROW_ULPS = 8
+
+
+def _cell_prompt_modules(dev, seed):
+    from torch import nn
+
+    from mmtrack_torch.models.layers import LayerNorm
+    from mmtrack_torch.models.vipt import PromptBlock, init_weights
+
+    holder = nn.Module()
+    holder.prompt_norms = nn.ModuleList(LayerNorm(C, dtype=torch.bfloat16, device=dev)
+                                        for _ in range(2))
+    holder.prompt_blocks = nn.ModuleList([PromptBlock(C, dtype=torch.bfloat16, device=dev)])
+    init_weights(holder, seed)
+    return tuple(holder.prompt_norms), holder.prompt_blocks[0]
+
+
+def _row_ulps(got, want, x):
+    """Each row's largest |got - want| in bf16 ulps of the row's scale
+    (as _assert_row_ulps)."""
+    g, w, xf = got.float(), want.float(), x.float()
+    scale = torch.stack([xf.abs(), g.abs(), w.abs(), (w - xf).abs()]).amax(0).amax(-1, True)
+    ulp = torch.exp2(torch.floor(torch.log2(scale.clamp(min=2.0 ** -126))) - 7)
+    return ((g - w).abs() / ulp).amax(-1)
+
+
+def _fovea_spread(tokens, gidx, Lx, norm_a, block):
+    from mmtrack_torch.ops.ce import recover_search_tokens
+
+    full_s = tokens[1] if gidx is None else recover_search_tokens(tokens[1], gidx, Lx)
+    a = norm_a(torch.cat([tokens[0], full_s], dim=1))
+    x0 = block._dense(block.conv0_0, a).float() * block.fovea.smooth
+    return (x0.amax(1) - x0.amin(1)).min().item()
+
+
+@pytest.mark.parametrize("La", [320, 244, 190, 153, 0],
+                         ids=["320", "244", "190", "153", "block0"])
+def test_prompt_kernel_with_the_cells_weights(dev, f32_products, La):
+    from mmtrack_torch.ops.prompt import prompt_step, prompt_step_plain
+
+    (norm_a, norm_b), block = _cell_prompt_modules(dev, seed=La)
+    if La:
+        tokens, state, gidx = _prompt_case(dev, 32, La, seed=La + 1)
+    else:           # block 0: the RGB and the auxiliary tokens, one LayerNorm for both
+        norm_b = norm_a
+        g = torch.Generator().manual_seed(8)
+        tokens, state = [tuple((torch.randn(32, L, C, generator=g) * 2).to(dev, torch.bfloat16)
+                               for L in (PROMPT_LZ, PROMPT_LX)) for _ in range(2)]
+        gidx = None
+    with torch.no_grad():
+        assert _fovea_spread(tokens, gidx, PROMPT_LX, norm_a, block) > 30
+        out, (p_z, p_s) = prompt_step(tokens, state, norm_a, norm_b, block, gidx)
+        w_out, (w_z, w_s) = prompt_step_plain(tokens, state, norm_a, norm_b, block, gidx)
+    tok = _row_ulps(out, w_out, torch.cat(tokens, dim=1))
+    w_state = torch.cat([w_z, w_s], 1)
+    st = _row_ulps(torch.cat([p_z, p_s], 1), w_state, torch.zeros_like(w_state))
+    assert tok.max().item() <= PROMPT_SHARP_TOKEN_ULPS, tok.max().item()
+    assert int((st > 2).sum()) <= PROMPT_SHARP_ROWS, int((st > 2).sum())
+    assert st.max().item() <= PROMPT_SHARP_ROW_ULPS, st.max().item()
